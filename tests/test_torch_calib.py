@@ -1,0 +1,86 @@
+"""The port's copies of the host calibration code equal the JAX package's.
+
+xmaps_tpu_torch carries copies of xmaps_tpu.calib, .config constants,
+.utils.colormap and .utils.synthetic so that it imports nothing of the JAX
+package; these tests pin every array the engine consumes equal on two rigs.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import xmaps_tpu.config as jcfg  # noqa: E402
+from xmaps_tpu.calib.maps import CamProjMaps as JMaps  # noqa: E402
+from xmaps_tpu.utils.colormap import TURBO_BGR_U8 as J_TURBO  # noqa: E402
+from xmaps_tpu.utils.synthetic import (  # noqa: E402
+    make_synthetic_calibration as j_calib,
+    simulate_plane_events as j_sim,
+)
+
+import xmaps_tpu_torch.config as tcfg  # noqa: E402
+from xmaps_tpu_torch.calib.maps import CamProjMaps as TMaps  # noqa: E402
+from xmaps_tpu_torch.utils.colormap import TURBO_BGR_U8 as T_TURBO  # noqa: E402
+from xmaps_tpu_torch.utils.synthetic import (  # noqa: E402
+    make_synthetic_calibration as t_calib,
+    simulate_plane_events as t_sim,
+)
+
+torch.set_num_threads(1)
+
+RIGS = [
+    dict(camera_width=128, camera_height=96, projector_width=180, projector_height=320),
+    dict(),  # make_synthetic_calibration defaults
+]
+
+
+def test_constants_and_colormap():
+    for name in ("X_OFFSET", "RECTIFICATION_SCALE_XMAPS",
+                 "RECTIFICATION_SCALE_ESL", "DILATE_KERNEL"):
+        assert getattr(tcfg, name) == getattr(jcfg, name), name
+    t = tcfg.PipelineConfig(1, 2, 90, 4, 5, 6)
+    j = jcfg.PipelineConfig(1, 2, 90, 4, 5, 6)
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert (t.x_map_width, t.t_px_scale) == (j.x_map_width, j.t_px_scale)
+    np.testing.assert_array_equal(T_TURBO, J_TURBO)
+    assert T_TURBO.dtype == J_TURBO.dtype
+
+
+@pytest.mark.parametrize("rig", RIGS, ids=["graft_rig", "default_rig"])
+def test_cam_proj_maps_equal(rig):
+    jc, tc = j_calib(**rig), t_calib(**rig)
+    for f in dataclasses.fields(jc):
+        np.testing.assert_array_equal(getattr(tc, f.name), getattr(jc, f.name))
+    jm, tm = JMaps(jc), TMaps(tc)
+    for name in JMaps._ARRAY_FIELDS:
+        a, b = getattr(jm, name), getattr(tm, name)
+        assert a.dtype == b.dtype, name
+        np.testing.assert_array_equal(b, a, err_msg=name)
+    for border in (False, True):
+        np.testing.assert_array_equal(
+            tm.build_rectified_time_map(border_replicate=border),
+            jm.build_rectified_time_map(border_replicate=border),
+        )
+    ej = j_sim(jc, depth_m=0.6, subsample=0.5, jitter_us=2.0,
+               rng=np.random.default_rng(5))
+    et = t_sim(tc, depth_m=0.6, subsample=0.5, jitter_us=2.0,
+               rng=np.random.default_rng(5))
+    np.testing.assert_array_equal(et, ej)
+
+
+def test_cv_yaml_parse_matches(tmp_path):
+    """The copy with the lazy yaml import parses both matrix dialects like
+    the JAX package."""
+    from xmaps_tpu.calib.cv_yaml import load_cv_yaml as j_load
+    from xmaps_tpu_torch.calib.cv_yaml import load_cv_yaml as t_load
+
+    p = tmp_path / "c.yaml"
+    p.write_text(
+        "%YAML:1.0\n---\nR: !!opencv-matrix\n   rows: 1\n   cols: 2\n"
+        "   dt: d\n   data: [ 1., 2. ]\n"
+        "camera_intrinsic_matrix:\n  type-id: opencv_matrix\n  rows: 1\n"
+        "  cols: 1\n  data: [3.0]\n"
+    )
+    assert t_load(str(p)) == j_load(str(p))

@@ -1,0 +1,145 @@
+"""Kernels 2 and 3 (plain versions) vs the JAX Pallas tail kernels.
+
+``tail_projector`` and ``colorize_camera`` on CPU tensors run their plain
+PyTorch versions; they are held against ``pallas_tail`` and
+``pallas_colorize`` run in interpret mode with ``pack=PACK``, for every
+output variant.  Frames, depth and disparity are compared exactly.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from xmaps_tpu.calib.maps import CamProjMaps  # noqa: E402
+from xmaps_tpu.ops import pallas_tail as jpt  # noqa: E402
+from xmaps_tpu.utils.synthetic import make_synthetic_calibration  # noqa: E402
+
+from xmaps_tpu_torch.ops.cuda_tail import (  # noqa: E402
+    CamTailPlan,
+    build_tail_plan,
+    colorize_camera,
+    tail_projector,
+)
+from xmaps_tpu_torch.ops.frame_pipeline import DeviceTables  # noqa: E402
+from xmaps_tpu_torch.ops.scatter import PACK  # noqa: E402
+
+torch.set_num_threads(1)
+
+Z_NEAR, Z_FAR = 0.2, 1.2
+VARIANTS = [
+    dict(emit_aux=True, packed_bgr=False),
+    dict(emit_aux=False, packed_bgr=False),
+    dict(emit_aux=False, packed_bgr=True),
+]
+VARIANT_IDS = ["aux", "display", "display_packed"]
+RIGS = {
+    "default": {},
+    "graft": dict(camera_width=128, camera_height=96, projector_width=180, projector_height=320),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _rig(name):
+    calib = make_synthetic_calibration(**RIGS[name])
+    maps = CamProjMaps(calib)
+    p03 = float(maps.P2[0, 3])
+    args = (maps.disp_proj_mapx_i16, maps.disp_proj_mapy_i16,
+            calib.rect_image_height, calib.rect_image_width)
+    jplan = jpt.build_tail_plan(*args, p03=p03, z_near=Z_NEAR, z_far=Z_FAR)
+    tplan = build_tail_plan(*args, p03=p03, z_near=Z_NEAR, z_far=Z_FAR)
+    tables = DeviceTables.from_maps(maps, np.zeros((1, 1), np.int16), "cpu")
+    return calib, maps, jplan, tplan, tables
+
+
+@pytest.fixture(params=sorted(RIGS))
+def rig(request):
+    return _rig(request.param)
+
+
+def _packed_map(shape, seed, density=0.03):
+    """A scattered packed map: (priority + 1) * PACK + disp, disp in
+    [0, 160) (0 included: a kept event of disparity 0)."""
+    rng = np.random.default_rng(seed)
+    m = np.zeros(shape, np.int64)
+    hit = rng.random(shape) < density
+    m[hit] = (rng.integers(0, 4096, hit.sum()) + 1) * PACK + rng.integers(0, 160, hit.sum())
+    return m
+
+
+def _check(got, ref, variant):
+    frame, depth, disp = got
+    rframe, rdepth, rdisp = ref
+    if variant["packed_bgr"]:
+        assert frame.dtype == torch.int32
+        np.testing.assert_array_equal(
+            frame.numpy().astype(np.int64), np.asarray(rframe).astype(np.int64)
+        )
+    else:
+        assert frame.dtype == torch.uint8
+        np.testing.assert_array_equal(frame.numpy(), np.asarray(rframe))
+    if variant["emit_aux"]:
+        np.testing.assert_array_equal(depth.numpy(), np.asarray(rdepth))
+        np.testing.assert_array_equal(disp.numpy(), np.asarray(rdisp))
+    else:
+        assert depth is None and disp is None and rdepth is None and rdisp is None
+
+
+def test_tail_plan_crop_matches_jax(rig):
+    calib, maps, jplan, tplan, tables = rig
+    for f in ("full_H", "full_W", "crop_row0", "crop_col0", "H", "W", "p03", "z_near", "z_far"):
+        assert getattr(tplan, f) == getattr(jplan, f), f
+
+
+@pytest.mark.parametrize(
+    "rig_name,variant",
+    [("default", v) for v in VARIANTS] + [("graft", VARIANTS[0])],
+    ids=[f"default-{i}" for i in VARIANT_IDS] + ["graft-aux"],
+)
+def test_tail_projector_matches_pallas(rig_name, variant):
+    """Every variant at the default rig; the wider graft rig (an interpret
+    run there takes ~10 s) with the full outputs."""
+    calib, maps, jplan, tplan, tables = _rig(rig_name)
+    crop = _packed_map((tplan.H, tplan.W), seed=tplan.H)
+    padded = np.zeros((jplan.H_pad, jplan.W_pad), np.uint32)
+    padded[: tplan.H, : tplan.W] = crop
+    ref = jpt.pallas_tail(jnp.asarray(padded), jplan, interpret=True, pack=PACK, **variant)
+    got = tail_projector(torch.from_numpy(crop.astype(np.int32)), tables, tplan, **variant)
+    _check(got, ref, variant)
+    assert tuple(got[0].shape[:2]) == (calib.projector_height, calib.projector_width)
+
+
+def test_tail_projector_empty_map():
+    calib, maps, jplan, tplan, tables = _rig("default")
+    empty = torch.zeros((tplan.H, tplan.W), dtype=torch.int32)
+    frame, depth, disp = tail_projector(empty, tables, tplan)
+    ref = jpt.pallas_tail(
+        jnp.zeros((jplan.H_pad, jplan.W_pad), jnp.uint32), jplan, interpret=True, pack=PACK
+    )
+    _check((frame, depth, disp), ref, VARIANTS[0])
+    assert (depth == 0).all() and (frame == 255).all()  # all undefined -> white
+
+
+@pytest.mark.parametrize("variant", VARIANTS, ids=VARIANT_IDS)
+def test_colorize_camera_matches_pallas(rig, variant):
+    calib, maps, jplan, tplan, tables = rig
+    H, W = calib.camera_height, calib.camera_width
+    jcam = jpt.build_cam_tail_plan(H, W, p03=float(maps.P2[0, 3]), z_near=Z_NEAR, z_far=Z_FAR)
+    tcam = CamTailPlan(H=H, W=W, p03=jcam.p03, z_near=Z_NEAR, z_far=Z_FAR)
+    packed = _packed_map((H, W), seed=W, density=0.3)
+    padded = np.zeros((jcam.H_pad, jcam.W_pad), np.uint32)
+    padded[:H, :W] = packed
+    ref = jpt.pallas_colorize(jnp.asarray(padded), jcam, interpret=True, pack=PACK, **variant)
+    got = colorize_camera(torch.from_numpy(packed.astype(np.int32)), tables, tcam, **variant)
+    _check(got, ref, variant)
+
+
+def test_packed_bgr_requires_display_only():
+    calib, maps, jplan, tplan, tables = _rig("default")
+    m = torch.zeros((tplan.H, tplan.W), dtype=torch.int32)
+    with pytest.raises(ValueError, match="display-only"):
+        tail_projector(m, tables, tplan, emit_aux=True, packed_bgr=True)

@@ -1,0 +1,265 @@
+"""Kernel 2 and 3 wrappers: the dense per-frame image tail.
+
+- ``tail_projector``: packed crop map -> unpack -> 7x7 max dilate -> nearest
+  remap to the projector -> depth -> u8 -> TURBO.  On CUDA it launches
+  ``csrc/tail.cu:tail_projector`` (replacing the TPU kernel ``pallas_tail``);
+  on CPU it runs the plain chain: ``dilate_max`` on the crop,
+  ``remap_nearest_i16``, then ``ops.image_tail``.
+- ``colorize_camera``: the camera view, packed map -> unpack -> depth -> u8
+  -> TURBO (replacing ``pallas_colorize``).
+
+The plans keep only what the GPU needs: the crop of the rectified frame
+that the projector remap samples (plus the 3-px dilate halo) and the
+scalars.  The TPU plan's band tables and tile ladder are not needed.
+
+Each function returns (frame, depth, disp): frame is (H, W, 3) uint8, or
+with ``packed_bgr`` one (H, W) int32 packed-BGR plane (B | G<<8 | R<<16);
+depth and disp are float32 planes, or None unless ``emit_aux``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from xmaps_tpu_torch.ops import _build
+from xmaps_tpu_torch.ops.image_tail import (
+    clip_normalize_u8,
+    colorize_turbo,
+    colorize_turbo_packed,
+    dilate_max,
+    disparity_to_depth,
+    remap_nearest_i16,
+)
+from xmaps_tpu_torch.ops.scatter import unpack_disp
+
+__all__ = [
+    "TailPlan",
+    "build_tail_plan",
+    "CamTailPlan",
+    "tail_projector",
+    "tail_projector_plain",
+    "colorize_camera",
+    "colorize_camera_plain",
+]
+
+
+@dataclass(frozen=True)
+class TailPlan:
+    """Projector-view tail: the crop and the scalars.
+
+    The kernel only reads rect pixels the projector remap samples plus the
+    3-px dilate halo, so scatter targets outside the crop cannot influence
+    any output pixel and cropping is bit-exact.
+    """
+
+    full_H: int  # full rectified image height
+    full_W: int
+    crop_row0: int  # crop origin in full-rect coordinates
+    crop_col0: int
+    H: int  # crop height
+    W: int  # crop width
+    p03: float
+    z_near: float
+    z_far: float
+
+
+def build_tail_plan(
+    proj_mapx_i16: np.ndarray,
+    proj_mapy_i16: np.ndarray,
+    rect_height: int,
+    rect_width: int,
+    p03: float,
+    z_near: float,
+    z_far: float,
+) -> TailPlan:
+    """The crop of ``xmaps_tpu.ops.pallas_tail.build_tail_plan``: the
+    sampled window of the rect frame plus the dilate halo, clipped to it."""
+    X = proj_mapx_i16.astype(np.int64)
+    Y = proj_mapy_i16.astype(np.int64)
+    inb = (X >= 0) & (X < rect_width) & (Y >= 0) & (Y < rect_height)
+    if inb.any():
+        r_lo = max(int(Y[inb].min()) - 3, 0)
+        r_hi = min(int(Y[inb].max()) + 3, rect_height - 1)
+        c_lo = max(int(X[inb].min()) - 3, 0)
+        c_hi = min(int(X[inb].max()) + 3, rect_width - 1)
+    else:
+        r_lo, r_hi, c_lo, c_hi = 0, rect_height - 1, 0, rect_width - 1
+    return TailPlan(
+        full_H=rect_height, full_W=rect_width,
+        crop_row0=r_lo, crop_col0=c_lo,
+        H=r_hi - r_lo + 1, W=c_hi - c_lo + 1,
+        p03=float(p03), z_near=float(z_near), z_far=float(z_far),
+    )
+
+
+@dataclass(frozen=True)
+class CamTailPlan:
+    """Camera-view tail: the camera frame and the scalars."""
+
+    H: int
+    W: int
+    p03: float
+    z_near: float
+    z_far: float
+
+
+def _check(kernel, dev, **tensors):
+    for name, (a, dtype, shape) in tensors.items():
+        if (
+            a.device != dev
+            or a.dtype != dtype
+            or tuple(a.shape) != tuple(shape)
+            or not a.is_contiguous()
+        ):
+            raise ValueError(
+                f"{kernel}: {name} must be a contiguous {dtype} tensor of shape "
+                f"{tuple(shape)} on {dev}, got {a.dtype} {tuple(a.shape)} on {a.device}"
+            )
+
+
+def _outputs(shape, dev, emit_aux, packed_bgr):
+    if packed_bgr and emit_aux:
+        raise ValueError("packed_bgr is display-only (emit_aux=False)")
+    frame = (
+        torch.empty(shape, dtype=torch.int32, device=dev)
+        if packed_bgr
+        else torch.empty((*shape, 3), dtype=torch.uint8, device=dev)
+    )
+    depth = torch.empty(shape, dtype=torch.float32, device=dev) if emit_aux else None
+    disp = torch.empty(shape, dtype=torch.float32, device=dev) if emit_aux else None
+    ptrs = (
+        frame.data_ptr() if packed_bgr else None,
+        None if packed_bgr else frame.data_ptr(),
+        depth.data_ptr() if emit_aux else None,
+        disp.data_ptr() if emit_aux else None,
+    )
+    return (frame, depth, disp), ptrs
+
+
+def _plain_epilogue(disp, p03, z_near, z_far, emit_aux, packed_bgr):
+    if packed_bgr and emit_aux:
+        raise ValueError("packed_bgr is display-only (emit_aux=False)")
+    depth = disparity_to_depth(disp, p03)
+    u8 = clip_normalize_u8(depth, z_near, z_far)
+    frame = colorize_turbo_packed(u8) if packed_bgr else colorize_turbo(u8)
+    if emit_aux:
+        return frame, depth, disp
+    return frame, None, None
+
+
+def tail_projector_plain(
+    packed_crop: torch.Tensor,
+    tables,
+    plan: TailPlan,
+    *,
+    emit_aux: bool = True,
+    packed_bgr: bool = False,
+):
+    """Plain PyTorch version of ``tail_projector`` (any device): dilate
+    the crop, remap with the crop-shifted projector maps (out of the rect
+    frame -> -1 -> 0), then the image_tail chain."""
+    X = tables.proj_mapx_i16.int()
+    Y = tables.proj_mapy_i16.int()
+    inb = (X >= 0) & (X < plan.full_W) & (Y >= 0) & (Y < plan.full_H)
+    dil = dilate_max(unpack_disp(packed_crop), 7)
+    disp = remap_nearest_i16(
+        dil,
+        torch.where(inb, X - plan.crop_col0, -1),
+        torch.where(inb, Y - plan.crop_row0, -1),
+    )
+    return _plain_epilogue(
+        disp, tables.p03, plan.z_near, plan.z_far, emit_aux, packed_bgr
+    )
+
+
+def colorize_camera_plain(
+    packed: torch.Tensor,
+    tables,
+    plan: CamTailPlan,
+    *,
+    emit_aux: bool = True,
+    packed_bgr: bool = False,
+):
+    """Plain PyTorch version of ``colorize_camera`` (any device)."""
+    return _plain_epilogue(
+        unpack_disp(packed), tables.p03, plan.z_near, plan.z_far,
+        emit_aux, packed_bgr,
+    )
+
+
+def tail_projector(
+    packed_crop: torch.Tensor,
+    tables,
+    plan: TailPlan,
+    *,
+    emit_aux: bool = True,
+    packed_bgr: bool = False,
+):
+    """(H, W) int32 packed crop map -> projector-view (frame, depth, disp).
+
+    ``tables``: ``ops.frame_pipeline.DeviceTables`` (projector maps, p03,
+    TURBO LUT) on the map's device.
+    """
+    dev = packed_crop.device
+    if dev.type == "cpu":
+        return tail_projector_plain(
+            packed_crop, tables, plan, emit_aux=emit_aux, packed_bgr=packed_bgr
+        )
+    if dev.type != "cuda":
+        raise ValueError(f"tail_projector: unsupported device {dev}")
+    Hp, Wp = tables.proj_mapx_i16.shape
+    _check(
+        "tail_projector", dev,
+        packed_crop=(packed_crop, torch.int32, (plan.H, plan.W)),
+        proj_mapx=(tables.proj_mapx_i16, torch.int16, (Hp, Wp)),
+        proj_mapy=(tables.proj_mapy_i16, torch.int16, (Hp, Wp)),
+        lut=(tables.turbo_lut, torch.int32, (256,)),
+    )
+    lib = _build.load()
+    outs, ptrs = _outputs((Hp, Wp), dev, emit_aux, packed_bgr)
+    err = lib.tail_projector(
+        packed_crop.data_ptr(), plan.H, plan.W, plan.crop_row0, plan.crop_col0,
+        plan.full_H, plan.full_W,
+        tables.proj_mapx_i16.data_ptr(), tables.proj_mapy_i16.data_ptr(), Hp, Wp,
+        tables.turbo_lut.data_ptr(), plan.p03, plan.z_near, plan.z_far,
+        *ptrs, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check("tail_projector", err)
+    _build.LAUNCHES["tail_projector"] += 1
+    return outs
+
+
+def colorize_camera(
+    packed: torch.Tensor,
+    tables,
+    plan: CamTailPlan,
+    *,
+    emit_aux: bool = True,
+    packed_bgr: bool = False,
+):
+    """(H, W) int32 packed camera-view map -> (frame, depth, disp)."""
+    dev = packed.device
+    if dev.type == "cpu":
+        return colorize_camera_plain(
+            packed, tables, plan, emit_aux=emit_aux, packed_bgr=packed_bgr
+        )
+    if dev.type != "cuda":
+        raise ValueError(f"colorize_camera: unsupported device {dev}")
+    _check(
+        "colorize_camera", dev,
+        packed=(packed, torch.int32, (plan.H, plan.W)),
+        lut=(tables.turbo_lut, torch.int32, (256,)),
+    )
+    lib = _build.load()
+    outs, ptrs = _outputs((plan.H, plan.W), dev, emit_aux, packed_bgr)
+    err = lib.colorize_camera(
+        packed.data_ptr(), plan.H * plan.W,
+        tables.turbo_lut.data_ptr(), plan.p03, plan.z_near, plan.z_far,
+        *ptrs, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check("colorize_camera", err)
+    _build.LAUNCHES["colorize_camera"] += 1
+    return outs

@@ -1,0 +1,91 @@
+"""Fixed-capacity SoA event batches (the device-side event representation).
+
+Port of ``xmaps_tpu.ops.event_batch``.  Frames are carried as padded
+batches of a static capacity with a validity mask; timestamps are int32
+microseconds relative to the frame's first event (a frame spans ~16.7 ms).
+The static capacity is kept although PyTorch runs eagerly: a CUDA graph
+captured over the frame wants one shape.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+
+class EventBatch(NamedTuple):
+    """One padded frame of events, SoA layout.
+
+    Attributes:
+        x, y: pixel coordinates, int32, shape (capacity,).
+        t: microseconds relative to the first event, int32, shape
+           (capacity,); or float32 in [0, 1] for the offline eval path.
+        p: polarity 0/1, int32, shape (capacity,).
+        valid: bool mask, shape (capacity,).
+        count: number of valid events, 0-dim int32.
+    """
+
+    x: torch.Tensor
+    y: torch.Tensor
+    t: torch.Tensor
+    p: torch.Tensor
+    valid: torch.Tensor
+    count: torch.Tensor
+
+    @property
+    def capacity(self) -> int:
+        return self.x.shape[-1]
+
+    @staticmethod
+    def from_arrays(
+        x: np.ndarray,
+        y: np.ndarray,
+        t: np.ndarray,
+        p: np.ndarray,
+        capacity: int,
+        *,
+        device,
+    ) -> "EventBatch":
+        """Pad/truncate host arrays into a fixed-capacity batch on
+        ``device``.  Integer timestamps are rebased to t[0] before narrowing
+        to int32; float timestamps stay float32."""
+        n = min(len(x), capacity)
+
+        def pad(a, dtype):
+            out = np.zeros(capacity, dtype=dtype)
+            out[:n] = np.asarray(a)[:n]
+            return out
+
+        if np.issubdtype(np.asarray(t).dtype, np.integer):
+            t_rel = np.asarray(t[:n], dtype=np.int64)
+            if n:
+                t_rel = t_rel - t_rel[0]
+            t_arr = pad(t_rel, np.int32)
+        else:
+            t_arr = pad(np.asarray(t[:n], dtype=np.float32), np.float32)
+
+        valid = np.zeros(capacity, dtype=bool)
+        valid[:n] = True
+
+        def dev(a):
+            return torch.from_numpy(a).to(device)
+
+        return EventBatch(
+            x=dev(pad(x, np.int32)),
+            y=dev(pad(y, np.int32)),
+            t=dev(t_arr),
+            p=dev(pad(p, np.int32)),
+            valid=dev(valid),
+            count=torch.tensor(n, dtype=torch.int32, device=device),
+        )
+
+    @staticmethod
+    def from_structured(
+        evs: np.ndarray, capacity: int, *, device
+    ) -> "EventBatch":
+        """Build from a Metavision-style structured array with x/y/t/p."""
+        return EventBatch.from_arrays(
+            evs["x"], evs["y"], evs["t"], evs["p"], capacity, device=device
+        )
