@@ -3,25 +3,39 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-Builds the three CUDA kernels from xmaps_tpu_torch/csrc/ with nvcc, checks
-each against its plain PyTorch version on the card, drives the engine's
-main path (XMapsDepthEngine.from_calibration -> process_frame) at the
-paper's demonstrator geometry in both views and at the ESL bench geometry,
-checks every frame bit for bit against the port on the CPU with the same
-tables, times frames and kernels with CUDA events, and prints one JSON
-line per kernel summary plus a last line
+Builds the five CUDA kernels from xmaps_tpu_torch/csrc/ with nvcc, checks
+each against its plain PyTorch version on the card, and drives the port's
+two paths:
+
+- the per-frame engine (XMapsDepthEngine.from_calibration -> process_frame)
+  at the paper's demonstrator geometry in both views and at the ESL bench
+  geometry (phases 3-6), every frame checked bit for bit against the port
+  on the CPU with the same tables;
+- the offline evaluation at the ESL geometry (phase 7): the four eval apps
+  (ESL init + refine, MC3D, X-maps, table) through their ``main`` on 4
+  synthetic plane scans, with kernels A and B (ESL search, static remap)
+  held against their plain versions and the brute force, and the outputs
+  against the port on the CPU.
+
+It times frames, scans and kernels (torch.profiler device time and wall
+time) and prints one JSON line per kernel summary plus a last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any mismatch or error raises: there is no fallback and no caught phase.
 
 Tolerances: every integer, u8 and float32 output is compared exactly
-(max_abs_err must be 0).  The one plausibility bound is the recovered
-plane depth, within 5% of the simulated plane (the depth formula neglects
-the rectification rotation and disparities are whole pixels).
+(max_abs_err must be 0), except the ESL refinement and its filters against
+the CPU port: the refined depths may differ in at most 2% of the pixels,
+each within its search bounds, and the filtered ones by at most 1e-3 m
+(``exp`` differs between the card and the host).  The plausibility bounds
+are the recovered plane depth, within 5% of the simulated plane (10% for
+MC3D, whose disparities are a third as fine).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import itertools
 import json
 import os
@@ -45,10 +59,23 @@ KERNEL_INFO = {
         "xmaps_tpu_torch/csrc/tail.cu",
         "xmaps_tpu/ops/pallas_tail.py:777",
     ),
+    "esl_disparity_search": (
+        "xmaps_tpu_torch/csrc/esl.cu",
+        "xmaps_tpu/ops/pallas_esl.py:281",
+    ),
+    "remap_gather": (
+        "xmaps_tpu_torch/csrc/remap.cu",
+        "xmaps_tpu/ops/pallas_remap.py:411",
+    ),
 }
 N_FRAMES = 12
 CAPACITY = 28 * 1024
 Z_NEAR, Z_FAR = 0.2, 1.2
+#: phase 7: camera / projector of the ESL eval apps' defaults, and the
+#: rectified disparities (p03 / z, in [5, 900)) of the simulated planes
+ESL_CAM = (640, 480)
+ESL_PROJ = (1080, 1920)
+ESL_DISPARITIES = (180, 220, 260, 300)
 
 
 def log(msg: str) -> None:
@@ -217,6 +244,289 @@ def time_pair(kernel_fn, plain_fn):
     return mean(k1, k2), mean(p1, p2)
 
 
+def write_esl_yaml(path, calib) -> None:
+    """An ESL calibration yaml (OpenCV FileStorage dialect) of ``calib``."""
+    with open(path, "w") as f:
+        f.write("%YAML:1.0\n---\n")
+        for name, m in (("cam_K", calib.camera_K), ("cam_kc", calib.camera_D.reshape(1, -1)),
+                        ("proj_K", calib.projector_K),
+                        ("proj_kc", calib.projector_D.reshape(1, -1)),
+                        ("R", calib.cam2proj_R), ("T", calib.cam2proj_T)):
+            m = np.asarray(m, dtype=np.float64)
+            data = ", ".join(repr(float(v)) for v in m.ravel())
+            f.write(f"{name}: !!opencv-matrix\n   rows: {m.shape[0]}\n"
+                    f"   cols: {m.shape[1] if m.ndim > 1 else 1}\n   dt: d\n"
+                    f"   data: [ {data} ]\n")
+
+
+def run_app(main_fn, argv, launch_expect):
+    """One eval app through its main, with its stdout kept out of the log;
+    the launch counts are reset just before and checked just after.
+    Returns (launch counts, the app's stdout)."""
+    import contextlib
+    import io
+
+    import torch
+    from xmaps_tpu_torch.ops import _build
+
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    with contextlib.redirect_stdout(out):
+        rc = main_fn(argv)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    if rc != 0:
+        raise AssertionError(f"{main_fn.__module__}.main returned {rc}:\n{out.getvalue()}")
+    want = {k: launch_expect.get(k, 0) for k in launches}
+    if launches != want:
+        raise AssertionError(f"{main_fn.__module__} launches {launches} != {want}")
+    return launches, out.getvalue()
+
+
+def wall_ms(fn, iters):
+    """Median host-clock ms of ``fn`` + synchronize over ``iters`` calls,
+    after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts)
+
+
+def median_depth_close(what, depth, z, tol):
+    d = depth[depth > 0]
+    med = float(np.median(d)) if d.size else float("nan")
+    if not (np.isfinite(depth).all() and d.size > 1000 and abs(med - z) < tol * z):
+        raise AssertionError(f"{what}: median depth {med} ({d.size} px) vs plane {z}")
+    return med
+
+
+def phase7_offline_eval(card, errs, kernels_ms):
+    """Phase 7: the offline evaluation chain at the ESL geometry."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    from xmaps_tpu_torch.apps import eval_esl, eval_mc3d, eval_table, eval_xmaps
+    from xmaps_tpu_torch.calib.maps import CalibrationParams, CamProjMaps
+    from xmaps_tpu_torch.models.depth_pipeline import XMapsDepthEngine
+    from xmaps_tpu_torch.ops.esl_search import esl_search_box, esl_search_box_plain, rows_monotone
+    from xmaps_tpu_torch.ops.event_batch import EventBatch
+    from xmaps_tpu_torch.ops.remap import remap_gather, remap_gather_plain
+    from xmaps_tpu_torch.utils.denoise import (
+        bilateral_filter,
+        median_blur_3x3,
+        tv_denoise_split_bregman,
+    )
+    from xmaps_tpu_torch.utils.synthetic import make_synthetic_calibration, simulate_plane_events
+
+    dev = torch.device("cuda")
+    n_scans = len(ESL_DISPARITIES)
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    seqs = {"cuda": root / "cuda" / "seq1", "cpu": root / "cpu" / "seq1"}
+    for seq in seqs.values():
+        (seq / "scans_np").mkdir(parents=True)
+    syn = make_synthetic_calibration(*ESL_CAM, *ESL_PROJ)
+    yaml_path = str(root / "calib.yaml")
+    write_esl_yaml(yaml_path, syn)
+    calib = CalibrationParams.from_esl_yaml(yaml_path, *ESL_CAM, *ESL_PROJ,
+                                            rectification_scale=3.0)
+    cache = os.path.expanduser("~/.cache/xmaps_tpu_torch")
+    t0 = time.perf_counter()
+    maps = CamProjMaps.build_cached(calib, zero_undistort_proj_map=True, cache_dir=cache)
+    maps_s = time.perf_counter() - t0
+    p03 = float(maps.P2[0, 3])
+    proj_rect = maps.build_rectified_time_map(scan_upwards=False, border_replicate=False)
+    if not rows_monotone(proj_rect):
+        raise AssertionError("rectified projector ramp: rows not monotone")
+    depths = [p03 / d for d in ESL_DISPARITIES]
+    cams_raw = []
+    for i, z in enumerate(depths):
+        ev = simulate_plane_events(syn, depth_m=z, scan_upwards=False)
+        img = np.zeros(ESL_CAM[::-1], np.float64)
+        img[ev["y"], ev["x"]] = (ev["t"] + 1) / (ev["t"].max() + 1)
+        np.save(seqs["cuda"] / "scans_np" / f"scan{i:03d}.npy", img)
+        if i == 0:
+            np.save(seqs["cpu"] / "scans_np" / f"scan{i:03d}.npy", img)
+        cams_raw.append(img)
+    log(f"phase 7 offline eval (ESL geometry): camera {ESL_CAM[0]}x{ESL_CAM[1]}, projector "
+        f"{ESL_PROJ[0]}x{ESL_PROJ[1]}, rect {calib.rect_image_height}x"
+        f"{calib.rect_image_width}; maps {maps_s:.1f} s; p03 {p03:.3f}; "
+        f"{n_scans} plane scans at z = {[round(z, 4) for z in depths]} m "
+        f"(disparities {ESL_DISPARITIES}), {[int((c > 0).sum()) for c in cams_raw]} px lit "
+        f"{card}")
+
+    # -- the fast depth init, its tables, kernels A and B against plain
+    t0 = time.perf_counter()
+    fast = eval_esl.build_device_depth_init(maps, calib, proj_rect, p03, dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    bound = fast.bound
+    prep_mb = sum(t.numel() * t.element_size() for t in bound["prep"]) / 1e6
+    remap_mb = sum(t.numel() * t.element_size()
+                   for t in bound["forward"] + bound["back"]) / 1e6
+    box = tuple(bound["prep"][0].shape)
+    log(f"  depth-init setup {setup_s:.2f} s: box {box[0]}x{bound['forward'][0].shape[1]} "
+        f"(tables {box[0]}x{box[1]}), prep tables {prep_mb:.1f} MB, remap indices "
+        f"{remap_mb:.1f} MB on the card {card}")
+    cams = [eval_esl.normalize_scan(c) for c in cams_raw]
+    cam_dev = [torch.from_numpy(c).to(dev) for c in cams]
+    fwd, back, prep, search = bound["forward"], bound["back"], bound["prep"], bound["search"]
+    cam_box = remap_gather(cam_dev[0], *fwd)
+    e_fwd = assert_exact("remap_gather forward (camera -> box)",
+                         [(cam_box, remap_gather_plain(cam_dev[0], *fwd))])
+    disp_box = esl_search_box(cam_box, prep, **search)
+    e_a = assert_exact("esl_disparity_search (box)",
+                       [(disp_box, esl_search_box_plain(cam_box, prep, **search))])
+    disp_cam = remap_gather(disp_box, *back)
+    e_back = assert_exact("remap_gather back (box -> camera)",
+                          [(disp_cam, remap_gather_plain(disp_box, *back))])
+    errs["esl_disparity_search"] = e_a
+    errs["remap_gather"] = max(e_fwd, e_back)
+    log(f"  kernels A and B vs plain on the card: exact (box {tuple(disp_box.shape)}, "
+        f"{int((disp_box != 0).sum())} disparities; camera view {int((disp_cam != 0).sum())})")
+    for i in range(2):
+        got = fast(cam_dev[i])
+        want = eval_esl.depth_init_dense(cams[i], maps, proj_rect, p03, dev)
+        assert_exact(f"ESL depth init scan {i}: kernels vs brute force",
+                     [(got[0].cpu(), torch.from_numpy(want[0])),
+                      (got[1].cpu(), torch.from_numpy(want[1]))])
+    log("  ESL depth init (kernels A+B) == brute force (dense search on the card, host "
+        "remaps) on scans 0 and 1: exact")
+
+    # -- the four apps through main, on the card and (scan 0) on the CPU
+    common = ["-calib", yaml_path, "-num_scans", str(n_scans),
+              "-cam_width", str(ESL_CAM[0]), "-cam_height", str(ESL_CAM[1]),
+              "-proj_width", str(ESL_PROJ[0]), "-proj_height", str(ESL_PROJ[1])]
+    args = {k: ["-object_dir", str(seq)] + common for k, seq in seqs.items()}
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    launches = {}
+    n = n_scans
+    la, _ = run_app(eval_esl.main, args["cuda"] + ["-device", "cuda"],
+                    {"esl_disparity_search": n, "remap_gather": 2 * n})
+    esl_peak_mb = (torch.cuda.max_memory_allocated() - mem0) / 1e6
+    lm, _ = run_app(eval_mc3d.main, args["cuda"] + ["-device", "cuda"], {})
+    lx, _ = run_app(eval_xmaps.main, args["cuda"] + ["-device", "cuda"],
+                    {"event_disparity_scatter": n, "colorize_camera": n})
+    for part in (la, lx):
+        for k, v in part.items():
+            launches[k] = launches.get(k, 0) + v
+    _, table = run_app(eval_table.main,
+                       ["-object_dir", str(seqs["cuda"].parent), "-scenes", "seq1",
+                        "-min_depth", "0.2", "-max_depth", "2"], {})
+    for row in ("ESL (init)", "MC3D", "X-Maps (ours)"):
+        if row not in table:
+            raise AssertionError(f"eval_table: no {row!r} row in\n{table}")
+    log(f"  apps on the card: eval_esl launches {la['esl_disparity_search']} A + "
+        f"{la['remap_gather']} B for {n} scans (peak {esl_peak_mb:.1f} MB above the "
+        f"resident tables), eval_mc3d no kernel, eval_xmaps "
+        f"{lx['event_disparity_scatter']} x kernel 1 + {lx['colorize_camera']} x kernel 3 "
+        f"at capacity {ESL_CAM[0] * ESL_CAM[1]}")
+    log("  eval_table:\n" + "\n".join("    " + line for line in table.strip().splitlines()))
+
+    def load(seq, sub, i=0):
+        return np.load(seq / sub / f"scans{i:03d}.npy")
+
+    for i, z in enumerate(depths):
+        meds = [median_depth_close(f"{sub} scan {i}", load(seqs["cuda"], sub, i), z, tol)
+                for sub, tol in (("esl/depth_init", 0.05), ("mc3d/depth", 0.10),
+                                 ("x_maps/depth_init", 0.05))]
+        log(f"  scan {i}: plane {z:.4f} m; median depth ESL init {meds[0]:.4f}, "
+            f"MC3D {meds[1]:.4f}, X-maps {meds[2]:.4f}")
+
+    # scan 0 on the CPU port (X-maps through the same engine moved to the CPU)
+    cpu_args = args["cpu"] + ["-num_scans", "1", "-device", "cpu"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        if eval_esl.main(cpu_args) != 0 or eval_mc3d.main(cpu_args) != 0:
+            raise AssertionError("eval on the CPU failed")
+    for sub in ("esl/disparity_init", "esl/depth_init", "mc3d/depth"):
+        assert_exact(f"{sub} scan 0 cuda vs cpu",
+                     [(torch.from_numpy(load(seqs["cuda"], sub)),
+                       torch.from_numpy(load(seqs["cpu"], sub)))])
+    a, b = load(seqs["cuda"], "esl/depth_optim"), load(seqs["cpu"], "esl/depth_optim")
+    init = load(seqs["cuda"], "esl/depth_init").astype(np.float64)
+    differ = a != b
+    if (not np.array_equal(a > 0, b > 0) or differ.mean() > 0.02
+            or (np.abs(a.astype(np.float64) - b) > 2 * init ** 2 / p03 + 1e-6).any()):
+        raise AssertionError(f"esl/depth_optim cuda vs cpu: {int(differ.sum())} px differ")
+    fa = load(seqs["cuda"], "esl/depth_optim_filtered")
+    fb = load(seqs["cpu"], "esl/depth_optim_filtered")
+    f_err = float(np.abs(fa.astype(np.float64) - fb).max())
+    if f_err > 1e-3:
+        raise AssertionError(f"esl/depth_optim_filtered cuda vs cpu: max |diff| {f_err}")
+    eng = XMapsDepthEngine.from_calibration(
+        CalibrationParams.from_esl_yaml(yaml_path, *ESL_CAM, *ESL_PROJ), device="cuda",
+        event_capacity=ESL_CAM[0] * ESL_CAM[1], camera_perspective=True, scan_upwards=False,
+        border_replicate=False, zero_undistort_proj_map=True, xmap_cache_dir=cache,
+    )
+    events = eval_xmaps.scan_image_to_events(cams_raw[0])
+    batch_args = (events["x"], events["y"], events["t"], events["p"], eng.cfg.event_capacity)
+    batch = EventBatch.from_arrays(*batch_args, device="cuda")
+    got = eng.process_batch_device(batch)
+    ref = eng.to("cpu").process_batch_device(EventBatch.from_arrays(*batch_args, device="cpu"))
+    assert_exact("X-maps scan 0 cuda vs cpu", frame_pairs(got, ref) + [
+        (torch.from_numpy(load(seqs["cuda"], "x_maps/depth_init")), ref.depth)])
+    log(f"  scan 0 vs the CPU port: ESL init, MC3D, X-maps ({len(events['x'])} events) "
+        f"exact; refined {int(differ.sum())} of {differ.size} px differ; filtered max "
+        f"|diff| {f_err:.3g} m")
+
+    # -- per-scan times, device (profiler) and wall
+    plan = eval_esl.RefinePlan(calib, maps, 3, *ESL_PROJ)
+    disp0, depth0 = fast(cam_dev[0])
+    cam_ref = cams[0].copy()
+    cam_ref[cam_ref == 0] = 1.0 / cam_ref[0, 0] if cam_ref[0, 0] != 0 else np.inf
+    cam_ref = torch.from_numpy(cam_ref).to(dev)
+    optim = eval_esl.depth_optimization_dense(depth0, cam_ref, plan)
+    raw0 = torch.from_numpy(cams_raw[0].astype(np.float32)).to(dev)
+    tables = eval_mc3d.build_mc3d_tables(calib, *ESL_PROJ, *ESL_CAM)
+    stages = (
+        ("ESL depth init (kernels A+B)", lambda: fast(cam_dev[0]), 20),
+        ("ESL depth init brute force", lambda: eval_esl.depth_init_dense(
+            cams[0], maps, proj_rect, p03, dev), 1),
+        ("ESL refinement", lambda: eval_esl.depth_optimization_dense(depth0, cam_ref, plan), 3),
+        ("ESL denoise (bilateral + TV)", lambda: tv_denoise_split_bregman(
+            bilateral_filter(optim, d=5, sigma_color=3.0, sigma_space=3.0), mu=0.5), 3),
+        ("MC3D (median + search)", lambda: eval_mc3d.mc3d_disparity_dense(
+            median_blur_3x3(raw0), tables, *ESL_PROJ), 3),
+        ("X-maps (kernels 1+3)", lambda: eng.process_batch_device(batch), 20),
+    )
+    log(f"  per-scan times {card}:")
+    for name, fn, iters in stages:
+        w = wall_ms(fn, iters)
+        d, by_name = profile_calls(fn, iters)
+        if d is None:
+            raise AssertionError(f"torch.profiler recorded no device event for {name}")
+        top = ", ".join(f"{k[:40]} {v:.4f}" for k, v in
+                        sorted(by_name.items(), key=lambda kv: -kv[1])[:3])
+        log(f"    {name}: {w:.4f} ms/scan wall (median of {iters}), {d:.4f} ms/scan device; "
+            f"top: {top}")
+    kernels_ms["esl_disparity_search"] = time_pair(
+        lambda: esl_search_box(cam_box, prep, **search),
+        lambda: esl_search_box_plain(cam_box, prep, **search),
+    )
+    kernels_ms["remap_gather"] = time_pair(
+        lambda: (remap_gather(cam_dev[0], *fwd), remap_gather(disp_box, *back)),
+        lambda: (remap_gather_plain(cam_dev[0], *fwd), remap_gather_plain(disp_box, *back)),
+    )
+    for k in ("esl_disparity_search", "remap_gather"):
+        km, pm = kernels_ms[k]
+        log(f"  kernel {k}: {km['ms']:.5f} ms device ({km['source']}), plain {pm['ms']:.5f} ms"
+            f" per scan (ESL box; remap = forward + back) {card}")
+    tmp.cleanup()
+    log(f"  phase 7 total {time.perf_counter() - t_phase:.1f} s {card}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -307,7 +617,8 @@ def main() -> int:
     launches = dict(_build.LAUNCHES)
     log(f"phase 4 main path: {N_FRAMES} frames x 2 views, launches {launches}")
     expect = {"event_disparity_scatter": 2 * N_FRAMES,
-              "tail_projector": N_FRAMES, "colorize_camera": N_FRAMES}
+              "tail_projector": N_FRAMES, "colorize_camera": N_FRAMES,
+              "esl_disparity_search": 0, "remap_gather": 0}
     if launches != expect:
         raise AssertionError(f"launch counts {launches} != {expect}")
     for name, eng, outs in (("projector", eng_p, out_p), ("camera", eng_c, out_c)):
@@ -398,6 +709,13 @@ def main() -> int:
         log(f"  kernel {k}: {km['ms']:.5f} ms device ({km['source']}), plain "
             f"{pm['ms']:.5f} ms; issue rate {km['issue_ms']:.5f} vs {pm['issue_ms']:.5f} "
             f"ms/call (demonstrator, display-packed, mean of 2x50 calls) {card}")
+
+    # -- 7. the offline eval at the ESL geometry ------------------------
+    # launches: the engine's main path (phase 4) plus the eval apps'
+    # (phase 7), each counted from 0 just before its run
+    for k, v in phase7_offline_eval(card, errs, kernels_ms).items():
+        launches[k] += v
+    log(f"launches on the main paths (phase 4 + phase 7): {launches}")
 
     kernels = [
         dict(name=k, route="cuda", source=KERNEL_INFO[k][0],

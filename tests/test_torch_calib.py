@@ -84,3 +84,40 @@ def test_cv_yaml_parse_matches(tmp_path):
         "  cols: 1\n  data: [3.0]\n"
     )
     assert t_load(str(p)) == j_load(str(p))
+
+
+def _ast_without_imports(path):
+    """The module's AST with every import statement (at any depth) and the
+    JAX platform pin of the JAX package's CLIs taken out."""
+    import ast
+
+    tree = ast.parse(path.read_text())
+
+    class Strip(ast.NodeTransformer):
+        def visit_Import(self, node):
+            return None
+
+        def visit_ImportFrom(self, node):
+            return None
+
+        def visit_Expr(self, node):
+            call = node.value
+            if (isinstance(call, ast.Call) and isinstance(call.func, ast.Name)
+                    and call.func.id == "respect_jax_platforms"):
+                return None
+            return node
+
+    return ast.dump(Strip().visit(tree))
+
+
+@pytest.mark.parametrize("module", ["utils/ply.py", "utils/stats.py",
+                                    "utils/eval_metrics.py", "apps/eval_table.py"])
+def test_eval_copies_equal_apart_from_imports(module):
+    """The eval helpers the port carries as copies equal the originals
+    statement for statement; only their imports point elsewhere."""
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parent.parent
+    port = repo / "xmaps_tpu_torch" / module
+    assert _ast_without_imports(port) == _ast_without_imports(repo / "xmaps_tpu" / module)
+    assert "xmaps_tpu." not in port.read_text().replace("xmaps_tpu_torch.", "")

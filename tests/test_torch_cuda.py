@@ -30,6 +30,7 @@ from xmaps_tpu_torch.ops.cuda_tail import (  # noqa: E402
     tail_projector_plain,
 )
 from xmaps_tpu_torch.ops.disparity import scale_time  # noqa: E402
+from xmaps_tpu_torch.ops.event_batch import EventBatch  # noqa: E402
 from xmaps_tpu_torch.utils.synthetic import (  # noqa: E402
     make_synthetic_calibration,
     simulate_plane_events,
@@ -131,3 +132,109 @@ def test_wrappers_check_inputs(cuda):
     with pytest.raises(ValueError, match="packed_crop"):
         tail_projector(torch.zeros((plan.H, plan.W), dtype=torch.float32, device=cuda),
                        eng.tables, plan)
+
+
+# -- kernel 1 at the offline eval's capacity, kernels A and B ----------------
+
+
+def test_event_scatter_at_eval_capacity(cuda):
+    """Kernel 1 at capacity 307200 (the eval's 640 x 480 batch): 300000
+    events on a 128x96 camera, so lanes above 262143 win most pixels; the
+    packed uint32 words equal the plain version's."""
+    capacity, n = 307200, 300000
+    eng = XMapsDepthEngine.from_calibration(
+        make_synthetic_calibration(**SIZES), device="cuda", event_capacity=capacity,
+        camera_perspective=True,
+    )
+    rng = np.random.default_rng(3)
+    x, y = rng.integers(0, 128, n), rng.integers(0, 96, n)
+    t = rng.random(n).astype(np.float32)
+    batch = EventBatch.from_arrays(x, y, t, np.ones(n), capacity, device="cuda")
+    t_bin = scale_time(batch.t, batch.valid, eng.cfg.t_px_scale)
+    kw = dict(camera_view=True, window=(0, 0), out_shape=(96, 128))
+    got = event_disparity_scatter(batch, t_bin, eng.tables, **kw)
+    ref = event_disparity_scatter_plain(batch, t_bin, eng.tables, **kw)
+    torch.cuda.synchronize()
+    _equal(got.packed_map, ref.packed_map)
+    _equal(got.num_inliers, ref.num_inliers)
+    words = got.packed_map.cpu().numpy().view(np.uint32)
+    # ~10 inliers a pixel: the winner is a lane above 262143 (the top 15%)
+    # at most pixels (0.82 on the card)
+    assert (words[words > 0] // 8192 - 1 > 262143).mean() > 0.5
+    cpu = eng.to("cpu")
+    out = eng.process_batch_device(batch)
+    ref_out = cpu.process_batch_device(EventBatch(*(a.cpu() for a in batch)))
+    for name in ("frame_bgr", "depth", "disp_map", "num_inliers"):
+        _equal(getattr(out, name), getattr(ref_out, name))
+
+
+def _monotone_case(seed, H, W, occupancy):
+    rng = np.random.default_rng(seed)
+    base = np.sort(rng.random((H, W)).astype(np.float32), axis=1)
+    base = np.round(base * 60) / 60  # plateaus and exact ties
+    proj = np.where(rng.random((H, W)) < 0.2, base + 1e-3, 0).astype(np.float32)
+    cam = np.zeros((H, W), np.float32)
+    r0, r1, c0, c1 = occupancy
+    blob = rng.random((r1 - r0, c1 - c0)).astype(np.float32)
+    cam[r0:r1, c0:c1] = np.where(blob < 0.4, blob, 0)
+    cam[r0, c0:c0 + 40] = proj[r0, c0 + 17:c0 + 57]  # exact value matches
+    return cam, proj
+
+
+@pytest.mark.parametrize("W", [420, 548], ids=["frame_edge", "inner_edge"])
+def test_esl_search_kernel_matches_plain_on_card(cuda, W):
+    from xmaps_tpu_torch.ops.esl_search import esl_disparity_search, esl_search_prep
+
+    cam, proj = _monotone_case(W, 48, W, (11, 37, 70, 300))
+    kw = dict(min_disp=5, max_disp=200, row_range=(11, 37), col_range=(70, 300))
+    want = esl_disparity_search(torch.from_numpy(cam), torch.from_numpy(proj), **kw)
+    prep = esl_search_prep(torch.from_numpy(proj).cuda(), **kw)
+    _build.reset_launch_counts()
+    got = esl_disparity_search(torch.from_numpy(cam).cuda(), None, prep=prep, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["esl_disparity_search"] == 1
+    _equal(got, want)
+    assert want.any()
+
+
+@pytest.mark.parametrize("with_inb", [False, True])
+def test_remap_gather_matches_plain_on_card(cuda, with_inb):
+    from xmaps_tpu_torch.ops.remap import build_remap_indices, remap_gather
+
+    rng = np.random.default_rng(4)
+    src = torch.from_numpy(rng.random((48, 64)).astype(np.float32))
+    map_x = (rng.random((120, 200)) * 64 * 1.2 - 4).astype(np.float32)
+    map_y = (rng.random((120, 200)) * 48 * 1.2 - 4).astype(np.float32)
+    yi, xi, inb = (torch.from_numpy(a) for a in build_remap_indices(map_x, map_y, (48, 64)))
+    mask = inb if with_inb else None
+    want = remap_gather(src, yi, xi, mask)
+    got = remap_gather(src.cuda(), yi.cuda(), xi.cuda(), None if mask is None else mask.cuda())
+    torch.cuda.synchronize()
+    _equal(got, want)
+
+
+def test_device_depth_init_on_card_matches_cpu(cuda):
+    """The ESL fast path on the card (one launch of kernel A, two of kernel
+    B) equals the CPU port and the brute force."""
+    from xmaps_tpu_torch.apps.eval_esl import build_device_depth_init, depth_init_dense
+    from xmaps_tpu_torch.calib.maps import CamProjMaps
+
+    calib = make_synthetic_calibration(camera_width=64, camera_height=48, projector_width=90,
+                                       projector_height=160, rectification_scale=3.0)
+    maps = CamProjMaps(calib, zero_undistort_proj_map=True)
+    proj_rect = maps.build_rectified_time_map(scan_upwards=False, border_replicate=False)
+    p03 = float(maps.P2[0, 3])
+    rng = np.random.default_rng(7)
+    cam = np.where(rng.random((48, 64)) < 0.8, rng.random((48, 64)), 0).astype(np.float32)
+    fn = build_device_depth_init(maps, calib, proj_rect, p03, "cuda")
+    _build.reset_launch_counts()
+    disp, depth = fn(torch.from_numpy(cam).cuda())
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["esl_disparity_search"] == 1
+    assert _build.LAUNCHES["remap_gather"] == 2
+    cpu = build_device_depth_init(maps, calib, proj_rect, p03, "cpu")
+    for a, b in zip((disp, depth), cpu(torch.from_numpy(cam))):
+        _equal(a, b)
+    odisp, odepth = depth_init_dense(cam, maps, proj_rect, p03, "cuda")
+    assert np.array_equal(disp.cpu().numpy(), odisp) and disp.cpu().numpy().any()
+    assert np.array_equal(depth.cpu().numpy(), odepth)

@@ -224,8 +224,10 @@ def test_set_frame_filter_only_none():
 
 
 def test_capacity_overflow_refused():
-    with pytest.raises(ValueError, match="262143"):
-        TEngine.from_calibration(t_calib(), device="cpu", event_capacity=262144)
+    """The uint32 packing holds capacities up to 524286, as in the JAX
+    package; one more is refused."""
+    with pytest.raises(ValueError, match="524286"):
+        TEngine.from_calibration(t_calib(), device="cpu", event_capacity=524287)
 
 
 # -- no hidden device, no JAX ---------------------------------------------

@@ -1,8 +1,8 @@
 """Packed last-write-wins scatter of the port vs the JAX package.
 
-``xmaps_tpu_torch.ops.scatter.scatter_disp_packed`` (int32 map) against
-``xmaps_tpu.ops.scatter.scatter_disp_packed(method="max")`` (uint32 map):
-the packed words are compared exactly, as int64.
+``xmaps_tpu_torch.ops.scatter.scatter_disp_packed`` (int32 tensor of
+uint32 words) against ``xmaps_tpu.ops.scatter.scatter_disp_packed(method=
+"max")`` (uint32 map): the packed words are compared exactly.
 """
 
 import numpy as np
@@ -92,9 +92,20 @@ def test_last_write_wins():
 
 
 def test_overflow_assertion():
-    """(capacity + index_offset + 1) * PACK must stay below 2**31."""
-    ys, xs, disp, inlier = (torch.from_numpy(a) for a in _events(2, n=4))
+    """(capacity + index_offset + 1) * PACK must stay below 2**32, as the
+    JAX package's uint32 packing; keys above 2**31 are kept bit for bit."""
+    ys, xs, disp, inlier = _events(2, n=4)
+    inlier[:] = True
+    ys[:], xs[:] = 3, 5  # one pixel: the last lane wins
+    disp[:] = 7
+    t = [torch.from_numpy(a) for a in (ys, xs, disp, inlier)]
     kw = dict(height=H, width=W)
-    tsc.scatter_disp_packed(ys, xs, disp, inlier, index_offset=2**31 // tsc.PACK - 6, **kw)
-    with pytest.raises(AssertionError, match="overflows the int32"):
-        tsc.scatter_disp_packed(ys, xs, disp, inlier, index_offset=2**31 // tsc.PACK - 5, **kw)
+    off = 2**32 // tsc.PACK - 6
+    got = tsc.scatter_disp_packed(*t, index_offset=off, **kw)
+    assert int(got.numpy().view(np.uint32)[3, 5]) == (off + 4) * tsc.PACK + 7
+    ref = jsc.scatter_disp_packed(*(jnp.asarray(a) for a in (ys, xs, disp, inlier)),
+                                  index_offset=off, method="max", **kw)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), np.asarray(ref))
+    assert tsc.unpack_disp(got)[3, 5] == 7
+    with pytest.raises(AssertionError, match="overflows the uint32"):
+        tsc.scatter_disp_packed(*t, index_offset=off + 1, **kw)

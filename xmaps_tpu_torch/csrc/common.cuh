@@ -11,7 +11,7 @@
 namespace xmaps {
 
 constexpr int X_OFFSET = 4242;  // config.X_OFFSET
-constexpr int PACK = 8192;      // ops/scatter.py PACK (a power of two)
+constexpr unsigned PACK = 8192u;  // ops/scatter.py PACK (a power of two)
 
 // depth = max(p03 / d, 1e-9) with 0 kept as 0; u8 = C truncation of the
 // [z_near, z_far] normalization clipped to [0, 255]; BGR from the packed

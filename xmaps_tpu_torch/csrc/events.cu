@@ -20,8 +20,11 @@
 // band plan, and any capacity works (no 1024-lane blocking).  Determinism
 // comes from the packed key (lane + 1) * PACK + disp: atomicMax keeps the
 // highest lane per pixel, which is NumPy's last-write-wins regardless of
-// the order in which threads run.  The inlier count is reduced per warp
-// (ballot + popc) before one atomicAdd.
+// the order in which threads run.  The key is unsigned 32-bit, as in the
+// JAX package, so capacities up to 524286 lanes fit (the offline eval's
+// whole-image batch is 307200); the map is handed over as int32 words.
+// The inlier count is reduced per warp (ballot + popc) before one
+// atomicAdd.
 #include "common.cuh"
 
 namespace {
@@ -32,7 +35,7 @@ __global__ void event_disparity_scatter_kernel(
     const int32_t* __restrict__ cam_lut, int cam_h, int cam_w,
     const int16_t* __restrict__ x_map, int xmap_h, int xmap_w,
     int camera_view, int oy, int ox, int out_h, int out_w,
-    int32_t* __restrict__ packed_map, int32_t* __restrict__ inlier_count,
+    uint32_t* __restrict__ packed_map, int32_t* __restrict__ inlier_count,
     int32_t* __restrict__ xr_out, int32_t* __restrict__ yr_out,
     int32_t* __restrict__ xproj_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -66,10 +69,11 @@ __global__ void event_disparity_scatter_kernel(
     const int ty = (camera_view ? yi : yr) - oy;
     const int tx = (camera_view ? xi : xr + disp) - ox;
     const bool keep = inlier && ty >= 0 && ty < out_h && tx >= 0 &&
-                      tx < out_w && disp < xmaps::PACK;
+                      tx < out_w && disp < static_cast<int>(xmaps::PACK);
     if (keep) {
       atomicMax(packed_map + static_cast<long>(ty) * out_w + tx,
-                (i + 1) * xmaps::PACK + disp);
+                static_cast<uint32_t>(i + 1) * xmaps::PACK +
+                    static_cast<uint32_t>(disp));
     }
   }
   // 7. inlier count: one atomic per warp
@@ -92,8 +96,9 @@ extern "C" int event_disparity_scatter(
   if (blocks > 0) {
     event_disparity_scatter_kernel<<<blocks, threads, 0, stream>>>(
         x, y, t_bin, valid, n, cam_lut, cam_h, cam_w, x_map, xmap_h, xmap_w,
-        camera_view, oy, ox, out_h, out_w, packed_map, inlier_count, xr_out,
-        yr_out, xproj_out);
+        camera_view, oy, ox, out_h, out_w,
+        reinterpret_cast<uint32_t*>(packed_map), inlier_count, xr_out, yr_out,
+        xproj_out);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -46,7 +46,8 @@ __global__ void tail_projector_kernel(
     for (int r = r_lo; r <= r_hi; ++r) {
       const int32_t* row = packed + static_cast<long>(r) * W;
       for (int c = c_lo; c <= c_hi; ++c) {
-        m = max(m, __ldg(row + c) & (xmaps::PACK - 1));
+        m = max(m, static_cast<int>(static_cast<uint32_t>(__ldg(row + c)) &
+                                    (xmaps::PACK - 1u)));
       }
     }
   }
@@ -65,7 +66,8 @@ __global__ void colorize_camera_kernel(
     float* __restrict__ disp_out) {
   const long idx = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= n) return;
-  const float d = static_cast<float>(__ldg(packed + idx) & (xmaps::PACK - 1));
+  const float d = static_cast<float>(
+      static_cast<uint32_t>(__ldg(packed + idx)) & (xmaps::PACK - 1u));
   float depth;
   int32_t bgr;
   xmaps::depth_colorize(d, p03, z_near, z_far, lut, &depth, &bgr);

@@ -21,13 +21,15 @@ from xmaps_tpu_torch.config import PipelineConfig
 from xmaps_tpu_torch.ops.cuda_tail import CamTailPlan, TailPlan, build_tail_plan
 from xmaps_tpu_torch.ops.event_batch import EventBatch
 from xmaps_tpu_torch.ops.frame_pipeline import DeviceTables, FrameResult, depth_frame
-from xmaps_tpu_torch.ops.scatter import PACK
+from xmaps_tpu_torch.ops.scatter import MAX_CAPACITY
 from xmaps_tpu_torch.ops.xmap import build_x_map, xmap_cache_key
 
-__all__ = ["XMapsDepthEngine"]
+__all__ = ["XMapsDepthEngine", "resolve_device"]
 
 
-def _resolve_device(device) -> torch.device:
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device: "cpu", or "cuda" with a card present
+    (the kernels are built or loaded here); anything else raises."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -79,12 +81,12 @@ class XMapsDepthEngine:
         projector_time_map_path: Optional[str] = None,
         xmap_cache_dir: Optional[str] = None,
     ) -> "XMapsDepthEngine":
-        if (event_capacity + 1) * PACK >= 2**31:
+        if event_capacity > MAX_CAPACITY:
             raise ValueError(
-                f"event_capacity {event_capacity} overflows the int32 PACK "
-                "packing (at most 262143)"
+                f"event_capacity {event_capacity} overflows the uint32 PACK "
+                f"packing (at most {MAX_CAPACITY})"
             )
-        dev = _resolve_device(device)
+        dev = resolve_device(device)
         cfg = PipelineConfig(
             camera_width=calib.camera_width,
             camera_height=calib.camera_height,
@@ -170,7 +172,7 @@ class XMapsDepthEngine:
 
     def to(self, device) -> "XMapsDepthEngine":
         """The same engine (same tables) on another device."""
-        dev = _resolve_device(device)
+        dev = resolve_device(device)
         return XMapsDepthEngine(
             cfg=self.cfg,
             maps=self.maps,
@@ -204,6 +206,12 @@ class XMapsDepthEngine:
             display_only=display_only,
             display_packed=display_packed,
         )
+
+    def process_batch_device(self, batch: EventBatch) -> FrameResult:
+        """Run the frame program on a batch already on the engine's device
+        (e.g. ``EventBatch.from_arrays`` of float-time scan events, as the
+        offline eval builds them)."""
+        return depth_frame(batch, self.tables, self.cfg, self.plan)
 
     def process_frames(self, frames: list, **kw) -> list:
         """Run many independent frames, one after another (one

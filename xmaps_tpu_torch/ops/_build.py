@@ -24,7 +24,7 @@ from pathlib import Path
 __all__ = ["load", "LAUNCHES", "reset_launch_counts", "check", "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("events.cu", "tail.cu")
+SOURCES = ("events.cu", "tail.cu", "esl.cu", "remap.cu")
 HEADERS = ("common.cuh",)
 
 #: sm_90a for Hopper; no --use_fast_math: the f32 epilogue (p03/disp, the
@@ -40,11 +40,14 @@ LAUNCHES = {
     "event_disparity_scatter": 0,
     "tail_projector": 0,
     "colorize_camera": 0,
+    "esl_disparity_search": 0,
+    "remap_gather": 0,
 }
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_long
 
 #: C signatures (all return cudaGetLastError() as int)
 _SIGNATURES = {
@@ -68,6 +71,19 @@ _SIGNATURES = {
         _P, _I,  # packed map, n pixels
         _P, _F, _F, _F,  # lut, p03, z_near, z_far
         _P, _P, _P, _P,  # bgr_packed, bgr3, depth, disp (nullable)
+        _P,  # stream
+    ],
+    "esl_disparity_search": [
+        _P, _I, _I,  # cam (Hc, Wc) f32, Hc, Wc
+        _P, _P, _P, _P, _P, _I,  # G, F, N, R, C tables (Hc, W_pad), W_pad
+        _I, _I, _I, _I,  # W (window clip), min_disp, max_disp, steps
+        _P,  # out (Hc, Wc) f32
+        _P,  # stream
+    ],
+    "remap_gather": [
+        _P, _I, _I,  # src f32, Hs, Ws
+        _P, _P, _P, _L,  # yi, xi (i32), inb (bool, nullable), n
+        _P,  # out f32
         _P,  # stream
     ],
 }

@@ -18,7 +18,7 @@ import torch
 from xmaps_tpu_torch.ops import _build
 from xmaps_tpu_torch.ops.disparity import compute_event_disparity
 from xmaps_tpu_torch.ops.event_batch import EventBatch
-from xmaps_tpu_torch.ops.scatter import PACK, scatter_disp_packed
+from xmaps_tpu_torch.ops.scatter import MAX_CAPACITY, scatter_disp_packed
 
 __all__ = [
     "EventScatterResult",
@@ -28,7 +28,7 @@ __all__ = [
 
 
 class EventScatterResult(NamedTuple):
-    packed_map: torch.Tensor  # (out_h, out_w) int32
+    packed_map: torch.Tensor  # (out_h, out_w) int32 holding uint32 words
     num_inliers: torch.Tensor  # 0-dim int32
     #: per-lane (x_rect, y_rect, x_proj) int32, only when requested
     lanes: Optional[tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
@@ -93,8 +93,11 @@ def event_disparity_scatter(
     if dev.type != "cuda":
         raise ValueError(f"event_disparity_scatter: unsupported device {dev}")
     n = batch.x.shape[0]
-    if (n + 1) * PACK >= 2**31:
-        raise ValueError(f"event_disparity_scatter: capacity {n} overflows the int32 packing")
+    if n > MAX_CAPACITY:
+        raise ValueError(
+            f"event_disparity_scatter: capacity {n} overflows the uint32 packing "
+            f"(at most {MAX_CAPACITY})"
+        )
     for name, a, dtype in (
         ("x", batch.x, torch.int32),
         ("y", batch.y, torch.int32),

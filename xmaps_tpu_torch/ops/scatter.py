@@ -5,13 +5,18 @@ scatters per-event disparities with NumPy fancy indexing, whose semantics
 are "last write in index order wins" (cam_proj_calibration.py:299-317).
 Each event's integer disparity is packed with its priority as
 
-    packed = (priority + 1) * PACK + disp        (int32)
+    packed = (priority + 1) * PACK + disp        (uint32)
 
 and scattered with max: the highest priority wins, exactly NumPy's
-last-write-wins, and ``packed % PACK`` recovers the disparity.  The map is
-int32 (the JAX package's is uint32), so ``(capacity + 1) * PACK < 2**31``:
-capacities up to 262143 events.  The CUDA kernel (``ops.cuda_events``)
-does the same with ``atomicMax``.
+last-write-wins, and ``packed % PACK`` recovers the disparity.  As in the
+JAX package the key is unsigned 32-bit, so ``(capacity + 1) * PACK <
+2**32``: capacities up to 524286 events, enough for the offline eval's
+whole-image batch (640 x 480 = 307200).  torch has no full uint32
+arithmetic, so the map is an int32 tensor holding the uint32 bit pattern:
+keys of 2**31 and above read as negative int32, and ``unpack_disp`` (low
+13 bits) is unaffected.  The plain version takes the max over int64 keys
+and keeps their low 32 bits; the CUDA kernel (``ops.cuda_events``) does an
+unsigned ``atomicMax`` on the same words.
 """
 
 from __future__ import annotations
@@ -20,11 +25,15 @@ from typing import Optional
 
 import torch
 
-__all__ = ["PACK", "scatter_disp_packed", "unpack_disp"]
+__all__ = ["PACK", "MAX_CAPACITY", "scatter_disp_packed", "unpack_disp"]
 
 #: Disparity field width.  Must exceed any valid disparity (bounded by the
 #: rectified image width, <= ~5800 for the ESL configuration).
 PACK = 8192
+
+#: The largest event capacity (priorities < capacity) the uint32 key holds:
+#: (capacity + 1) * PACK < 2**32.
+MAX_CAPACITY = 2**32 // PACK - 2
 
 
 def scatter_disp_packed(
@@ -40,7 +49,8 @@ def scatter_disp_packed(
     pad_shape: Optional[tuple[int, int]] = None,
     window: Optional[tuple[int, int, int, int]] = None,
 ) -> torch.Tensor:
-    """Scatter index-packed disparities; returns the packed int32 map.
+    """Scatter index-packed disparities; returns the packed map (int32
+    tensor holding uint32 words, see the module docstring).
 
     The last-write-wins priority is the event index by default, shifted by
     ``index_offset``; ``priority`` overrides it with another
@@ -58,8 +68,8 @@ def scatter_disp_packed(
         wh, ww = height, width
     out_h, out_w = pad_shape if pad_shape is not None else (wh, ww)
     assert out_h >= wh and out_w >= ww
-    assert (n + index_offset + 1) * PACK < 2**31, (
-        f"event capacity {n} overflows the int32 PACK packing"
+    assert (n + index_offset + 1) * PACK < 2**32, (
+        f"event capacity {n} overflows the uint32 PACK packing"
     )
     disp_i = disp.int()
     ysc = ys - oy
@@ -77,14 +87,18 @@ def scatter_disp_packed(
         priority = (
             torch.arange(n, dtype=torch.int32, device=ys.device) + index_offset
         )
-    packed = torch.where(ok, (priority.int() + 1) * PACK + disp_i, 0).int()
+    # int64 keys: the max over them is the unsigned 32-bit max
+    packed = torch.where(ok, (priority.long() + 1) * PACK + disp_i, 0)
     # masked lanes go to one extra slot past the map, dropped below
     lin = torch.where(ok, ysc * out_w + xsc, out_h * out_w).long()
-    flat = torch.zeros(out_h * out_w + 1, dtype=torch.int32, device=ys.device)
+    flat = torch.zeros(out_h * out_w + 1, dtype=torch.int64, device=ys.device)
     flat.scatter_reduce_(0, lin, packed, reduce="amax")
-    return flat[: out_h * out_w].view(out_h, out_w)
+    flat = flat[: out_h * out_w]
+    # keep the low 32 bits as the int32 bit pattern
+    return torch.where(flat >= 2**31, flat - 2**32, flat).int().view(out_h, out_w)
 
 
 def unpack_disp(packed: torch.Tensor, pack: int = PACK) -> torch.Tensor:
-    """Recover the float32 disparity map from a packed map."""
+    """Recover the float32 disparity map from a packed map (the low bits
+    of the uint32 word; the int32 view's sign does not reach them)."""
     return (packed % pack).float()
