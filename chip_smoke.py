@@ -3,9 +3,9 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-Builds the five CUDA kernels from xmaps_tpu_torch/csrc/ with nvcc, checks
+Builds the six CUDA kernels from xmaps_tpu_torch/csrc/ with nvcc, checks
 each against its plain PyTorch version on the card, and drives the port's
-two paths:
+four paths:
 
 - the per-frame engine (XMapsDepthEngine.from_calibration -> process_frame)
   at the paper's demonstrator geometry in both views and at the ESL bench
@@ -15,10 +15,21 @@ two paths:
   (ESL init + refine, MC3D, X-maps, table) through their ``main`` on 4
   synthetic plane scans, with kernels A and B (ESL search, static remap)
   held against their plain versions and the brute force, and the outputs
-  against the port on the CPU.
+  against the port on the CPU;
+- the streaming replay app (phase 8): ``apps.depth_reprojection.main`` on a
+  60-frame EVT3 recording of the demonstrator rig (1 s at 60 Hz, ~28k
+  events a frame, blanking gaps), in both views, every frame the pipe
+  computed checked bit for bit against the CPU port's ``process_staged``
+  of the same segmented events, and the 2-word staging against the 1-word
+  one on the card; then trigger -> frame-ready latency, replay frames/s,
+  ingest Mev/s, the pinned H2D time and the busy share;
+- the engine benchmark (phase 9): kernel W (the warm-up) against its plain
+  version, then one run of ``apps.bench``, whose JSON line is printed.
 
 It times frames, scans and kernels (torch.profiler device time and wall
-time) and prints one JSON line per kernel summary plus a last line
+time) and prints one JSON line with every kernel's launches on the main
+paths, error, time, plain and library time and bound, then the card's name
+and power limit, then a last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any mismatch or error raises: there is no fallback and no caught phase.
 
@@ -67,7 +78,14 @@ KERNEL_INFO = {
         "xmaps_tpu_torch/csrc/remap.cu",
         "xmaps_tpu/ops/pallas_remap.py:411",
     ),
+    "warmup_add_one": (
+        "xmaps_tpu_torch/csrc/warmup.cu",
+        "bench.py:97",
+    ),
 }
+#: H100 SXM memory rate (NVIDIA data sheet), bytes/s: every kernel here
+#: moves far more bytes than it does operations, so its bound is bytes
+HBM_BYTES_PER_S = 3.35e12
 N_FRAMES = 12
 CAPACITY = 28 * 1024
 Z_NEAR, Z_FAR = 0.2, 1.2
@@ -76,6 +94,8 @@ Z_NEAR, Z_FAR = 0.2, 1.2
 ESL_CAM = (640, 480)
 ESL_PROJ = (1080, 1920)
 ESL_DISPARITIES = (180, 220, 260, 300)
+#: phase 8: frames of the replayed recording (1 s at 60 Hz)
+STREAM_FRAMES = 60
 
 
 def log(msg: str) -> None:
@@ -244,19 +264,34 @@ def time_pair(kernel_fn, plain_fn):
     return mean(k1, k2), mean(p1, p2)
 
 
-def write_esl_yaml(path, calib) -> None:
-    """An ESL calibration yaml (OpenCV FileStorage dialect) of ``calib``."""
+def write_cv_yaml(path, matrices) -> None:
+    """An OpenCV FileStorage yaml of ``(name, matrix)`` pairs, each value
+    written as repr(float) so it reads back exactly."""
     with open(path, "w") as f:
         f.write("%YAML:1.0\n---\n")
-        for name, m in (("cam_K", calib.camera_K), ("cam_kc", calib.camera_D.reshape(1, -1)),
-                        ("proj_K", calib.projector_K),
-                        ("proj_kc", calib.projector_D.reshape(1, -1)),
-                        ("R", calib.cam2proj_R), ("T", calib.cam2proj_T)):
-            m = np.asarray(m, dtype=np.float64)
+        for name, m in matrices:
+            m = np.atleast_2d(np.asarray(m, dtype=np.float64))
             data = ", ".join(repr(float(v)) for v in m.ravel())
             f.write(f"{name}: !!opencv-matrix\n   rows: {m.shape[0]}\n"
-                    f"   cols: {m.shape[1] if m.ndim > 1 else 1}\n   dt: d\n"
-                    f"   data: [ {data} ]\n")
+                    f"   cols: {m.shape[1]}\n   dt: d\n   data: [ {data} ]\n")
+
+
+def write_esl_yaml(path, calib) -> None:
+    """An ESL calibration yaml (OpenCV FileStorage dialect) of ``calib``."""
+    write_cv_yaml(path, (("cam_K", calib.camera_K), ("cam_kc", calib.camera_D),
+                         ("proj_K", calib.projector_K), ("proj_kc", calib.projector_D),
+                         ("R", calib.cam2proj_R), ("T", calib.cam2proj_T)))
+
+
+def write_xmaps_yaml(path, calib) -> None:
+    """An X-maps calibration yaml (the replay app's ``--calib`` dialect,
+    ``CalibrationParams.from_yaml``) of ``calib``; projector distortion is
+    not part of the dialect."""
+    write_cv_yaml(path, (("camera_intrinsic_matrix", calib.camera_K),
+                         ("camera_distortion_coefficients", calib.camera_D),
+                         ("projector_intrinsic_matrix", calib.projector_K),
+                         ("relative_rotation", calib.cam2proj_R),
+                         ("relative_translation", calib.cam2proj_T)))
 
 
 def run_app(main_fn, argv, launch_expect):
@@ -308,7 +343,7 @@ def median_depth_close(what, depth, z, tol):
     return med
 
 
-def phase7_offline_eval(card, errs, kernels_ms):
+def phase7_offline_eval(card, errs, kernels_ms, shapes, library_ms):
     """Phase 7: the offline evaluation chain at the ESL geometry."""
     import tempfile
     from pathlib import Path
@@ -518,6 +553,12 @@ def phase7_offline_eval(card, errs, kernels_ms):
         lambda: (remap_gather(cam_dev[0], *fwd), remap_gather(disp_box, *back)),
         lambda: (remap_gather_plain(cam_dev[0], *fwd), remap_gather_plain(disp_box, *back)),
     )
+    shapes["esl_disparity_search"] = (cam_box.numel(),)
+    shapes["remap_gather"] = [
+        (yi.numel(), int((xi < src.shape[1]).sum() if inb is None else inb.sum()),
+         src.numel(), int(inb is not None))
+        for src, (yi, xi, inb) in ((cam_dev[0], fwd), (disp_box, back))]
+    library_ms["remap_gather"] = remap_library_ms(cam_dev[0], fwd, disp_box, back)
     for k in ("esl_disparity_search", "remap_gather"):
         km, pm = kernels_ms[k]
         log(f"  kernel {k}: {km['ms']:.5f} ms device ({km['source']}), plain {pm['ms']:.5f} ms"
@@ -525,6 +566,317 @@ def phase7_offline_eval(card, errs, kernels_ms):
     tmp.cleanup()
     log(f"  phase 7 total {time.perf_counter() - t_phase:.1f} s {card}")
     return launches
+
+
+@contextlib.contextmanager
+def record_pipe():
+    """Record what every DepthReprojectionPipe does while the block runs:
+    the host clock at each trigger (the trigger finder's frame callback),
+    each dispatched frame's segmented events and device result, the host
+    clock when its result reached the host (frame fetched or inlier count
+    read), the pipe's engine and its stats."""
+    from xmaps_tpu_torch.runtime.pipe import DepthReprojectionPipe as Pipe
+
+    rec = dict(t_trigger=[], events=[], results=[], t_ready=[], engine=None, stats=None)
+    orig = {k: getattr(Pipe, k) for k in
+            ("process_ev_frame", "_dispatch_segmented", "_flush_pending")}
+
+    def process_ev_frame(self, evs):
+        rec["t_trigger"].append(time.perf_counter())
+        orig["process_ev_frame"](self, evs)
+
+    def dispatch(self, evs):
+        rec["events"].append(evs.copy())
+        rec["engine"], rec["stats"] = self.engine, self.stats_printer
+        orig["_dispatch_segmented"](self, evs)
+        rec["results"].append(self._pending)
+
+    def flush(self):
+        pending = self._pending is not None
+        orig["_flush_pending"](self)
+        if pending:
+            rec["t_ready"].append(time.perf_counter())
+
+    Pipe.process_ev_frame, Pipe._dispatch_segmented, Pipe._flush_pending = (
+        process_ev_frame, dispatch, flush)
+    try:
+        yield rec
+    finally:
+        for k, fn in orig.items():
+            setattr(Pipe, k, fn)
+
+
+def segment_host(raw_path, fps, width, height):
+    """The frames the trigger finder emits on the recording, replayed on
+    the host alone (decoder, activity filter, trigger finder; no engine)."""
+    from xmaps_tpu_torch.io.event_iterator import FileEventsIterator
+    from xmaps_tpu_torch.io.filters import ActivityNoiseFilter
+    from xmaps_tpu_torch.runtime.trigger_finder import RobustTriggerFinder
+    from xmaps_tpu_torch.utils.stats import StatsPrinter
+
+    frames = []
+    act = ActivityNoiseFilter(width, height, window_us=int(1e6 / fps), keep_polarity=1)
+    finder = RobustTriggerFinder(projector_fps=fps, stats=StatsPrinter(silent=True),
+                                 frame_callback=lambda evs: frames.append(evs.copy()))
+    for packet in FileEventsIterator(raw_path, delta_t=1e6 / fps / 4):
+        if len(packet):
+            finder.process_events(act.process(packet))
+    return frames
+
+
+def replay(app, argv, want_tail, expect_frames):
+    """One run of the replay app's ``main`` on the card, its stdout kept
+    out of the log, with the launch counts reset just before and read just
+    after.  Checks that the pipe dispatched exactly ``expect_frames`` (the
+    trigger finder's frames, from segment_host), the counts and the
+    launches; returns (record, counters, replay-loop wall seconds)."""
+    import torch
+    from xmaps_tpu_torch.ops import _build
+
+    loop_s = []
+    orig_loop = app.project_events
+
+    def timed_loop(*a, **kw):
+        t0 = time.perf_counter()
+        orig_loop(*a, **kw)
+        torch.cuda.synchronize()
+        loop_s.append(time.perf_counter() - t0)
+
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    app.project_events = timed_loop
+    _build.reset_launch_counts()
+    try:
+        with record_pipe() as rec, contextlib.redirect_stdout(out):
+            app.main.main(args=argv, standalone_mode=False)
+    finally:
+        app.project_events = orig_loop
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    counters = dict(rec["stats"]._global.counters)
+    n = len(rec["events"])
+    trig = counters.get("trig ok", 0)
+    shown = counters.get("frames shown", 0)
+    skipped = counters.get("frames computed (display skipped)", 0)
+    if not (n == len(expect_frames) == trig == counters.get("frames dispatched")
+            == shown + skipped == len(rec["t_ready"])):
+        raise AssertionError(f"replay counts: {n} dispatched, {len(expect_frames)} "
+                             f"segmented, {counters}\n{out.getvalue()}")
+    for i, (got, want) in enumerate(zip(rec["events"], expect_frames)):
+        if not np.array_equal(got, want):
+            raise AssertionError(f"replay frame {i}: events differ from the trigger finder's")
+    want = {k: 0 for k in launches}
+    want.update({"event_disparity_scatter": n, want_tail: n})
+    if launches != want:
+        raise AssertionError(f"replay launches {launches} != {want}")
+    return rec, counters, loop_s[0]
+
+
+def check_replay_frames(what, rec, errs):
+    """Every frame the pipe computed on the card equals the CPU port's
+    process_staged of the same segmented events (1-word staging, as the
+    pipe stages), bit for bit."""
+    from xmaps_tpu_torch.io.prefetch import HostStagingPool
+
+    cpu = rec["engine"].to("cpu")
+    pool = HostStagingPool(cpu.cfg.event_capacity, device="cpu", layout=cpu.compact_layout)
+    lit = []
+    for i, (ev, got) in enumerate(zip(rec["events"], rec["results"])):
+        ref = cpu.process_staged(pool.stage_compact(ev))
+        errs["event_disparity_scatter"] = max(errs["event_disparity_scatter"], assert_exact(
+            f"{what} frame {i} card vs CPU port",
+            [(got.frame_bgr, ref.frame_bgr), (got.num_inliers, ref.num_inliers)]))
+        lit.append(float((ref.frame_bgr != 0xFFFFFF).float().mean()))
+    if min(lit) < 0.05:
+        raise AssertionError(f"{what}: a frame with {min(lit):.3f} of its pixels defined")
+    return lit
+
+
+def trace_device_ms(path):
+    """(device ms of all kernels, copies and memsets; ms of the
+    host-to-device copies) in a torch.profiler chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    dev = h2d = 0.0
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            dev += e["dur"] / 1e3
+            if e["cat"] == "gpu_memcpy" and "HtoD" in e.get("name", ""):
+                h2d += e["dur"] / 1e3
+    return dev, h2d
+
+
+def phase8_streaming(card, errs):
+    """Phase 8: the streaming replay app at the demonstrator rig."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    from xmaps_tpu_torch.apps import depth_reprojection as app
+    from xmaps_tpu_torch.io.evt_encode import encode_evt3
+    from xmaps_tpu_torch.io.prefetch import HostStagingPool
+    from xmaps_tpu_torch.utils.synthetic import make_synthetic_calibration, simulate_sequence
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    calib = make_synthetic_calibration(640, 480, 720, 1280)
+    yaml_path, raw_path = str(root / "calib.yaml"), str(root / "seq.raw")
+    write_xmaps_yaml(yaml_path, calib)
+    depths = [0.45 + 0.005 * i for i in range(STREAM_FRAMES)]
+    events = simulate_sequence(calib, depths, fps=60, subsample=0.031,
+                               rng=np.random.default_rng(7))
+    with open(raw_path, "wb") as f:
+        f.write(encode_evt3(events, 640, 480))
+    log(f"phase 8 streaming replay: {STREAM_FRAMES} frames at 60 Hz, {len(events)} events "
+        f"({len(events) / STREAM_FRAMES:.0f}/frame), EVT3 {os.path.getsize(raw_path)} bytes "
+        f"(made in {time.perf_counter() - t_phase:.1f} s)")
+    expect = segment_host(raw_path, 60, 640, 480)
+    if len(expect) < STREAM_FRAMES // 2:
+        raise AssertionError(f"the trigger finder found {len(expect)} frames")
+    log(f"  the trigger finder (host replay alone) emits {len(expect)} frames of "
+        f"{[len(f) for f in expect[:3]]}... events")
+    base = ["--calib", yaml_path, "--input", raw_path, "--z-near", str(Z_NEAR),
+            "--z-far", str(Z_FAR), "--no-frame-dropping", "--window", "files",
+            "--out-dir", str(root / "frames"), "--device", "cuda"]
+    launches: dict = {}
+    runs = {}
+    for name, extra, tail in (
+        ("projector", [], "tail_projector"),
+        ("camera", ["--camera-perspective"], "colorize_camera"),
+        ("projector --low-latency", ["--low-latency"], "tail_projector"),
+        ("projector --profile-dir", ["--profile-dir", str(root / "trace")], "tail_projector"),
+    ):
+        rec, counters, loop_s = replay(app, base + extra, tail, expect)
+        for k, v in dict(event_disparity_scatter=len(rec["events"]), **{tail: len(rec["events"])}).items():
+            launches[k] = launches.get(k, 0) + v
+        runs[name] = (rec, counters, loop_s)
+        n = len(rec["events"])
+        lat = [(r - t) * 1e3 for t, r in zip(rec["t_trigger"], rec["t_ready"])]
+        log(f"  {name}: trig ok {counters['trig ok']}, trig fail {counters.get('trig fail', 0)}, "
+            f"shown {counters.get('frames shown', 0)} + display skipped "
+            f"{counters.get('frames computed (display skipped)', 0)}; launches = frames "
+            f"dispatched = {n}; replay loop {loop_s:.3f} s: {n / loop_s:.2f} frames/s, "
+            f"{counters['processed evs'] / loop_s / 1e6:.2f} Mev/s ingest; trigger -> "
+            f"frame ready median {statistics.median(lat):.4f} ms, p90 "
+            f"{statistics.quantiles(lat, n=10)[-1]:.4f} ms {card}")
+
+    # every frame of both views against the CPU port; 2-word vs 1-word
+    for name in ("projector", "camera"):
+        lit = check_replay_frames(name, runs[name][0], errs)
+        log(f"  {name}: all {len(lit)} frames bit-equal to the CPU port's process_staged "
+            f"(packed BGR + inliers); defined pixels {min(lit):.3f}..{max(lit):.3f}")
+    rec = runs["projector"][0]
+    eng = rec["engine"]
+    pool = HostStagingPool(eng.cfg.event_capacity, device="cuda")
+    for i, (ev, got) in enumerate(zip(rec["events"], rec["results"])):
+        assert_exact(f"projector frame {i}: 2-word vs 1-word staging on the card",
+                     [(eng.process_staged(pool.stage(ev)).frame_bgr, got.frame_bgr)])
+    torch.cuda.synchronize()
+    log(f"  2-word staging (stage) == 1-word staging (stage_compact) on the card: "
+        f"{len(rec['events'])} frames exact")
+
+    # device time, pinned H2D and busy share from the --profile-dir trace
+    rec, counters, loop_s = runs["projector --profile-dir"]
+    n = len(rec["events"])
+    dev_ms, h2d_ms = trace_device_ms(root / "trace" / "trace.json")
+    wall_ms = runs["projector"][2] * 1e3 / len(runs["projector"][0]["events"])
+    log(f"  device per frame (profiled replay): {dev_ms / n:.4f} ms, of it H2D "
+        f"{h2d_ms / n * 1e3:.2f} us (one pinned copy of the 1-word batch; phase 6 lists "
+        f"process_frame's pageable copies); busy share "
+        f"{dev_ms / (loop_s * 1e3):.4f} of the profiled replay loop, {dev_ms / n / wall_ms:.4f}"
+        f" of the unprofiled one ({wall_ms:.4f} ms/frame) {card}")
+    tmp.cleanup()
+    log(f"  phase 8 total {time.perf_counter() - t_phase:.1f} s {card}")
+    return launches
+
+
+def phase9_bench(card, errs, kernels_ms, shapes, library_ms):
+    """Phase 9: kernel W against its plain version, then apps.bench."""
+    import torch
+    from xmaps_tpu_torch.apps import bench
+    from xmaps_tpu_torch.ops import _build
+    from xmaps_tpu_torch.ops.warmup import WARMUP_SHAPE, warmup_add_one, warmup_add_one_plain
+
+    x = torch.from_numpy(np.random.default_rng(9).integers(
+        -(2**31), 2**31 - 1, WARMUP_SHAPE, dtype=np.int32)).cuda()
+    errs["warmup_add_one"] = assert_exact(
+        "warmup_add_one", [(warmup_add_one(x), warmup_add_one_plain(x))])
+    kernels_ms["warmup_add_one"] = time_pair(lambda: warmup_add_one(x),
+                                             lambda: warmup_add_one_plain(x))
+    shapes["warmup_add_one"] = (x.numel(),)
+    library_ms["warmup_add_one"] = device_ms(lambda: x + 1)[0]
+    km, pm = kernels_ms["warmup_add_one"]
+    log(f"phase 9 kernel W warmup_add_one {WARMUP_SHAPE}: exact; {km['ms']:.5f} ms device "
+        f"({km['source']}), plain {pm['ms']:.5f} ms {card}")
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    with contextlib.redirect_stdout(out):
+        rc = bench.main([])
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    frames = bench.N_FRAMES + bench.SYNC_FRAMES + bench.ROUNDS * bench.N_FRAMES
+    want = {k: 0 for k in launches}
+    want.update(warmup_add_one=1, event_disparity_scatter=frames, tail_projector=frames)
+    if rc != 0 or launches != want:
+        raise AssertionError(f"apps.bench rc {rc}, launches {launches} != {want}")
+    line = out.getvalue().strip().splitlines()[-1]
+    result = json.loads(line)
+    if not (result["value"] > 0 and result["extra"]["gpu"]):
+        raise AssertionError(f"apps.bench: {line}")
+    log(f"  apps.bench launches {launches}; its JSON line:")
+    print(line, flush=True)
+    return launches
+
+
+def remap_library_ms(cam, fwd, disp_box, back):
+    """Device ms of torch.take computing kernel B's forward + back remaps
+    (flat indices into the source with one zero appended, for the
+    out-of-bounds destinations), precomputed outside the timing."""
+    import torch
+    from xmaps_tpu_torch.ops.remap import remap_gather_plain
+
+    calls = []
+    for src, (yi, xi, inb) in ((cam, fwd), (disp_box, back)):
+        Hs, Ws = src.shape
+        flat = torch.cat([src.reshape(-1), src.new_zeros(1)])
+        idx = yi.long() * Ws + xi.long().clamp(max=Ws - 1)
+        ok = xi < Ws if inb is None else inb & (xi < Ws)
+        calls.append((flat, torch.where(ok, idx, Hs * Ws)))
+        assert_exact("torch.take as kernel B's function", [
+            (torch.take(*calls[-1]), remap_gather_plain(src, yi, xi, inb))])
+    return device_ms(lambda: [torch.take(f, i) for f, i in calls])[0]
+
+
+def kernel_bytes(name, shapes) -> float:
+    """The bytes ``name`` must move on the main path's inputs of this run:
+    each input read once, each output written once; for gathers, one
+    element per lane that needs it (at most the whole table)."""
+    s = shapes[name]
+    if name == "event_disparity_scatter":
+        n, inl, lut_b, xmap_b, out_px = s
+        return 13 * n + min(4 * inl, lut_b) + min(2 * inl, xmap_b) + 4 * out_px + 4
+    if name == "tail_projector":
+        crop_px, proj_px = s
+        return 4 * crop_px + 2 * 2 * proj_px + 4 * 256 + 4 * proj_px
+    if name == "colorize_camera":
+        (px,) = s
+        return 4 * px + 4 * 256 + 4 * px
+    if name == "esl_disparity_search":
+        # the box in and out; the table bytes a search touches are
+        # data-dependent and shared by neighbouring pixels (unknown here),
+        # so they are left out and the bound stays a lower bound
+        (box_px,) = s
+        return 4 * box_px + 4 * box_px
+    if name == "remap_gather":
+        # per call: (destination px, in-bounds px, source px, has an inb mask)
+        return sum((8 + has_inb) * px + 4 * min(n_in, src_px) + 4 * px
+                   for px, n_in, src_px, has_inb in s)
+    if name == "warmup_add_one":
+        (n,) = s
+        return 8 * n
+    raise KeyError(name)
 
 
 def main() -> int:
@@ -618,7 +970,7 @@ def main() -> int:
     log(f"phase 4 main path: {N_FRAMES} frames x 2 views, launches {launches}")
     expect = {"event_disparity_scatter": 2 * N_FRAMES,
               "tail_projector": N_FRAMES, "colorize_camera": N_FRAMES,
-              "esl_disparity_search": 0, "remap_gather": 0}
+              "esl_disparity_search": 0, "remap_gather": 0, "warmup_add_one": 0}
     if launches != expect:
         raise AssertionError(f"launch counts {launches} != {expect}")
     for name, eng, outs in (("projector", eng_p, out_p), ("camera", eng_c, out_c)):
@@ -705,25 +1057,44 @@ def main() -> int:
         lambda: colorize_camera(packed_c, eng_c.tables, eng_c.plan, **disp),
         lambda: colorize_camera_plain(packed_c, eng_c.tables, eng_c.plan, **disp),
     )
+    # bounds: this run's inputs (kernel 1: the projector-view frame 0)
+    t = eng_p.tables
+    shapes = {
+        "event_disparity_scatter": (
+            batch.capacity, int(batch.valid.sum()),
+            t.cam_map_packed.numel() * 4, t.x_map.numel() * 2, packed_p.numel()),
+        "tail_projector": (packed_p.numel(), t.proj_mapx_i16.numel()),
+        "colorize_camera": (packed_c.numel(),),
+    }
+    library_ms: dict = {}
     for k, (km, pm) in kernels_ms.items():
         log(f"  kernel {k}: {km['ms']:.5f} ms device ({km['source']}), plain "
             f"{pm['ms']:.5f} ms; issue rate {km['issue_ms']:.5f} vs {pm['issue_ms']:.5f} "
             f"ms/call (demonstrator, display-packed, mean of 2x50 calls) {card}")
 
-    # -- 7. the offline eval at the ESL geometry ------------------------
+    # -- 7-9. the offline eval, the replay app, the bench ---------------
     # launches: the engine's main path (phase 4) plus the eval apps'
-    # (phase 7), each counted from 0 just before its run
-    for k, v in phase7_offline_eval(card, errs, kernels_ms).items():
-        launches[k] += v
-    log(f"launches on the main paths (phase 4 + phase 7): {launches}")
+    # (phase 7), the replay app's (phase 8) and the bench's (phase 9),
+    # each counted from 0 just before its run
+    for part in (phase7_offline_eval(card, errs, kernels_ms, shapes, library_ms),
+                 phase8_streaming(card, errs),
+                 phase9_bench(card, errs, kernels_ms, shapes, library_ms)):
+        for k, v in part.items():
+            launches[k] += v
+    log(f"launches on the main paths (phases 4, 7, 8, 9): {launches}")
 
-    kernels = [
-        dict(name=k, route="cuda", source=KERNEL_INFO[k][0],
-             replaces=KERNEL_INFO[k][1], launches=launches[k],
-             max_abs_err=errs[k], ms=kernels_ms[k][0]["ms"],
-             plain_ms=kernels_ms[k][1]["ms"])
-        for k in KERNEL_INFO
-    ]
+    kernels = []
+    for k in KERNEL_INFO:
+        bound_ms = kernel_bytes(k, shapes) / HBM_BYTES_PER_S * 1e3
+        kernels.append(dict(
+            name=k, route="cuda", source=KERNEL_INFO[k][0],
+            replaces=KERNEL_INFO[k][1], launches=launches[k],
+            max_abs_err=errs[k], ms=kernels_ms[k][0]["ms"],
+            plain_ms=kernels_ms[k][1]["ms"], bound_ms=bound_ms, bound_by="bytes",
+            library_ms=library_ms.get(k)))
+        log(f"  kernel {k}: {kernels[-1]['ms']:.5f} ms, bound {bound_ms:.6f} ms (bytes), "
+            f"share of bound {bound_ms / kernels[-1]['ms']:.4f}, library "
+            f"{library_ms.get(k)} ms {card}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -18,6 +18,7 @@ from xmaps_tpu.utils.colormap import TURBO_BGR_U8 as J_TURBO  # noqa: E402
 from xmaps_tpu.utils.synthetic import (  # noqa: E402
     make_synthetic_calibration as j_calib,
     simulate_plane_events as j_sim,
+    simulate_sequence as j_seq,
 )
 
 import xmaps_tpu_torch.config as tcfg  # noqa: E402
@@ -26,6 +27,7 @@ from xmaps_tpu_torch.utils.colormap import TURBO_BGR_U8 as T_TURBO  # noqa: E402
 from xmaps_tpu_torch.utils.synthetic import (  # noqa: E402
     make_synthetic_calibration as t_calib,
     simulate_plane_events as t_sim,
+    simulate_sequence as t_seq,
 )
 
 torch.set_num_threads(1)
@@ -38,7 +40,9 @@ RIGS = [
 
 def test_constants_and_colormap():
     for name in ("X_OFFSET", "RECTIFICATION_SCALE_XMAPS",
-                 "RECTIFICATION_SCALE_ESL", "DILATE_KERNEL"):
+                 "RECTIFICATION_SCALE_ESL", "DILATE_KERNEL",
+                 "EV_PACKETS_PER_FRAME", "MIN_EVENTS_PER_FRAME",
+                 "FRAME_PAUSED_THRESH_US"):
         assert getattr(tcfg, name) == getattr(jcfg, name), name
     t = tcfg.PipelineConfig(1, 2, 90, 4, 5, 6)
     j = jcfg.PipelineConfig(1, 2, 90, 4, 5, 6)
@@ -67,6 +71,30 @@ def test_cam_proj_maps_equal(rig):
                rng=np.random.default_rng(5))
     et = t_sim(tc, depth_m=0.6, subsample=0.5, jitter_us=2.0,
                rng=np.random.default_rng(5))
+    np.testing.assert_array_equal(et, ej)
+
+
+def test_runtime_params_equal():
+    assert ([(f.name, f.default) for f in dataclasses.fields(tcfg.RuntimeParams)]
+            == [(f.name, f.default) for f in dataclasses.fields(jcfg.RuntimeParams)])
+    args = (640, 480, 720, 1280, 60, 0.2, 1.2, "c.yaml")
+    for kw in ({}, dict(no_frame_dropping=True, camera_perspective=True)):
+        t, j = tcfg.RuntimeParams(*args, **kw), jcfg.RuntimeParams(*args, **kw)
+        assert dataclasses.asdict(t) == dataclasses.asdict(j)
+        assert t.should_drop_frames == j.should_drop_frames
+
+
+def test_simulate_sequence_equal():
+    """The multi-frame stream with blanking gaps (what the trigger finder
+    segments) equals the JAX package's, seed for seed."""
+    calib = t_calib(camera_width=128, camera_height=96, projector_width=180,
+                    projector_height=320)
+    jcalib = j_calib(camera_width=128, camera_height=96, projector_width=180,
+                     projector_height=320)
+    kw = dict(fps=60, subsample=0.3)
+    et = t_seq(calib, [0.5, 0.6, 0.7], rng=np.random.default_rng(3), **kw)
+    ej = j_seq(jcalib, [0.5, 0.6, 0.7], rng=np.random.default_rng(3), **kw)
+    assert len(et) > 3000
     np.testing.assert_array_equal(et, ej)
 
 
@@ -115,6 +143,18 @@ def _ast_without_imports(path):
 def test_eval_copies_equal_apart_from_imports(module):
     """The eval helpers the port carries as copies equal the originals
     statement for statement; only their imports point elsewhere."""
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parent.parent
+    port = repo / "xmaps_tpu_torch" / module
+    assert _ast_without_imports(port) == _ast_without_imports(repo / "xmaps_tpu" / module)
+    assert "xmaps_tpu." not in port.read_text().replace("xmaps_tpu_torch.", "")
+
+
+@pytest.mark.parametrize("module", ["runtime/trigger_finder.py", "runtime/watchdog.py"])
+def test_runtime_copies_equal_apart_from_imports(module):
+    """The streaming runtime's trigger finder (frame segmentation, with the
+    global-index bookkeeping) and watchdog are copies of the originals."""
     from pathlib import Path
 
     repo = Path(__file__).resolve().parent.parent

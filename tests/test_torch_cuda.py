@@ -238,3 +238,65 @@ def test_device_depth_init_on_card_matches_cpu(cuda):
     odisp, odepth = depth_init_dense(cam, maps, proj_rect, p03, "cuda")
     assert np.array_equal(disp.cpu().numpy(), odisp) and disp.cpu().numpy().any()
     assert np.array_equal(depth.cpu().numpy(), odepth)
+
+
+# -- kernel W and the pinned staging of the streaming pipe -------------------
+
+
+def test_warmup_kernel_matches_plain_on_card(cuda):
+    from xmaps_tpu_torch.ops.warmup import WARMUP_SHAPE, warmup_add_one, warmup_add_one_plain
+
+    rng = np.random.default_rng(9)
+    for shape in (WARMUP_SHAPE, (3, 1000)):
+        x = torch.from_numpy(rng.integers(-(2**31), 2**31 - 1, shape, dtype=np.int32)).cuda()
+        _build.reset_launch_counts()
+        got = warmup_add_one(x)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["warmup_add_one"] == 1
+        _equal(got, warmup_add_one_plain(x))
+    with pytest.raises(ValueError, match="int32"):
+        warmup_add_one(torch.zeros(WARMUP_SHAPE, device=cuda))
+
+
+@pytest.mark.parametrize("compact", [True, False], ids=["compact", "two_word"])
+def test_pinned_staging_matches_pageable(cuda, compact):
+    """40 frames staged into 2 pinned slots back to back while the stream
+    is held busy, so every copy is still queued when the host comes round
+    to its slot again: the CUDA event recorded after a slot's copy must
+    hold the refill back.  Every batch equals pageable staging."""
+    from xmaps_tpu_torch.io.prefetch import (
+        CompactLayout,
+        HostStagingPool,
+        unpack_staged,
+        unpack_staged_compact,
+    )
+    from xmaps_tpu_torch.io.evt_decoder import EVENT_DTYPE
+    from xmaps_tpu_torch.config import PipelineConfig
+
+    cap = 1 << 15
+    layout = CompactLayout.for_pipeline(PipelineConfig(640, 480, 720, 1280, 1760, 1320))
+    pinned = HostStagingPool(cap, depth=2, device=cuda, layout=layout)
+    pageable = HostStagingPool(cap, depth=2, device="cpu", layout=layout)
+    assert all(t.is_pinned() for s in pinned._slots for t in s.tensors.values())
+    rng = np.random.default_rng(2)
+    frames = []
+    for i in range(40):
+        n = int(rng.integers(1000, cap + 2000))
+        ev = np.zeros(n, dtype=EVENT_DTYPE)
+        ev["x"], ev["y"] = rng.integers(0, 640, n), rng.integers(0, 480, n)
+        ev["p"] = rng.integers(0, 2, n)
+        ev["t"] = 10**6 * i + np.sort(rng.integers(0, 16_000, n))
+        frames.append(ev)
+    torch.cuda._sleep(200_000_000)  # keep the stream busy (~0.1 s)
+    stage = "stage_compact" if compact else "stage"
+    got = [getattr(pinned, stage)(ev) for ev in frames]
+    torch.cuda.synchronize()
+    for g, ev in zip(got, frames):
+        want = getattr(pageable, stage)(ev)
+        if compact:
+            (gb, gts), (wb, wts) = (unpack_staged_compact(b, layout) for b in (g, want))
+            _equal(gts, wts.cuda())
+        else:
+            gb, wb = unpack_staged(g), unpack_staged(want)
+        for a, b in zip(gb, wb):
+            _equal(a, b.cuda())

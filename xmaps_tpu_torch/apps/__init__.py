@@ -1,1 +1,1 @@
-"""CLI entry points: the offline evaluation apps."""
+"""CLI entry points: the replay app, the engine bench, the offline evaluation apps."""

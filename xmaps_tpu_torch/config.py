@@ -1,13 +1,26 @@
 """Static pipeline configuration and framework-wide constants.
 
-The subset of ``xmaps_tpu.config`` the per-frame engine needs, with the
-same names and values (pinned equal by tests/test_torch_calib.py).
+A copy of ``xmaps_tpu.config`` with the same names and values (pinned
+equal by tests/test_torch_calib.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Optional
+
+#: Events per projector frame are streamed in this many packets
+#: (reference: depth_reprojection.py:66).
+EV_PACKETS_PER_FRAME = 4
+
+#: A candidate frame must contain more events than this
+#: (reference: trigger_finder.py:8).
+MIN_EVENTS_PER_FRAME = 1000
+
+#: Inter-event gap [us] that marks a projector blanking pause
+#: (reference: trigger_finder.py:98).
+FRAME_PAUSED_THRESH_US = 40
 
 #: Offset added to X-map entries so that x==0 is distinguishable from
 #: "undefined" (reference: x_maps_disparity.py:49).
@@ -22,6 +35,38 @@ RECTIFICATION_SCALE_ESL = 3.0
 #: Dilation kernel size for the projector-view disparity map
 #: (reference: disp_to_depth.py:74).
 DILATE_KERNEL = 7
+
+
+@dataclass
+class RuntimeParams:
+    """Runtime parameters of the live/replay app.
+
+    Field-compatible with the reference RuntimeParams
+    (depth_reprojection_processor.py:13-36).
+    """
+
+    camera_width: int
+    camera_height: int
+
+    projector_width: int
+    projector_height: int
+
+    projector_fps: int
+
+    z_near: float
+    z_far: float
+
+    calib: str
+
+    projector_time_map: Optional[str] = None
+
+    no_frame_dropping: bool = False
+
+    camera_perspective: bool = False
+
+    @property
+    def should_drop_frames(self) -> bool:
+        return not self.no_frame_dropping
 
 
 @dataclass(frozen=True)

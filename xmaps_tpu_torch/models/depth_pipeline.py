@@ -17,7 +17,13 @@ import numpy as np
 import torch
 
 from xmaps_tpu_torch.calib.maps import CalibrationParams, CamProjMaps
-from xmaps_tpu_torch.config import PipelineConfig
+from xmaps_tpu_torch.config import PipelineConfig, RuntimeParams
+from xmaps_tpu_torch.io.prefetch import (
+    CompactLayout,
+    CompactStagedBatch,
+    unpack_staged,
+    unpack_staged_compact,
+)
 from xmaps_tpu_torch.ops.cuda_tail import CamTailPlan, TailPlan, build_tail_plan
 from xmaps_tpu_torch.ops.event_batch import EventBatch
 from xmaps_tpu_torch.ops.frame_pipeline import DeviceTables, FrameResult, depth_frame
@@ -142,6 +148,35 @@ class XMapsDepthEngine:
         )
 
     @staticmethod
+    def from_runtime_params(
+        params: RuntimeParams, *, device, **kw
+    ) -> "XMapsDepthEngine":
+        """The engine of the replay app's RuntimeParams (calibration YAML
+        in the X-maps dialect).  CLI sessions reuse the maps and the
+        X-map across runs through the disk cache (default
+        ``~/.cache/xmaps_tpu_torch``; the key hashes the time map and the
+        geometry)."""
+        calib = CalibrationParams.from_yaml(
+            params.calib,
+            params.camera_width,
+            params.camera_height,
+            params.projector_width,
+            params.projector_height,
+        )
+        kw.setdefault(
+            "xmap_cache_dir", os.path.expanduser("~/.cache/xmaps_tpu_torch")
+        )
+        return XMapsDepthEngine.from_calibration(
+            calib,
+            device=device,
+            z_near=params.z_near,
+            z_far=params.z_far,
+            camera_perspective=params.camera_perspective,
+            projector_time_map_path=params.projector_time_map,
+            **kw,
+        )
+
+    @staticmethod
     def _build_or_load_xmap(
         time_map_rect: np.ndarray,
         cfg: PipelineConfig,
@@ -212,6 +247,31 @@ class XMapsDepthEngine:
         (e.g. ``EventBatch.from_arrays`` of float-time scan events, as the
         offline eval builds them)."""
         return depth_frame(batch, self.tables, self.cfg, self.plan)
+
+    @property
+    def compact_layout(self) -> Optional[CompactLayout]:
+        """The 1-word staging layout, or None where the camera and time
+        axis do not fit 32 bits."""
+        return CompactLayout.for_pipeline(self.cfg)
+
+    def process_staged(self, staged) -> FrameResult:
+        """Run the frame on a packed ``io.prefetch`` batch (the streaming
+        hot path; validity implied by the count), display-only with the
+        packed-BGR plane, as the JAX engine's streaming program.  Accepts
+        a StagedBatch (2 words/event) or, when the pipeline is
+        unfiltered, a CompactStagedBatch (1 word/event with host-binned
+        time)."""
+        kw = dict(display_only=True, display_packed=True)
+        if isinstance(staged, CompactStagedBatch):
+            layout = self.compact_layout
+            if layout is None or self.cfg.frame_filter != "none":
+                raise ValueError(
+                    "compact staging requires frame_filter == 'none' and "
+                    "a 32-bit-fit CompactLayout"
+                )
+            batch, ts = unpack_staged_compact(staged, layout)
+            return depth_frame(batch, self.tables, self.cfg, self.plan, t_scaled=ts, **kw)
+        return depth_frame(unpack_staged(staged), self.tables, self.cfg, self.plan, **kw)
 
     def process_frames(self, frames: list, **kw) -> list:
         """Run many independent frames, one after another (one

@@ -21,10 +21,10 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["load", "LAUNCHES", "reset_launch_counts", "check", "NVCC_FLAGS"]
+__all__ = ["load", "LAUNCHES", "reset_launch_counts", "check", "NVCC_FLAGS", "build_dir"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("events.cu", "tail.cu", "esl.cu", "remap.cu")
+SOURCES = ("events.cu", "tail.cu", "esl.cu", "remap.cu", "warmup.cu")
 HEADERS = ("common.cuh",)
 
 #: sm_90a for Hopper; no --use_fast_math: the f32 epilogue (p03/disp, the
@@ -42,6 +42,7 @@ LAUNCHES = {
     "colorize_camera": 0,
     "esl_disparity_search": 0,
     "remap_gather": 0,
+    "warmup_add_one": 0,
 }
 
 _P = ctypes.c_void_p
@@ -86,6 +87,10 @@ _SIGNATURES = {
         _P,  # out f32
         _P,  # stream
     ],
+    "warmup_add_one": [
+        _P, _P, _L,  # x, out (i32), n
+        _P,  # stream
+    ],
 }
 
 _LIB = None
@@ -96,7 +101,8 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
-def _build_dir() -> Path:
+def build_dir() -> Path:
+    """Where the package's native libraries are built and cached."""
     env = os.environ.get("XMAPS_TORCH_BUILD_DIR")
     if env:
         return Path(env)
@@ -134,7 +140,7 @@ def load(verbose: bool = False) -> ctypes.CDLL:
     for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
-    out_dir = _build_dir()
+    out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
     lib_path = out_dir / f"libxmaps_kernels_{h.hexdigest()[:16]}.so"
     if not lib_path.exists():

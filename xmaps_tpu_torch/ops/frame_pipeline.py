@@ -10,7 +10,8 @@ render perspectives are supported:
 - camera view: scatter at raw event coordinates
   (cam_proj_calibration.py:312-317).
 
-On CUDA a frame is the time binning (a few PyTorch ops) and two kernels:
+On CUDA a frame is the time binning (a few PyTorch ops, skipped when the
+host staged the time bins) and two kernels:
 ``event_disparity_scatter`` then ``tail_projector`` or ``colorize_camera``.
 On CPU the same calls run the kernels' plain versions.
 """
@@ -108,6 +109,7 @@ def depth_frame(
     cfg: PipelineConfig,
     plan: Union[TailPlan, CamTailPlan],
     *,
+    t_scaled: Optional[torch.Tensor] = None,
     display_only: bool = False,
     display_packed: bool = False,
 ) -> FrameResult:
@@ -115,6 +117,10 @@ def depth_frame(
 
     ``plan``: the engine's ``TailPlan`` (projector view) or
     ``CamTailPlan`` (camera view, ``cfg.camera_perspective``).
+    ``t_scaled`` (int32 X-map time bins, computed exactly on the host by
+    ``io.prefetch`` compact staging) skips the time binning; only valid
+    with ``frame_filter == "none"`` (filters change the frame's time
+    bounds, so bins must be computed after filtering).
     ``display_only`` returns depth and disp_map as None (the kernels skip
     the two f32 stores); ``display_packed`` (requires display_only) returns
     frame_bgr as one packed-BGR int32 plane.
@@ -124,11 +130,20 @@ def depth_frame(
             "display_packed emits only the packed colorized plane; it "
             "requires display_only"
         )
+    if t_scaled is not None and cfg.frame_filter != "none":
+        raise ValueError(
+            "precomputed t_scaled requires frame_filter == 'none' "
+            "(filters change the frame's time bounds)"
+        )
     if cfg.frame_filter != "none":
         raise NotImplementedError(
             "frame filters are not ported (ROADMAP: port the dedup filters)"
         )
-    t_bin = scale_time(batch.t, batch.valid, cfg.t_px_scale)
+    t_bin = (
+        scale_time(batch.t, batch.valid, cfg.t_px_scale)
+        if t_scaled is None
+        else t_scaled
+    )
     if cfg.camera_perspective:
         assert isinstance(plan, CamTailPlan), plan
         window, out_shape = (0, 0), (cfg.camera_height, cfg.camera_width)

@@ -1,0 +1,201 @@
+"""Pipeline wiring: packets -> filters -> trigger finder -> device frame.
+
+Port of ``xmaps_tpu.runtime.pipe``, the orchestration equivalent of the
+reference DepthReprojectionPipe (depth_reprojection_pipe.py:38-176).
+Per-packet path: watchdog -> fused polarity+activity filter (native C++)
+-> trigger finder.  Per-frame path: staging into pinned host slots with one
+non-blocking copy (``io.prefetch``), then the engine's frame (kernel 1 and
+kernel 2 or 3 on CUDA), plus the handoff of the finished frame to the
+display callback.
+
+The frame runs on the engine's stream while the host segments the next
+one: a frame is fetched (or its inlier count read, which synchronises) only
+when the next frame is dispatched, or at once with ``low_latency``.  The
+packet-ring prestaging of the JAX pipe is not ported yet (ROADMAP.md); this
+pipe always stages the segmented frame.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Callable, Optional
+
+import numpy as np
+
+from xmaps_tpu_torch.config import RuntimeParams
+from xmaps_tpu_torch.io.filters import ActivityNoiseFilter
+from xmaps_tpu_torch.io.prefetch import HostStagingPool
+from xmaps_tpu_torch.models.depth_pipeline import XMapsDepthEngine
+from xmaps_tpu_torch.runtime.trigger_finder import RobustTriggerFinder
+from xmaps_tpu_torch.runtime.watchdog import TimingWatchdog
+from xmaps_tpu_torch.utils.stats import SingleTimer, StatsPrinter
+
+#: the frame dedup filters, in the E key's cycle order (the JAX package's
+#: ``xmaps_tpu.ops.filters.FILTER_NAMES``); only "none" is ported
+FILTER_NAMES = (
+    "none",
+    "first_per_yt",
+    "first_per_xy",
+    "last_per_xy",
+    "mean_first_last_per_xy",
+)
+
+
+@dataclass
+class DepthReprojectionPipe:
+    params: RuntimeParams
+    stats_printer: StatsPrinter
+    frame_callback: Callable[[np.ndarray], None]
+
+    engine: Optional[XMapsDepthEngine] = None
+
+    #: the device of the engine built from ``params`` when ``engine`` is
+    #: None ("cuda" or "cpu"); a given engine keeps its own device
+    device: str = "cuda"
+
+    #: True = flush each frame synchronously (lowest latency); False =
+    #: keep one frame in flight so device compute overlaps segmentation
+    #: (highest throughput, plus ~1 frame of display delay).
+    low_latency: bool = False
+
+    #: Optional display-demand probe, called once per finished frame.
+    #: When it returns False the full-resolution frame is never fetched
+    #: from the device -- only the 4-byte inlier count (stats +
+    #: backpressure).  Sinks that show every Nth frame (FileSinkWindow)
+    #: or none at all would otherwise pay the device->host image copy for
+    #: frames nobody looks at.
+    frame_wanted: Optional[Callable[[], bool]] = None
+
+    trigger_finder: RobustTriggerFinder = field(init=False)
+    watchdog: TimingWatchdog = field(init=False)
+    act_filter: ActivityNoiseFilter = field(init=False)
+
+    _filter_idx: int = 0
+    _pending: Optional[object] = None  # in-flight device FrameResult
+
+    def __post_init__(self):
+        p = self.params
+        self.act_filter = ActivityNoiseFilter(
+            p.camera_width,
+            p.camera_height,
+            window_us=int(1e6 / p.projector_fps),
+            keep_polarity=1,
+        )
+
+        if self.engine is None:
+            with SingleTimer("Setting up calibration, maps and X-map"):
+                self.engine = XMapsDepthEngine.from_runtime_params(
+                    p, device=self.device
+                )
+
+        self.staging = HostStagingPool(
+            self.engine.cfg.event_capacity,
+            depth=2,
+            device=self.engine.device,
+            layout=self.engine.compact_layout,
+        )
+
+        self.trigger_finder = RobustTriggerFinder(
+            projector_fps=p.projector_fps,
+            stats=self.stats_printer,
+            frame_callback=self.process_ev_frame,
+        )
+        self.watchdog = TimingWatchdog(
+            stats_printer=self.stats_printer, projector_fps=p.projector_fps
+        )
+
+    # -- per packet -------------------------------------------------------
+
+    def process_events(self, evs: np.ndarray):
+        if (
+            self.watchdog.is_processing_behind(evs)
+            and self.params.should_drop_frames
+        ):
+            self.trigger_finder.drop_frame()
+
+        with self.stats_printer.measure_time("act+pol filter"):
+            evs = self.act_filter.process(evs)
+
+        self.trigger_finder.process_events(evs)
+
+    # -- per frame ---------------------------------------------------------
+
+    def process_ev_frame(self, evs: np.ndarray):
+        """Trigger-finder callback: one frame of events -> device frame.
+
+        The previous frame's result is collected first, so device compute
+        overlaps with the next frame's host-side segmentation (double
+        buffering; the staging alternates host slots).
+        """
+        self._flush_pending()
+        self._dispatch_segmented(evs)
+        if self.low_latency:
+            self._flush_pending()
+
+    def _dispatch_segmented(self, evs: np.ndarray):
+        with self.stats_printer.measure_time("stage batch"):
+            # reused pinned host slots, packed words, one non-blocking
+            # copy per array (io.prefetch).  Unfiltered pipelines ship ONE
+            # word/event (host-binned time); dedup filters need raw
+            # timestamps, so they use the 2-word form.
+            if (
+                self.engine.compact_layout is not None
+                and self.engine.cfg.frame_filter == "none"
+            ):
+                batch = self.staging.stage_compact(evs)
+            else:
+                batch = self.staging.stage(evs)
+        with self.stats_printer.measure_time("dispatch frame"):
+            result = self.engine.process_staged(batch)
+        self._pending = result
+        self.stats_printer.count("frames dispatched")
+
+    def _flush_pending(self):
+        if self._pending is None:
+            return
+        if self.frame_wanted is not None and not self.frame_wanted():
+            # display skipped: sync on the scalar only (completion proof;
+            # the image stays on the device)
+            with self.stats_printer.measure_time("fetch stats"):
+                self.stats_printer.add_metric(
+                    "frame inliers", int(self._pending.num_inliers)
+                )
+            self._pending = None
+            self.stats_printer.count("frames computed (display skipped)")
+            return
+        with self.stats_printer.measure_time("fetch frame"):
+            # the packed-BGR plane (B | G<<8 | R<<16 in int32): the device
+            # skips the channel split; this host view + copy runs at
+            # display rate only
+            packed = self._pending.frame_bgr.cpu().numpy()
+            h, w = packed.shape
+            frame = np.ascontiguousarray(
+                packed.view(np.uint8).reshape(h, w, 4)[..., :3]
+            )
+            self.stats_printer.add_metric(
+                "frame inliers", int(self._pending.num_inliers)
+            )
+        self._pending = None
+        self.frame_callback(frame)
+
+    def flush(self):
+        """Drain the in-flight frame (call at end of stream)."""
+        self._flush_pending()
+
+    # -- runtime controls ---------------------------------------------------
+
+    def select_next_frame_event_filter(self) -> str:
+        """Cycle the frame dedup filter (reference E key,
+        depth_reprojection_pipe.py:169-171).  Only "none" is ported: the
+        engine raises NotImplementedError for the others."""
+        self._filter_idx = (self._filter_idx + 1) % len(FILTER_NAMES)
+        name = FILTER_NAMES[self._filter_idx]
+        self.engine.set_frame_filter(name)
+        self.stats_printer.log(f"Selected event filter: {name}")
+        return name
+
+    def reset(self):
+        self.flush()
+        self.watchdog.reset()
+        self.trigger_finder.reset()
+        self.act_filter.reset()

@@ -22,6 +22,7 @@ from xmaps_tpu_torch.calib.maps import (
 __all__ = [
     "make_synthetic_calibration",
     "simulate_plane_events",
+    "simulate_sequence",
 ]
 
 
@@ -156,3 +157,37 @@ def simulate_plane_events(
     order = np.argsort(events["t"], kind="stable")
     return events[order]
 
+
+def simulate_sequence(
+    calib: CalibrationParams,
+    depths_m,
+    fps: int = 60,
+    scan_fraction: float = 0.85,
+    subsample: float = 1.0,
+    jitter_us: float = 2.0,
+    rng: np.random.Generator | None = None,
+) -> np.ndarray:
+    """Simulate a multi-frame event stream at projector frame rate.
+
+    One plane per frame (depths_m[k] for frame k), with vertical-blanking
+    pauses between frames so the trigger finder can segment the stream
+    (reference: trigger_finder.py:146-189 relies on inter-frame gaps).
+    Returns a single time-sorted structured array.
+    """
+    rng = rng or np.random.default_rng(0)
+    # floor: the frame span test is `span <= 1e6/fps` (trigger_finder.py:169)
+    frame_us = int(1e6 / fps)
+    frames = []
+    for k, z in enumerate(depths_m):
+        ev = simulate_plane_events(
+            calib,
+            depth_m=z if np.ndim(z) == 2 else float(z),
+            frame_us=frame_us,
+            rng=rng,
+            jitter_us=jitter_us,
+            subsample=subsample,
+            scan_fraction=scan_fraction,
+            t_offset_us=k * frame_us,
+        )
+        frames.append(ev)
+    return np.concatenate(frames)
