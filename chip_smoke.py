@@ -3,14 +3,20 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-Builds the six CUDA kernels from xmaps_tpu_torch/csrc/ with nvcc, checks
-each against its plain PyTorch version on the card, and drives the port's
-four paths:
+Builds the seven CUDA kernels from xmaps_tpu_torch/csrc/ with nvcc (one
+process a source, started together), checks each against its plain PyTorch
+version on the card, and drives the port's paths:
 
 - the per-frame engine (XMapsDepthEngine.from_calibration -> process_frame)
   at the paper's demonstrator geometry in both views and at the ESL bench
   geometry (phases 3-6), every frame checked bit for bit against the port
   on the CPU with the same tables;
+- the five dedup frame filters (phase 5b): kernel 1 with each filter's
+  scatter priority against its plain version, then ``set_frame_filter``
+  and the 12 demonstrator frames in both views for each of the four dedup
+  filters, and ``first_per_yt`` (the largest key space) on 3 frames at the
+  ESL geometry, every frame bit-equal to the CPU port; phase 6 times each
+  filter (wall and device ms a frame, the filter ops' device time);
 - the offline evaluation at the ESL geometry (phase 7): the four eval apps
   (ESL init + refine, MC3D, X-maps, table) through their ``main`` on 4
   synthetic plane scans, with kernels A and B (ESL search, static remap)
@@ -21,10 +27,22 @@ four paths:
   events a frame, blanking gaps), in both views, every frame the pipe
   computed checked bit for bit against the CPU port's ``process_staged``
   of the same segmented events, and the 2-word staging against the 1-word
-  one on the card; then trigger -> frame-ready latency, replay frames/s,
-  ingest Mev/s, the pinned H2D time and the busy share;
+  one on the card; one replay with a dedup filter selected through the
+  processor's E key (2-word staging); then trigger -> frame-ready latency,
+  replay frames/s, ingest Mev/s, the pinned H2D time and the busy share;
+  then live capture: the app without ``--input`` on the wall-clock-paced
+  ``synthetic`` camera for about 1 s each, with the PNG file sink (by
+  default and with ``--low-latency``) and headless, every computed frame
+  bit-equal to the CPU port, at least as many frames as the watchdog lets
+  through at the run's measured host cost (``live_frame_floor``), with the
+  trigger -> frame-ready latency, the stream lag and the host's stage
+  timers under a paced stream;
 - the engine benchmark (phase 9): kernel W (the warm-up) against its plain
-  version, then one run of ``apps.bench``, whose JSON line is printed.
+  version, then one run of ``apps.bench``, whose JSON line is printed;
+- the scatter-store micro-benchmark (phase 10): kernel S (last-write-wins
+  stores into one tile) against its plain version, then one run of
+  ``apps.bench_store_loop``, whose JSON line is printed and gives kernel
+  S's times (kernel, plain version, ``index_put_``).
 
 It times frames, scans and kernels (torch.profiler device time and wall
 time) and prints one JSON line with every kernel's launches on the main
@@ -82,6 +100,10 @@ KERNEL_INFO = {
         "xmaps_tpu_torch/csrc/warmup.cu",
         "bench.py:97",
     ),
+    "tile_store_last": (
+        "xmaps_tpu_torch/csrc/store_loop.cu",
+        "eval/bench_store_loop.py:86",
+    ),
 }
 #: H100 SXM memory rate (NVIDIA data sheet), bytes/s: every kernel here
 #: moves far more bytes than it does operations, so its bound is bytes
@@ -96,6 +118,8 @@ ESL_PROJ = (1080, 1920)
 ESL_DISPARITIES = (180, 220, 260, 300)
 #: phase 8: frames of the replayed recording (1 s at 60 Hz)
 STREAM_FRAMES = 60
+#: phase 8: seconds of each live-capture run
+LIVE_S = 1.0
 
 
 def log(msg: str) -> None:
@@ -152,6 +176,26 @@ def frame_pairs(a, b):
     ]
 
 
+def view_kwargs(eng):
+    """(kernel 1's view arguments, the tail kernel, its plain version, its
+    name) of the engine's view."""
+    from xmaps_tpu_torch.ops.cuda_tail import (
+        colorize_camera,
+        colorize_camera_plain,
+        tail_projector,
+        tail_projector_plain,
+    )
+
+    cfg, plan = eng.cfg, eng.plan
+    if cfg.camera_perspective:
+        kw = dict(camera_view=True, window=(0, 0),
+                  out_shape=(cfg.camera_height, cfg.camera_width))
+        return kw, colorize_camera, colorize_camera_plain, "colorize_camera"
+    kw = dict(camera_view=False, window=(plan.crop_row0, plan.crop_col0),
+              out_shape=(plan.H, plan.W))
+    return kw, tail_projector, tail_projector_plain, "tail_projector"
+
+
 def kernel_parity(eng, ev, errs):
     """Phase 3: each kernel against its plain version on the card, on the
     shapes the engine's main path gives it."""
@@ -159,25 +203,12 @@ def kernel_parity(eng, ev, errs):
         event_disparity_scatter,
         event_disparity_scatter_plain,
     )
-    from xmaps_tpu_torch.ops.cuda_tail import (
-        colorize_camera,
-        colorize_camera_plain,
-        tail_projector,
-        tail_projector_plain,
-    )
     from xmaps_tpu_torch.ops.disparity import scale_time
 
     cfg, plan, tables = eng.cfg, eng.plan, eng.tables
     batch = eng.make_batch(ev)
     t_bin = scale_time(batch.t, batch.valid, cfg.t_px_scale)
-    if cfg.camera_perspective:
-        kw = dict(camera_view=True, window=(0, 0),
-                  out_shape=(cfg.camera_height, cfg.camera_width))
-        tail, tail_plain, tail_name = colorize_camera, colorize_camera_plain, "colorize_camera"
-    else:
-        kw = dict(camera_view=False, window=(plan.crop_row0, plan.crop_col0),
-                  out_shape=(plan.H, plan.W))
-        tail, tail_plain, tail_name = tail_projector, tail_projector_plain, "tail_projector"
+    kw, tail, tail_plain, tail_name = view_kwargs(eng)
     got = event_disparity_scatter(batch, t_bin, tables, want_lanes=True, **kw)
     ref = event_disparity_scatter_plain(batch, t_bin, tables, want_lanes=True, **kw)
     err = assert_exact(
@@ -197,6 +228,139 @@ def kernel_parity(eng, ev, errs):
         errs[tail_name] = max(errs.get(tail_name, 0.0), err)
         log(f"  {tail_name} {opts} -> {tuple(a[0].shape)}: exact")
     return batch, t_bin, kw, ref.packed_map
+
+
+def filter_batch(eng, batch, name):
+    """The dedup filter ``name`` on ``batch``, as ``depth_frame`` runs it."""
+    from xmaps_tpu_torch.ops.frame_pipeline import filter_events
+
+    return filter_events(batch, eng.tables, eng.cfg.replace(frame_filter=name))
+
+
+def filter_parity(eng, ev, errs):
+    """Kernel 1 with each dedup filter's scatter priority (and the
+    filtered batch) against its plain version on the card."""
+    from xmaps_tpu_torch.ops.cuda_events import (
+        event_disparity_scatter,
+        event_disparity_scatter_plain,
+    )
+    from xmaps_tpu_torch.ops.disparity import scale_time
+    from xmaps_tpu_torch.ops.filters import FILTER_NAMES
+
+    kw = view_kwargs(eng)[0]
+    batch = eng.make_batch(ev)
+    inliers = []
+    for name in FILTER_NAMES[1:]:
+        fb = filter_batch(eng, batch, name)
+        t_bin = scale_time(fb.batch.t, fb.batch.valid, eng.cfg.t_px_scale)
+        args = (fb.batch, t_bin, eng.tables)
+        got = event_disparity_scatter(*args, want_lanes=True, priority=fb.scatter_priority, **kw)
+        ref = event_disparity_scatter_plain(*args, want_lanes=True,
+                                            priority=fb.scatter_priority, **kw)
+        err = assert_exact(
+            f"event_disparity_scatter {name} ({'camera' if kw['camera_view'] else 'projector'})",
+            [(got.packed_map, ref.packed_map), (got.num_inliers, ref.num_inliers)]
+            + list(zip(got.lanes, ref.lanes)))
+        errs["event_disparity_scatter"] = max(errs["event_disparity_scatter"], err)
+        inliers.append(int(got.num_inliers))
+    log(f"  event_disparity_scatter with each dedup filter's priority {kw['out_shape']}: "
+        f"exact; inliers {dict(zip(FILTER_NAMES[1:], inliers))}")
+
+
+def phase_filters(card, errs, engines, frames, eng_e, esl_frames):
+    """Phase 5b: the dedup filters.  Kernel 1 with each filter's priority
+    against its plain version, then each of the four dedup filters through
+    ``set_frame_filter`` + ``process_frame`` on the demonstrator frames in
+    both views, and first_per_yt on the ESL frames, every frame bit-equal
+    to the CPU port.  Returns the launches of those frames, counted from 0
+    just before them and read just after (the CPU comparisons launch
+    nothing)."""
+    import torch
+    from xmaps_tpu_torch.ops import _build
+    from xmaps_tpu_torch.ops.filters import FILTER_NAMES
+
+    log("phase 5b dedup frame filters:")
+    for eng in engines.values():
+        filter_parity(eng, frames[0], errs)
+    runs = [(name, view, eng, frames) for name in FILTER_NAMES[1:]
+            for view, eng in engines.items()]
+    runs.append(("first_per_yt", "esl_projector", eng_e, esl_frames))
+    unfiltered = {view: [int(eng.process_frame(ev).num_inliers) for ev in frames]
+                  for view, eng in engines.items()}
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    for name, view, eng, fr in runs:
+        eng.set_frame_filter(name)
+        outs = [eng.process_frame(ev) for ev in fr]
+        cpu = eng.to("cpu")
+        for i, (ev, got) in enumerate(zip(fr, outs)):
+            assert_exact(f"{name} {view} frame {i} cuda vs cpu",
+                         frame_pairs(got, cpu.process_frame(ev)))
+        inl = [int(o.num_inliers) for o in outs]
+        if view in unfiltered and not (all(0 < a <= b for a, b in zip(inl, unfiltered[view]))
+                                       and sum(inl) < sum(unfiltered[view])):
+            raise AssertionError(f"{name} {view}: inliers {inl} vs unfiltered {unfiltered[view]}")
+        log(f"  {name} {view}: {len(fr)} frames bit-equal to the CPU port; inliers "
+            f"{min(inl)}..{max(inl)}" + (f" (unfiltered {min(unfiltered[view])}.."
+                                         f"{max(unfiltered[view])})" if view in unfiltered else ""))
+        eng.set_frame_filter("none")
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    n, n_e = len(FILTER_NAMES[1:]) * len(frames), len(esl_frames)
+    want = {k: 0 for k in launches}
+    want.update(event_disparity_scatter=2 * n + n_e, tail_projector=n + n_e, colorize_camera=n)
+    if launches != want:
+        raise AssertionError(f"filter launches {launches} != {want}")
+    log(f"  launches {launches} {card}")
+    return launches
+
+
+def time_filters(card, eng, frames):
+    """Phase 6, the filters: per dedup filter, wall ms a frame (median of
+    60), device ms a frame (profiler, 48 frames) and the device time of the
+    filter's own ops (``filter_events``: the rectify gather for
+    first_per_yt, then ``apply_frame_filter``) on frame 0."""
+    import torch
+    from xmaps_tpu_torch.ops.filters import FILTER_NAMES
+
+    view = "camera" if eng.cfg.camera_perspective else "projector"
+    batch = eng.make_batch(frames[0])
+    for name in FILTER_NAMES[1:]:
+        eng.set_frame_filter(name)
+        w, p90, dev, _ = time_frames(eng, frames)
+        ops, by_name = profile_calls(lambda: filter_batch(eng, batch, name), 48)
+        if ops is None:
+            raise AssertionError("torch.profiler recorded no device event for a filter")
+        top = ", ".join(f"{k[:40]} {v * 1e3:.2f}" for k, v in
+                        sorted(by_name.items(), key=lambda kv: -kv[1])[:3])
+        log(f"  {view} {name}: {w:.4f} ms/frame wall median (p90 {p90:.4f}), {dev:.4f} "
+            f"ms/frame device; filter ops {ops * 1e3:.2f} us device (top us: {top}) {card}")
+        eng.set_frame_filter("none")
+    torch.cuda.synchronize()
+
+
+def time_frames(eng, frames):
+    """(wall ms median, wall p90, device ms a frame, device ms by event
+    name) of display-only packed ``process_frame`` calls: wall over 60 warm
+    frames (host clock + synchronize), device over 48 more (profiler)."""
+    import torch
+
+    for ev in frames:
+        eng.process_frame(ev, display_only=True, display_packed=True)
+    torch.cuda.synchronize()
+    wall = []
+    for i in range(60):
+        ev = frames[i % len(frames)]
+        t0 = time.perf_counter()
+        eng.process_frame(ev, display_only=True, display_packed=True)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    it = itertools.cycle(frames)
+    dev, by_name = profile_calls(
+        lambda: eng.process_frame(next(it), display_only=True, display_packed=True), 48)
+    if dev is None:
+        raise AssertionError("torch.profiler recorded no device event for a frame")
+    return statistics.median(wall), statistics.quantiles(wall, n=10)[-1], dev, by_name
 
 
 def time_events(fn, iters):
@@ -225,6 +389,10 @@ def profile_calls(fn, iters):
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    # an empty session first: device records of work run outside a session
+    # that are still buffered are delivered to it, not counted below
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
@@ -240,12 +408,12 @@ def profile_calls(fn, iters):
 
 
 def device_ms(fn, iters=50):
-    """(device ms per call, how it was measured, CUDA-event ms per call):
-    the profiler's device time, or the CUDA-event time where the profiler
-    recorded nothing."""
-    dev, _ = profile_calls(fn, iters)
+    """(device ms per call, how it was measured, CUDA-event ms per call,
+    device ms per call by event name): the profiler's device time, or the
+    CUDA-event time where the profiler recorded nothing."""
+    dev, by_name = profile_calls(fn, iters)
     ev = time_events(fn, iters)
-    return (dev, "profiler", ev) if dev is not None else (ev, "cuda_events", ev)
+    return (dev, "profiler", ev, by_name) if dev is not None else (ev, "cuda_events", ev, {})
 
 
 def time_pair(kernel_fn, plain_fn):
@@ -259,7 +427,9 @@ def time_pair(kernel_fn, plain_fn):
     p2 = device_ms(plain_fn)
 
     def mean(a, b):
-        return dict(ms=(a[0] + b[0]) / 2, source=a[1], issue_ms=(a[2] + b[2]) / 2)
+        top = sorted(b[3].items(), key=lambda kv: -kv[1])[:3]
+        return dict(ms=(a[0] + b[0]) / 2, source=a[1], issue_ms=(a[2] + b[2]) / 2,
+                    turns=(a[0], b[0]), top=[(k[:40], round(v, 6)) for k, v in top])
 
     return mean(k1, k2), mean(p1, p2)
 
@@ -575,11 +745,20 @@ def record_pipe():
     each dispatched frame's segmented events and device result, the host
     clock when its result reached the host (frame fetched or inlier count
     read), the pipe's engine and its stats."""
+    from xmaps_tpu_torch.io.prefetch import HostStagingPool as Pool
     from xmaps_tpu_torch.runtime.pipe import DepthReprojectionPipe as Pipe
 
-    rec = dict(t_trigger=[], events=[], results=[], t_ready=[], engine=None, stats=None)
+    rec = dict(t_trigger=[], events=[], results=[], t_ready=[], engine=None, stats=None,
+               staged=[])
     orig = {k: getattr(Pipe, k) for k in
             ("process_ev_frame", "_dispatch_segmented", "_flush_pending")}
+    orig_pool = {k: getattr(Pool, k) for k in ("stage", "stage_compact")}
+
+    def staging(name):
+        def stage(self, evs):
+            rec["staged"].append(name)
+            return orig_pool[name](self, evs)
+        return stage
 
     def process_ev_frame(self, evs):
         rec["t_trigger"].append(time.perf_counter())
@@ -599,11 +778,14 @@ def record_pipe():
 
     Pipe.process_ev_frame, Pipe._dispatch_segmented, Pipe._flush_pending = (
         process_ev_frame, dispatch, flush)
+    Pool.stage, Pool.stage_compact = staging("stage"), staging("stage_compact")
     try:
         yield rec
     finally:
         for k, fn in orig.items():
             setattr(Pipe, k, fn)
+        for k, fn in orig_pool.items():
+            setattr(Pool, k, fn)
 
 
 def segment_host(raw_path, fps, width, height):
@@ -624,12 +806,14 @@ def segment_host(raw_path, fps, width, height):
     return frames
 
 
-def replay(app, argv, want_tail, expect_frames):
+def replay(app, argv, want_tail, expect_frames, keys=""):
     """One run of the replay app's ``main`` on the card, its stdout kept
     out of the log, with the launch counts reset just before and read just
-    after.  Checks that the pipe dispatched exactly ``expect_frames`` (the
-    trigger finder's frames, from segment_host), the counts and the
-    launches; returns (record, counters, replay-loop wall seconds)."""
+    after; ``keys`` are pressed on the processor (its keyboard callback)
+    before the replay starts.  Checks that the pipe dispatched exactly
+    ``expect_frames`` (the trigger finder's frames, from segment_host), the
+    counts and the launches; returns (record, counters, replay-loop wall
+    seconds)."""
     import torch
     from xmaps_tpu_torch.ops import _build
 
@@ -637,6 +821,8 @@ def replay(app, argv, want_tail, expect_frames):
     orig_loop = app.project_events
 
     def timed_loop(*a, **kw):
+        for key in keys:
+            a[-1].keyboard_cb(ord(key))
         t0 = time.perf_counter()
         orig_loop(*a, **kw)
         torch.cuda.synchronize()
@@ -674,15 +860,18 @@ def replay(app, argv, want_tail, expect_frames):
 
 def check_replay_frames(what, rec, errs):
     """Every frame the pipe computed on the card equals the CPU port's
-    process_staged of the same segmented events (1-word staging, as the
-    pipe stages), bit for bit."""
+    process_staged of the same segmented events, staged as the pipe stages
+    them (1 word an event; 2 words with a dedup filter), bit for bit."""
     from xmaps_tpu_torch.io.prefetch import HostStagingPool
 
     cpu = rec["engine"].to("cpu")
     pool = HostStagingPool(cpu.cfg.event_capacity, device="cpu", layout=cpu.compact_layout)
+    how = "stage" if cpu.cfg.frame_filter != "none" else "stage_compact"
+    if rec["staged"] != [how] * len(rec["events"]):
+        raise AssertionError(f"{what}: the pipe staged {set(rec['staged'])}, not {how}")
     lit = []
     for i, (ev, got) in enumerate(zip(rec["events"], rec["results"])):
-        ref = cpu.process_staged(pool.stage_compact(ev))
+        ref = cpu.process_staged(getattr(pool, how)(ev))
         errs["event_disparity_scatter"] = max(errs["event_disparity_scatter"], assert_exact(
             f"{what} frame {i} card vs CPU port",
             [(got.frame_bgr, ref.frame_bgr), (got.num_inliers, ref.num_inliers)]))
@@ -741,13 +930,15 @@ def phase8_streaming(card, errs):
             "--out-dir", str(root / "frames"), "--device", "cuda"]
     launches: dict = {}
     runs = {}
-    for name, extra, tail in (
-        ("projector", [], "tail_projector"),
-        ("camera", ["--camera-perspective"], "colorize_camera"),
-        ("projector --low-latency", ["--low-latency"], "tail_projector"),
-        ("projector --profile-dir", ["--profile-dir", str(root / "trace")], "tail_projector"),
+    for name, extra, tail, keys in (
+        ("projector", [], "tail_projector", ""),
+        ("camera", ["--camera-perspective"], "colorize_camera", ""),
+        ("projector --low-latency", ["--low-latency"], "tail_projector", ""),
+        ("projector --profile-dir", ["--profile-dir", str(root / "trace")], "tail_projector", ""),
+        # one E key press: the first dedup filter, first_per_yt
+        ("projector, E key (first_per_yt)", [], "tail_projector", "e"),
     ):
-        rec, counters, loop_s = replay(app, base + extra, tail, expect)
+        rec, counters, loop_s = replay(app, base + extra, tail, expect, keys)
         for k, v in dict(event_disparity_scatter=len(rec["events"]), **{tail: len(rec["events"])}).items():
             launches[k] = launches.get(k, 0) + v
         runs[name] = (rec, counters, loop_s)
@@ -761,11 +952,14 @@ def phase8_streaming(card, errs):
             f"frame ready median {statistics.median(lat):.4f} ms, p90 "
             f"{statistics.quantiles(lat, n=10)[-1]:.4f} ms {card}")
 
-    # every frame of both views against the CPU port; 2-word vs 1-word
-    for name in ("projector", "camera"):
-        lit = check_replay_frames(name, runs[name][0], errs)
+    # every frame of both views and of the filtered replay against the CPU
+    # port; 2-word vs 1-word
+    for name in ("projector", "camera", "projector, E key (first_per_yt)"):
+        rec = runs[name][0]
+        lit = check_replay_frames(name, rec, errs)
         log(f"  {name}: all {len(lit)} frames bit-equal to the CPU port's process_staged "
-            f"(packed BGR + inliers); defined pixels {min(lit):.3f}..{max(lit):.3f}")
+            f"(packed BGR + inliers; {rec['staged'][0]}, filter {rec['engine'].cfg.frame_filter})"
+            f"; defined pixels {min(lit):.3f}..{max(lit):.3f}")
     rec = runs["projector"][0]
     eng = rec["engine"]
     pool = HostStagingPool(eng.cfg.event_capacity, device="cuda")
@@ -786,9 +980,132 @@ def phase8_streaming(card, errs):
         f"process_frame's pageable copies); busy share "
         f"{dev_ms / (loop_s * 1e3):.4f} of the profiled replay loop, {dev_ms / n / wall_ms:.4f}"
         f" of the unprofiled one ({wall_ms:.4f} ms/frame) {card}")
+
+    # live capture: the app without --input, on the paced synthetic camera:
+    # with the PNG sink (every 30th frame fetched and encoded, the others
+    # synchronised on their inlier count), and headless, where every frame
+    # is fetched to the host as a display would take it
+    live = ["--calib", yaml_path, "--capture", "synthetic", "--z-near", str(Z_NEAR),
+            "--z-far", str(Z_FAR), "--device", "cuda"]
+    files = ["--window", "files", "--out-dir", str(root / "live")]
+    for name, extra in (("live --window files", files),
+                        ("live --window files --low-latency", files + ["--low-latency"]),
+                        ("live --window none", ["--window", "none"])):
+        rec, counters, wall_s = live_run(app, live + extra)
+        n = len(rec["events"])
+        for k in ("event_disparity_scatter", "tail_projector"):
+            launches[k] += n
+        lit = check_replay_frames(name, rec, errs)
+        lat = [(r - t) * 1e3 for t, r in zip(rec["t_trigger"], rec["t_ready"])]
+        log(f"  {name} (synthetic camera, paced at 60 Hz, {wall_s:.3f} s): trig ok "
+            f"{counters['trig ok']}, trig fail {counters.get('trig fail', 0)}, frames dropped "
+            f"{counters.get('frames dropped', 0)}, frames computed "
+            f"{n} ({n / wall_s:.2f}/s; floor {rec['frame_floor']}), all bit-equal to the CPU "
+            f"port (defined pixels "
+            f"{min(lit):.3f}..{max(lit):.3f}); trigger -> frame ready median "
+            f"{statistics.median(lat):.4f} ms, p90 {statistics.quantiles(lat, n=10)[-1]:.4f} ms"
+            f" {card}")
+        # the host side: the watchdog's stream lag a packet (a frame is
+        # dropped while it exceeds one projector period) and the stage timers
+        lag = rec["lag_ms"]
+        timers = rec["stats"]._global.times_ns
+        log(f"    stream lag a packet ({len(lag)}): median {statistics.median(lag):.3f}, p90 "
+            f"{statistics.quantiles(lag, n=10)[-1]:.3f}, max {max(lag):.3f} ms; over "
+            f"{1e3 / 60:.2f} ms in {sum(v > 1e3 / 60 for v in lag)} packets, first 8 "
+            f"{[round(v, 2) for v in lag[:8]]}; host ms avg/max "
+            + ", ".join(f"{k} {timers[k].mean / 1e6:.3f}/{timers[k].vmax / 1e6:.3f}"
+                        for k in ("main loop", "act+pol filter", "find pauses", "stage batch",
+                                  "dispatch frame", "fetch stats", "fetch frame")
+                        if k in timers))
     tmp.cleanup()
     log(f"  phase 8 total {time.perf_counter() - t_phase:.1f} s {card}")
     return launches
+
+
+def live_run(app, argv):
+    """One live run of the app's ``main`` on the card (no ``--input``),
+    stopped through the processor's ``should_close`` after LIVE_S seconds
+    of stream, its stdout kept out of the log, with the launch counts reset
+    just before and read just after.  Returns (record, counters, seconds
+    from the first packet to the close)."""
+    import torch
+    from xmaps_tpu_torch.ops import _build
+    from xmaps_tpu_torch.runtime.processor import DepthReprojectionProcessor as Proc
+    from xmaps_tpu_torch.utils.stats import StatsPrinter
+
+    t = {}
+    lag_ms = []
+
+    def should_close(self):
+        t.setdefault("first", time.perf_counter())
+        t["last"] = time.perf_counter()
+        return t["last"] - t["first"] >= LIVE_S
+
+    def add_time(self, name, ns):
+        if name == "stream lag":  # the watchdog's, once a packet
+            lag_ms.append(ns / 1e6)
+        orig_add(self, name, ns)
+
+    out = io.StringIO()
+    orig, orig_add = Proc.should_close, StatsPrinter.add_time_measure_ns
+    torch.cuda.synchronize()
+    Proc.should_close, StatsPrinter.add_time_measure_ns = should_close, add_time
+    _build.reset_launch_counts()
+    try:
+        with record_pipe() as rec, contextlib.redirect_stdout(out):
+            try:
+                app.main.main(args=argv, standalone_mode=False)
+            except SystemExit as e:  # the app's exit when the window closes
+                if e.code not in (0, None):
+                    raise
+    finally:
+        Proc.should_close, StatsPrinter.add_time_measure_ns = orig, orig_add
+    rec["lag_ms"] = lag_ms
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    counters = dict(rec["stats"]._global.counters)
+    n = len(rec["events"])
+    shown = counters.get("frames shown", 0)
+    skipped = counters.get("frames computed (display skipped)", 0)
+    rec["frame_floor"] = live_frame_floor(rec["stats"]._global.times_ns, n,
+                                          t["last"] - t["first"])
+    if not (n >= rec["frame_floor"] and n == counters.get("trig ok")
+            == counters.get("frames dispatched") == shown + skipped == len(rec["t_ready"])):
+        raise AssertionError(f"live run: {n} dispatched, floor {rec['frame_floor']}, "
+                             f"{counters}\n{out.getvalue()}")
+    want = {k: 0 for k in launches}
+    want.update(event_disparity_scatter=n, tail_projector=n)
+    if launches != want:
+        raise AssertionError(f"live launches {launches} != {want}")
+    return rec, counters, t["last"] - t["first"]
+
+
+def live_frame_floor(timers, n, wall_s):
+    """The fewest frames a paced live run of ``wall_s`` seconds must compute
+    at this run's measured host cost, if the watchdog drops no more than its
+    design does.  The watchdog drops buffered events while the host is a
+    projector period P behind the stream.  A computed frame costs F ms of
+    host work on top of the per-packet work p (activity filter, pause
+    search); the host then catches up q - p ms a packet (q: the stream's
+    packet interval), so the events of R = F / (q - p) * q / P periods are
+    dropped.  Each computed frame thus takes its own period, R periods of
+    drops, and at most one more lost to the frame the drops cut (and one for
+    rounding R up), so at least (S - 2) / (3 + R) of the S streamed frames
+    are computed (the first two lost to the trigger finder's start-up).
+    F is all main-loop time not spent on per-packet work, divided by the
+    frames computed (it holds staging, launches, the fetch and the display
+    sink).  Where the host cannot keep up with the packets alone, the floor
+    is one frame."""
+    packets = timers["act+pol filter"].n
+    per_packet = sum(timers[k].total for k in ("act+pol filter", "find pauses") if k in timers)
+    p = per_packet / packets / 1e6
+    q = wall_s * 1e3 / packets
+    if n == 0 or q <= p:
+        return 1
+    period = 1e3 / 60
+    f = (timers["main loop"].total - per_packet) / n / 1e6
+    r = f / (q - p) * q / period
+    return max(1, int((wall_s * 60 - 2) / (3 + r)))
 
 
 def phase9_bench(card, errs, kernels_ms, shapes, library_ms):
@@ -826,6 +1143,66 @@ def phase9_bench(card, errs, kernels_ms, shapes, library_ms):
     if not (result["value"] > 0 and result["extra"]["gpu"]):
         raise AssertionError(f"apps.bench: {line}")
     log(f"  apps.bench launches {launches}; its JSON line:")
+    print(line, flush=True)
+    return launches
+
+
+def phase10_store_loop(card, errs, kernels_ms, shapes, library_ms):
+    """Phase 10: kernel S against its plain version (at the benchmark's
+    shape and at ragged ones), then one run of apps.bench_store_loop, whose
+    JSON line is printed and gives kernel S's times for the ``kernels``
+    line (kernel, plain, and the library call where it computed the same
+    tile).  Returns the bench's launches, counted from 0 just before it and
+    read just after."""
+    import torch
+    from xmaps_tpu_torch.apps import bench_store_loop
+    from xmaps_tpu_torch.ops import _build
+    from xmaps_tpu_torch.ops.store_loop import (
+        BENCH_EVENTS,
+        BENCH_SHAPE,
+        tile_store_last,
+        tile_store_last_plain,
+    )
+
+    err = 0.0
+    for n, shape in ((BENCH_EVENTS, BENCH_SHAPE), (5000, (13, 3100)), (300, (3, 5))):
+        r, c, v = bench_store_loop.make_inputs(n, shape, seed=n, device="cuda")
+        r[::53], c[::61] = -2, shape[1]  # events outside the tile
+        err = max(err, assert_exact(f"tile_store_last {n} events into {shape}", [
+            (tile_store_last(r, c, v, shape), tile_store_last_plain(r, c, v, shape))]))
+    rows, cols, vals = bench_store_loop.make_inputs(BENCH_EVENTS, BENCH_SHAPE, device="cuda")
+    err = max(err, assert_exact("tile_store_last at the benchmark's draws", [
+        (tile_store_last(rows, cols, vals, BENCH_SHAPE),
+         tile_store_last_plain(rows, cols, vals, BENCH_SHAPE))]))
+    errs["tile_store_last"] = err
+    log(f"phase 10 kernel S tile_store_last {BENCH_EVENTS} events into {BENCH_SHAPE} "
+        f"(and ragged shapes, events outside the tile): exact")
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    with contextlib.redirect_stdout(out):
+        rc = bench_store_loop.main([])
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    want = {k: 0 for k in launches}
+    # one check, then two turns of (1 warm-up + ITERS) calls
+    want["tile_store_last"] = 1 + 2 * (1 + bench_store_loop.ITERS)
+    if rc != 0 or launches != want:
+        raise AssertionError(f"apps.bench_store_loop rc {rc}, launches {launches} != {want}")
+    line = out.getvalue().strip().splitlines()[-1]
+    result = json.loads(line)
+    if not (result["device"] == "cuda" and result["gpu"]
+            and result["timing"] == "profiler_device" and result["kernel_ns_per_store"] > 0):
+        raise AssertionError(f"apps.bench_store_loop: {line}")
+    kernels_ms["tile_store_last"] = tuple(
+        dict(ms=result[f"{k}_ms"], source="profiler (apps.bench_store_loop)", issue_ms=None,
+             turns=tuple(result[f"{k}_turns_ms"]), top=[])
+        for k in ("kernel", "plain"))
+    shapes["tile_store_last"] = (BENCH_EVENTS, *BENCH_SHAPE)
+    library_ms["tile_store_last"] = result["library_ms"] if result["library_equal"] else None
+    log(f"  apps.bench_store_loop launches {launches}; index_put_ (deterministic) "
+        f"{'equal to' if result['library_equal'] else 'NOT equal to (a yardstick only)'} "
+        f"the plain version; its JSON line {card}:")
     print(line, flush=True)
     return launches
 
@@ -876,6 +1253,10 @@ def kernel_bytes(name, shapes) -> float:
     if name == "warmup_add_one":
         (n,) = s
         return 8 * n
+    if name == "tile_store_last":
+        # rows, cols and vals in (12 B an event), the tile out
+        n, h, w = s
+        return 12 * n + 4 * h * w
     raise KeyError(name)
 
 
@@ -968,9 +1349,9 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     log(f"phase 4 main path: {N_FRAMES} frames x 2 views, launches {launches}")
-    expect = {"event_disparity_scatter": 2 * N_FRAMES,
-              "tail_projector": N_FRAMES, "colorize_camera": N_FRAMES,
-              "esl_disparity_search": 0, "remap_gather": 0, "warmup_add_one": 0}
+    expect = {k: 0 for k in KERNEL_INFO}
+    expect.update(event_disparity_scatter=2 * N_FRAMES, tail_projector=N_FRAMES,
+                  colorize_camera=N_FRAMES)
     if launches != expect:
         raise AssertionError(f"launch counts {launches} != {expect}")
     for name, eng, outs in (("projector", eng_p, out_p), ("camera", eng_c, out_c)):
@@ -1006,6 +1387,9 @@ def main() -> int:
         f"({[len(ev) for ev in esl_frames]} events)")
     for k, v in esl_errs.items():
         errs[k] = max(errs.get(k, 0.0), v)
+    for k, v in phase_filters(card, errs, {"projector": eng_p, "camera": eng_c}, frames,
+                              eng_e, esl_frames).items():
+        launches[k] += v
 
     # -- 6. timing -------------------------------------------------------
     # wall: host clock around process_frame + synchronize (staging, H2D,
@@ -1015,31 +1399,16 @@ def main() -> int:
     for name, eng, geo_frames in (("projector", eng_p, frames),
                                   ("camera", eng_c, frames),
                                   ("esl_projector", eng_e, esl_frames)):
-        for ev in geo_frames:
-            eng.process_frame(ev, display_only=True, display_packed=True)
-        torch.cuda.synchronize()
-        wall = []
-        for i in range(60):
-            ev = geo_frames[i % len(geo_frames)]
-            t0 = time.perf_counter()
-            eng.process_frame(ev, display_only=True, display_packed=True)
-            torch.cuda.synchronize()
-            wall.append((time.perf_counter() - t0) * 1e3)
-        it = itertools.cycle(geo_frames)
-        dev, by_name = profile_calls(
-            lambda: eng.process_frame(next(it), display_only=True, display_packed=True), 48
-        )
-        if dev is None:
-            raise AssertionError("torch.profiler recorded no device event for a frame")
+        w, p90, dev, by_name = time_frames(eng, geo_frames)
         ev_per_frame = statistics.mean(min(len(ev), CAPACITY) for ev in geo_frames)
-        w = statistics.median(wall)
-        p90 = statistics.quantiles(wall, n=10)[-1]
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
         log(f"  {name}: {w:.4f} ms/frame wall median (p90 {p90:.4f}), {dev:.4f} ms/frame "
             f"device, busy share {dev / w:.3f}; {ev_per_frame / w / 1e3:.2f} Mev/s wall, "
             f"{ev_per_frame / dev / 1e3:.2f} Mev/s device {card}")
         for k, v in top:
             log(f"      {v * 1e3:8.2f} us/frame  {k[:100]}")
+    for eng in (eng_p, eng_c):
+        time_filters(card, eng, frames)
 
     kernels_ms = {}
     batch, t_bin, ekw, packed_p = staged["projector"]
@@ -1072,16 +1441,18 @@ def main() -> int:
             f"{pm['ms']:.5f} ms; issue rate {km['issue_ms']:.5f} vs {pm['issue_ms']:.5f} "
             f"ms/call (demonstrator, display-packed, mean of 2x50 calls) {card}")
 
-    # -- 7-9. the offline eval, the replay app, the bench ---------------
-    # launches: the engine's main path (phase 4) plus the eval apps'
-    # (phase 7), the replay app's (phase 8) and the bench's (phase 9),
-    # each counted from 0 just before its run
+    # -- 7-10. the offline eval, the replay app, the benches ------------
+    # launches: the engine's main path (phase 4) and the filters' (phase
+    # 5b) plus the eval apps' (phase 7), the replay and live app's (phase
+    # 8), the bench's (phase 9) and the store-loop bench's (phase 10), each
+    # counted from 0 just before its run
     for part in (phase7_offline_eval(card, errs, kernels_ms, shapes, library_ms),
                  phase8_streaming(card, errs),
-                 phase9_bench(card, errs, kernels_ms, shapes, library_ms)):
+                 phase9_bench(card, errs, kernels_ms, shapes, library_ms),
+                 phase10_store_loop(card, errs, kernels_ms, shapes, library_ms)):
         for k, v in part.items():
             launches[k] += v
-    log(f"launches on the main paths (phases 4, 7, 8, 9): {launches}")
+    log(f"launches on the main paths (phases 4, 5b, 7, 8, 9, 10): {launches}")
 
     kernels = []
     for k in KERNEL_INFO:
@@ -1092,9 +1463,12 @@ def main() -> int:
             max_abs_err=errs[k], ms=kernels_ms[k][0]["ms"],
             plain_ms=kernels_ms[k][1]["ms"], bound_ms=bound_ms, bound_by="bytes",
             library_ms=library_ms.get(k)))
-        log(f"  kernel {k}: {kernels[-1]['ms']:.5f} ms, bound {bound_ms:.6f} ms (bytes), "
-            f"share of bound {bound_ms / kernels[-1]['ms']:.4f}, library "
-            f"{library_ms.get(k)} ms {card}")
+        km = kernels_ms[k][0]
+        top = f"; device events of the second, ms a call: {km['top']}" if km["top"] else ""
+        log(f"  kernel {k}: {kernels[-1]['ms']:.5f} ms (turns {km['turns'][0]:.5f}, "
+            f"{km['turns'][1]:.5f}{top}), "
+            f"bound {bound_ms:.6f} ms (bytes), share of bound {bound_ms / kernels[-1]['ms']:.4f},"
+            f" library {library_ms.get(k)} ms {card}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -300,3 +300,80 @@ def test_pinned_staging_matches_pageable(cuda, compact):
             gb, wb = unpack_staged(g), unpack_staged(want)
         for a, b in zip(gb, wb):
             _equal(a, b.cuda())
+
+
+# -- kernel 1 with a dedup filter's priority, kernel S ----------------------
+
+
+@pytest.mark.parametrize("camera_perspective", [False, True], ids=["projector", "camera"])
+def test_event_scatter_priority_matches_plain_on_card(cuda, camera_perspective):
+    """Kernel 1 with the scatter priority of each dedup filter (and a
+    reversed-lane one) equals its plain version; one launch a call."""
+    from xmaps_tpu_torch.ops.filters import FILTER_NAMES
+    from xmaps_tpu_torch.ops.frame_pipeline import filter_events
+
+    eng = _engine(camera_perspective)
+    cfg, plan = eng.cfg, eng.plan
+    if camera_perspective:
+        kw = dict(camera_view=True, window=(0, 0), out_shape=(cfg.camera_height, cfg.camera_width))
+    else:
+        kw = dict(camera_view=False, window=(plan.crop_row0, plan.crop_col0),
+                  out_shape=(plan.H, plan.W))
+    for ev in _frames():
+        batch = eng.make_batch(ev)
+        cases = [(batch, torch.arange(batch.capacity - 1, -1, -1, dtype=torch.int32,
+                                      device=cuda))]
+        for name in FILTER_NAMES[1:]:
+            cases.append(filter_events(batch, eng.tables, cfg.replace(frame_filter=name)))
+        for fbatch, prio in cases:
+            t_bin = scale_time(fbatch.t, fbatch.valid, cfg.t_px_scale)
+            _build.reset_launch_counts()
+            got = event_disparity_scatter(fbatch, t_bin, eng.tables, priority=prio, **kw)
+            torch.cuda.synchronize()
+            assert _build.LAUNCHES["event_disparity_scatter"] == 1
+            ref = event_disparity_scatter_plain(fbatch, t_bin, eng.tables, priority=prio, **kw)
+            _equal(got.packed_map, ref.packed_map)
+            _equal(got.num_inliers, ref.num_inliers)
+
+
+@pytest.mark.parametrize("camera_perspective", [False, True], ids=["projector", "camera"])
+def test_filtered_engine_on_card_matches_cpu(cuda, camera_perspective):
+    from xmaps_tpu_torch.ops.filters import FILTER_NAMES
+
+    eng = _engine(camera_perspective)
+    cpu = eng.to("cpu")
+    try:
+        for name in FILTER_NAMES[1:]:
+            eng.set_frame_filter(name)
+            cpu.set_frame_filter(name)
+            for ev in _frames():
+                got, ref = eng.process_frame(ev), cpu.process_frame(ev)
+                for field in ("frame_bgr", "depth", "disp_map", "num_inliers"):
+                    _equal(getattr(got, field), getattr(ref, field))
+    finally:
+        eng.set_frame_filter("none")
+
+
+def test_tile_store_kernel_matches_plain_on_card(cuda):
+    """Kernel S at the benchmark's shape and at shapes with ragged bands
+    (rows not a multiple of 8, columns over one band), with collisions and
+    events outside the tile."""
+    from xmaps_tpu_torch.apps.bench_store_loop import make_inputs
+    from xmaps_tpu_torch.ops.store_loop import (
+        BENCH_EVENTS,
+        BENCH_SHAPE,
+        tile_store_last,
+        tile_store_last_plain,
+    )
+
+    for n, shape in ((BENCH_EVENTS, BENCH_SHAPE), (5000, (13, 3100)), (300, (3, 5)), (0, (8, 8))):
+        rows, cols, vals = make_inputs(n, shape, seed=n, device=cuda)
+        rows[::53] = -2
+        cols[::61] = shape[1]
+        _build.reset_launch_counts()
+        got = tile_store_last(rows, cols, vals, shape)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["tile_store_last"] == 1
+        _equal(got, tile_store_last_plain(rows, cols, vals, shape))
+    with pytest.raises(ValueError, match="int32"):
+        tile_store_last(rows.long(), cols, vals, shape)

@@ -214,13 +214,31 @@ def test_same_tables_through_from_numpy():
 
 
 def test_set_frame_filter_only_none():
+    """Every dedup filter of the JAX package is selectable (and back to
+    "none"); an unknown name raises ValueError, as the JAX filters do, and
+    leaves the filter as it was.  tests/test_torch_filters.py holds the
+    filtered frames against the JAX engine.  (The name is the one the test
+    had while the port refused every filter but "none"; it is kept so that
+    the test's history stays one test.)"""
+    from xmaps_tpu.ops.filters import FILTER_NAMES as J_FILTER_NAMES
+
     _, teng = _engines("default", False)
-    teng.set_frame_filter("none")
-    assert teng.cfg.frame_filter == "none"
-    for name in ("dedup_xy", "raster_first"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    ev = _frames("default")[1]
+    try:
+        inliers = {}
+        for name in J_FILTER_NAMES:
             teng.set_frame_filter(name)
+            assert teng.cfg.frame_filter == name
+            inliers[name] = int(teng.process_frame(ev).num_inliers)
+        for name in ("dedup_xy", "raster_first"):
+            with pytest.raises(ValueError, match="unknown frame filter"):
+                teng.set_frame_filter(name)
+            assert teng.cfg.frame_filter == J_FILTER_NAMES[-1]
+    finally:
+        teng.set_frame_filter("none")
     assert teng.cfg.frame_filter == "none"
+    # the polarity drop and the dedup leave fewer inliers than no filter
+    assert all(0 < inliers[n] <= inliers["none"] for n in J_FILTER_NAMES)
 
 
 def test_capacity_overflow_refused():

@@ -228,11 +228,35 @@ def test_reset_supports_loop_replay(raw_file, calib):
         np.testing.assert_array_equal(a, b)
 
 
-def test_frame_filter_cycle_is_not_ported(calib):
-    proc, _ = _port_processor(calib)
+def test_frame_filter_cycle_is_not_ported(raw_file, calib):
+    """The E key cycles all five dedup filters, in the JAX package's order
+    and back to "none".  With one press (first_per_yt) the processor
+    replays the file through the 2-word staging, every delivered frame
+    equal to the JAX processor's after the same key.  (The name is the one
+    the test had while the port refused the cycle; it is kept so that the
+    test's history stays one test.)"""
+    path, _ = raw_file
     assert FILTER_NAMES == J_FILTER_NAMES
-    with pytest.raises(NotImplementedError, match="dedup filters"):
-        proc.keyboard_cb(ord("e"))
+    proc, shown = _port_processor(calib)
+    jproc, jshown = _processor(JPipe, JProc, JStats, JFakeWindow,
+                               _params(JParams, calib), _engines(False)[0])
+    stage_calls = []
+    orig_stage = proc._pipe.staging.stage
+    proc._pipe.staging.stage = lambda evs: stage_calls.append(len(evs)) or orig_stage(evs)
+    try:
+        for p in (proc, jproc):
+            p.keyboard_cb(ord("e"))
+        assert proc._pipe.engine.cfg.frame_filter == J_FILTER_NAMES[1]
+        got, want = _replay(proc, FileEventsIterator, path), _replay(jproc, JIter, path)
+        assert len(shown) == len(jshown) == len(stage_calls) >= len(DEPTHS) - 2
+        for a, b in zip(shown, jshown):
+            np.testing.assert_array_equal(a, b)
+        assert got["frames dispatched"] == want["frames dispatched"]
+        names = [proc._pipe.select_next_frame_event_filter() for _ in J_FILTER_NAMES]
+        assert names == list(J_FILTER_NAMES[2:] + J_FILTER_NAMES[:2])
+    finally:
+        for p in (proc, jproc):
+            p._pipe.engine.set_frame_filter("none")
 
 
 STAT_KEYS = ("trig ok", "frames shown", "frames computed (display skipped)")
@@ -274,11 +298,29 @@ def test_app_cli_matches_jax_app(raw_file, tmp_path, monkeypatch):
                                   np.asarray(Image.open(jout / jpngs[0])))
 
 
-def test_app_refuses_live_capture_and_missing_card(raw_file, monkeypatch):
+def test_app_refuses_live_capture_and_missing_card(raw_file, monkeypatch, tmp_path):
+    """Without --input the app captures live: with no backend named (and
+    no hardware backend registered) it refuses with the registry's
+    message; ``--capture synthetic`` runs the live path, stopped here
+    through the window's close request after two frames (the ports of the
+    capture tests are in tests/test_torch_capture.py).  Without a card,
+    ``--device cuda`` (the default) raises.  (The name is the one the test
+    had while the port refused live capture; it is kept so that the test's
+    history stays one test.)"""
     path, yaml_path = raw_file
-    res = CliRunner().invoke(t_app, ["--calib", yaml_path, "--device", "cpu"])
-    assert isinstance(res.exception, NotImplementedError), res.output
-    assert "ROADMAP" in str(res.exception)
+    monkeypatch.setenv("HOME", str(tmp_path))
+    monkeypatch.delenv("XMAPS_CAPTURE_BACKEND", raising=False)
+    live = ["--calib", yaml_path, "--projector-width", "90", "--projector-height", "160",
+            "--camera-width", "64", "--camera-height", "48", "--device", "cpu"]
+    res = CliRunner().invoke(t_app, live)
+    assert isinstance(res.exception, RuntimeError), res.output
+    assert "No capture backend selected" in str(res.exception)
+    monkeypatch.setattr(
+        DepthReprojectionProcessor, "should_close",
+        lambda self: self.stats_printer._global.counters.get("frames dispatched", 0) >= 2)
+    res = CliRunner().invoke(t_app, live + ["--capture", "synthetic"])
+    assert res.exit_code == 0, (res.output, res.exception)
+    assert _stats(res.output)["trig ok"] == 2
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     res = CliRunner().invoke(t_app, ["--calib", yaml_path, "--input", path,
                                      "--camera-width", "64", "--camera-height", "48"])
@@ -310,13 +352,38 @@ from xmaps_tpu_torch.apps.bench import main
 assert main(["--device", "cpu", "--camera", "64", "48", "--projector", "90", "160"]) == 0
 """
 
+_STORE_LOOP = """
+import sys
+from xmaps_tpu_torch.apps.bench_store_loop import main
+assert main(["--device", "cpu"]) == 0
+"""
 
-@pytest.mark.parametrize("entry", ["replay", "bench"])
+_LIVE = """
+import sys
+from click.testing import CliRunner
+from chip_smoke import write_xmaps_yaml
+from xmaps_tpu_torch.apps.depth_reprojection import main
+from xmaps_tpu_torch.runtime.processor import DepthReprojectionProcessor
+from xmaps_tpu_torch.utils.synthetic import make_synthetic_calibration
+write_xmaps_yaml("calib.yaml", make_synthetic_calibration())
+DepthReprojectionProcessor.should_close = (
+    lambda self: self.stats_printer._global.counters.get("frames dispatched", 0) >= 2)
+res = CliRunner().invoke(main, ["--calib", "calib.yaml", "--capture", "synthetic",
+    "--projector-width", "90", "--projector-height", "160", "--camera-width", "64",
+    "--camera-height", "48", "--device", "cpu"])
+assert res.exit_code == 0, (res.output, res.exception)
+assert "frames shown" in res.output, res.output
+"""
+
+
+@pytest.mark.parametrize("entry", ["replay", "bench", "store_loop", "live"])
 def test_entry_points_in_subprocess_never_load_jax(entry, tmp_path):
-    """The replay app and the bench on the CPU, in a fresh interpreter:
-    they run, the bench prints one parseable JSON line, and no module of
-    JAX or of the JAX package is ever imported."""
-    code = {"replay": _REPLAY, "bench": _BENCH}[entry] + """
+    """The replay app, the bench, the store-loop bench and the live path
+    (``io.capture``) on the CPU, in a fresh interpreter: they run, the
+    benches print one parseable JSON line, and no module of JAX or of the
+    JAX package is ever imported."""
+    code = {"replay": _REPLAY, "bench": _BENCH, "store_loop": _STORE_LOOP,
+            "live": _LIVE}[entry] + """
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "xmaps_tpu"))
 assert not loaded, loaded
 print("no-jax-ok")
@@ -334,3 +401,8 @@ print("no-jax-ok")
         extra = result["extra"]
         assert extra["device"] == "cpu" and extra["gpu"] is None
         assert extra["p50_ms_sync"] > 0 and extra["events_per_frame"] > 100
+    if entry == "store_loop":
+        result = json.loads(lines[-2])
+        assert result["device"] == "cpu" and result["gpu"] is None
+        assert result["events"] == 28 * 1024 and result["library_equal"] is True
+        assert min(result[f"{k}_ns_per_store"] for k in ("kernel", "plain", "library")) > 0

@@ -1,4 +1,4 @@
-"""Replay depth estimation CLI.
+"""Live/replay depth estimation CLI.
 
 Port of ``xmaps_tpu.apps.depth_reprojection``: the same flags as the
 reference entry point (depth_reprojection.py:32-61) and the JAX app, plus
@@ -9,8 +9,11 @@ versions).
         --calib data/calib.yaml --input recording.raw \\
         --projector-width 720 --projector-height 1280 --device cuda
 
-Live capture (``--capture``, or no ``--input``) is not ported yet
-(ROADMAP.md) and raises NotImplementedError.
+Without ``--input`` the app captures live through a backend of
+``io.capture`` (``--capture synthetic`` is the built-in wall-clock-paced
+camera; ``metavision[:serial]`` registers where the Metavision SDK is
+installed) until the window asks to close.  The E key cycles the frame
+dedup filters.
 """
 
 from __future__ import annotations
@@ -27,11 +30,30 @@ from xmaps_tpu_torch.runtime.processor import DepthReprojectionProcessor
 
 
 def project_events(bias, input, capture, params, delta_t, ev_processor):
-    """Replay loop: pull delta_t packets through the processor
+    """Replay/live loop: pull delta_t packets through the processor
     (reference: depth_reprojection.py:10-29)."""
-    mv_iterator = FileEventsIterator(
-        input_filename=input, delta_t=delta_t, bias_file=bias
-    )
+    if input:
+        mv_iterator = FileEventsIterator(
+            input_filename=input, delta_t=delta_t, bias_file=bias
+        )
+    else:
+        # live capture through a registered backend (io.capture)
+        from xmaps_tpu_torch.io.capture import LiveEventsIterator, open_capture
+
+        session = open_capture(
+            capture or "",
+            bias_file=bias,
+            camera_width=params.camera_width,
+            camera_height=params.camera_height,
+            projector_width=params.projector_width,
+            projector_height=params.projector_height,
+            projector_fps=params.projector_fps,
+            calib_yaml=params.calib,
+            # live semantics: stream until the user quits (Q / SIGINT),
+            # like a physical camera -- not one pass of the synthetic loop
+            duration_s=float("inf"),
+        )
+        mv_iterator = LiveEventsIterator(session, delta_t=delta_t)
     cam_height_reader, cam_width_reader = mv_iterator.get_size()
     if (cam_height_reader, cam_width_reader) != (
         params.camera_height, params.camera_width
@@ -83,18 +105,19 @@ def torch_trace(profile_dir: str, device: str):
     type=click.Path(exists=True),
     required=True,
 )
-@click.option("--bias", help="Sensor .bias settings file (unused for file replay)", type=click.Path())
+@click.option("--bias", help="Sensor .bias settings file, programmed into the camera for live capture (unused for file replay)", type=click.Path())
 @click.option(
     "--input",
     help="Prerecorded event stream to replay: EVT2/EVT3 .raw, .dat, or "
-    "structured .npy.",
+    "structured .npy. Omit to capture live through a backend (--capture).",
     type=click.Path(exists=True),
     default=None,
 )
 @click.option(
     "--capture",
     default=None,
-    help="Live-capture backend (not ported yet: raises NotImplementedError).",
+    help="Live-capture backend as 'name' or 'name:serial' (io.capture "
+    "registry; 'synthetic' is built in). Used when --input is omitted.",
 )
 @click.option("--loop-input", help="Restart the replay from the top when the file ends", is_flag=True)
 @click.option(
@@ -147,12 +170,6 @@ def main(
         f"Using delta_t={delta_t:.2f} us to process "
         f"{EV_PACKETS_PER_FRAME} ev packets per projector frame."
     )
-    if not input:
-        raise NotImplementedError(
-            "live capture (--capture, or no --input) is not ported to "
-            "xmaps_tpu_torch yet (ROADMAP.md); replay a file with --input"
-        )
-
     trace_cm = (
         torch_trace(profile_dir, device)
         if profile_dir is not None
@@ -164,7 +181,7 @@ def main(
     ) as ev_processor, trace_cm:
         while True:
             project_events(bias, input, capture, params, delta_t, ev_processor)
-            if loop_input:
+            if loop_input and input:
                 ev_processor.reset()
             else:
                 break

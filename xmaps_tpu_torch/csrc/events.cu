@@ -18,9 +18,11 @@
 // kernel's y-sort and VMEM row banding existed because a TPU gather is a
 // serial scalar loop; here the hardware gathers, so there is no sort and no
 // band plan, and any capacity works (no 1024-lane blocking).  Determinism
-// comes from the packed key (lane + 1) * PACK + disp: atomicMax keeps the
-// highest lane per pixel, which is NumPy's last-write-wins regardless of
-// the order in which threads run.  The key is unsigned 32-bit, as in the
+// comes from the packed key (prio + 1) * PACK + disp: atomicMax keeps the
+// highest priority per pixel, which is NumPy's last-write-wins regardless
+// of the order in which threads run.  The priority is the lane index, or
+// with a dedup frame filter (ops/filters.py) the lane's dense raster rank,
+// read from an optional per-lane int32 array (< capacity).  The key is unsigned 32-bit, as in the
 // JAX package, so capacities up to 524286 lanes fit (the offline eval's
 // whole-image batch is 307200); the map is handed over as int32 words.
 // The inlier count is reduced per warp (ballot + popc) before one
@@ -31,7 +33,8 @@ namespace {
 
 __global__ void event_disparity_scatter_kernel(
     const int32_t* __restrict__ x, const int32_t* __restrict__ y,
-    const int32_t* __restrict__ t_bin, const bool* __restrict__ valid, int n,
+    const int32_t* __restrict__ t_bin, const bool* __restrict__ valid,
+    const int32_t* __restrict__ prio, int n,
     const int32_t* __restrict__ cam_lut, int cam_h, int cam_w,
     const int16_t* __restrict__ x_map, int xmap_h, int xmap_w,
     int camera_view, int oy, int ox, int out_h, int out_w,
@@ -71,9 +74,9 @@ __global__ void event_disparity_scatter_kernel(
     const bool keep = inlier && ty >= 0 && ty < out_h && tx >= 0 &&
                       tx < out_w && disp < static_cast<int>(xmaps::PACK);
     if (keep) {
+      const uint32_t p = static_cast<uint32_t>(prio ? prio[i] : i);
       atomicMax(packed_map + static_cast<long>(ty) * out_w + tx,
-                static_cast<uint32_t>(i + 1) * xmaps::PACK +
-                    static_cast<uint32_t>(disp));
+                (p + 1u) * xmaps::PACK + static_cast<uint32_t>(disp));
     }
   }
   // 7. inlier count: one atomic per warp
@@ -87,16 +90,16 @@ __global__ void event_disparity_scatter_kernel(
 
 extern "C" int event_disparity_scatter(
     const int32_t* x, const int32_t* y, const int32_t* t_bin, const bool* valid,
-    int n, const int32_t* cam_lut, int cam_h, int cam_w, const int16_t* x_map,
-    int xmap_h, int xmap_w, int camera_view, int oy, int ox, int out_h,
-    int out_w, int32_t* packed_map, int32_t* inlier_count, int32_t* xr_out,
-    int32_t* yr_out, int32_t* xproj_out, cudaStream_t stream) {
+    const int32_t* prio, int n, const int32_t* cam_lut, int cam_h, int cam_w,
+    const int16_t* x_map, int xmap_h, int xmap_w, int camera_view, int oy,
+    int ox, int out_h, int out_w, int32_t* packed_map, int32_t* inlier_count,
+    int32_t* xr_out, int32_t* yr_out, int32_t* xproj_out, cudaStream_t stream) {
   constexpr int threads = 256;
   const int blocks = (n + threads - 1) / threads;
   if (blocks > 0) {
     event_disparity_scatter_kernel<<<blocks, threads, 0, stream>>>(
-        x, y, t_bin, valid, n, cam_lut, cam_h, cam_w, x_map, xmap_h, xmap_w,
-        camera_view, oy, ox, out_h, out_w,
+        x, y, t_bin, valid, prio, n, cam_lut, cam_h, cam_w, x_map, xmap_h,
+        xmap_w, camera_view, oy, ox, out_h, out_w,
         reinterpret_cast<uint32_t*>(packed_map), inlier_count, xr_out, yr_out,
         xproj_out);
   }

@@ -26,6 +26,7 @@ from xmaps_tpu_torch.io.prefetch import (
 )
 from xmaps_tpu_torch.ops.cuda_tail import CamTailPlan, TailPlan, build_tail_plan
 from xmaps_tpu_torch.ops.event_batch import EventBatch
+from xmaps_tpu_torch.ops.filters import check_filter_name
 from xmaps_tpu_torch.ops.frame_pipeline import DeviceTables, FrameResult, depth_frame
 from xmaps_tpu_torch.ops.scatter import MAX_CAPACITY
 from xmaps_tpu_torch.ops.xmap import build_x_map, xmap_cache_key
@@ -279,10 +280,9 @@ class XMapsDepthEngine:
         return [self.process_frame(ev, **kw) for ev in frames]
 
     def set_frame_filter(self, name: str):
-        """Select the frame dedup filter: only "none" is ported."""
-        if name != "none":
-            raise NotImplementedError(
-                f"frame filter {name!r} is not ported yet "
-                "(ROADMAP.md: port the dedup filters)"
-            )
+        """Select the frame dedup filter, one of ``ops.filters.FILTER_NAMES``
+        (the E key's cycle); an unknown name raises ValueError and leaves
+        the filter as it was.  A filtered pipeline stages 2 words an event
+        (raw timestamps and polarity), see ``process_staged``."""
+        check_filter_name(name)
         self.cfg = self.cfg.replace(frame_filter=name)

@@ -1,7 +1,8 @@
 """Build and load the package's CUDA kernels.
 
-The sources in ``xmaps_tpu_torch/csrc/`` are compiled with ``nvcc`` into
-one shared library with a plain C interface and loaded with ``ctypes``.
+The sources in ``xmaps_tpu_torch/csrc/`` are compiled with ``nvcc`` (one
+process a source, all started together) and linked into one shared library
+with a plain C interface, loaded with ``ctypes``.
 The library lands in ``build/xmaps_tpu_torch/`` beside the package
 (override with ``XMAPS_TORCH_BUILD_DIR``), named by a hash of the sources
 and flags, so an edited source rebuilds and an unchanged one loads at once.
@@ -24,7 +25,7 @@ from pathlib import Path
 __all__ = ["load", "LAUNCHES", "reset_launch_counts", "check", "NVCC_FLAGS", "build_dir"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("events.cu", "tail.cu", "esl.cu", "remap.cu", "warmup.cu")
+SOURCES = ("events.cu", "tail.cu", "esl.cu", "remap.cu", "warmup.cu", "store_loop.cu")
 HEADERS = ("common.cuh",)
 
 #: sm_90a for Hopper; no --use_fast_math: the f32 epilogue (p03/disp, the
@@ -32,7 +33,7 @@ HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 #: kernel name -> launches since the last reset
@@ -43,6 +44,7 @@ LAUNCHES = {
     "esl_disparity_search": 0,
     "remap_gather": 0,
     "warmup_add_one": 0,
+    "tile_store_last": 0,
 }
 
 _P = ctypes.c_void_p
@@ -53,7 +55,7 @@ _L = ctypes.c_long
 #: C signatures (all return cudaGetLastError() as int)
 _SIGNATURES = {
     "event_disparity_scatter": [
-        _P, _P, _P, _P, _I,  # x, y, t_bin, valid, n
+        _P, _P, _P, _P, _P, _I,  # x, y, t_bin, valid, priority (nullable), n
         _P, _I, _I,  # cam LUT (packed i32), cam_h, cam_w
         _P, _I, _I,  # x_map (i16), xmap_h, xmap_w
         _I, _I, _I, _I, _I,  # camera_view, oy, ox, out_h, out_w
@@ -89,6 +91,11 @@ _SIGNATURES = {
     ],
     "warmup_add_one": [
         _P, _P, _L,  # x, out (i32), n
+        _P,  # stream
+    ],
+    "tile_store_last": [
+        _P, _P, _P, _I,  # rows, cols (i32), vals (u32 as i32), n
+        _I, _I, _P,  # H, W, out (H, W) u32 as i32
         _P,  # stream
     ],
 }
@@ -144,23 +151,31 @@ def load(verbose: bool = False) -> ctypes.CDLL:
     out_dir.mkdir(parents=True, exist_ok=True)
     lib_path = out_dir / f"libxmaps_kernels_{h.hexdigest()[:16]}.so"
     if not lib_path.exists():
-        # build under a temporary name and rename: concurrent builders
-        # never load a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-        os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-        if verbose:
-            cmd[1:1] = ["-Xptxas", "-v"]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
-        if verbose:
-            print(proc.stdout + proc.stderr)
-        os.replace(tmp, lib_path)
+        # compile every source at once into a private directory, link under
+        # a temporary name and rename: concurrent builders never load a
+        # half-written library
+        with tempfile.TemporaryDirectory(dir=out_dir) as tmp_dir:
+            ptxas = ["-Xptxas", "-v"] if verbose else []
+            objs = [os.path.join(tmp_dir, f"{src}.o") for src in SOURCES]
+            compiles = [[nvcc, *ptxas, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / src)]
+                        for src, obj in zip(SOURCES, objs)]
+            procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                     for cmd in compiles]
+            results = [(cmd, p.communicate()[0], p.returncode)
+                       for cmd, p in zip(compiles, procs)]
+            tmp = os.path.join(tmp_dir, "lib.so")
+            if all(rc == 0 for _, _, rc in results):
+                link = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+                proc = subprocess.run(link, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                results.append((link, proc.stdout, proc.returncode))
+            for cmd, out, rc in results:
+                if rc != 0:
+                    raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}")
+                if verbose:
+                    print(out)
+            os.replace(tmp, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -6,7 +6,9 @@ the projector view, the camera frame for the camera view) and the inlier
 count.  On CUDA tensors it launches ``csrc/events.cu`` (replacing the TPU
 kernels ``rectify_and_lookup`` / ``rectify_and_lookup_hbm``); on CPU tensors
 it runs the plain version, ``compute_event_disparity`` +
-``scatter_disp_packed``.
+``scatter_disp_packed``.  The last-write-wins priority is the lane index,
+or a per-lane int32 ``priority`` (the dedup filters' dense raster rank,
+``ops.filters``).
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ def event_disparity_scatter_plain(
     window: tuple[int, int],
     out_shape: tuple[int, int],
     want_lanes: bool = False,
+    priority: Optional[torch.Tensor] = None,
 ) -> EventScatterResult:
     """Plain PyTorch version of ``event_disparity_scatter`` (any device)."""
     res = compute_event_disparity(
@@ -60,7 +63,8 @@ def event_disparity_scatter_plain(
     else:
         ys, xs = res.y_rect, res.x_rect + res.disp.int()
     packed = scatter_disp_packed(
-        ys - oy, xs - ox, res.disp, res.inlier, height=out_h, width=out_w
+        ys - oy, xs - ox, res.disp, res.inlier, height=out_h, width=out_w,
+        priority=priority,
     )
     lanes = (res.x_rect, res.y_rect, res.x_proj) if want_lanes else None
     return EventScatterResult(packed, res.inlier.sum().int(), lanes)
@@ -75,6 +79,7 @@ def event_disparity_scatter(
     window: tuple[int, int],
     out_shape: tuple[int, int],
     want_lanes: bool = False,
+    priority: Optional[torch.Tensor] = None,
 ) -> EventScatterResult:
     """One frame's events -> packed disparity map + inlier count.
 
@@ -83,12 +88,14 @@ def event_disparity_scatter(
     ``window``: (oy, ox) origin of the map in target coordinates;
     ``out_shape``: (out_h, out_w) of the map; targets outside are dropped.
     ``want_lanes`` also returns the per-lane (x_rect, y_rect, x_proj).
+    ``priority``: (N,) int32 last-write-wins priority, every value below
+    the capacity N (None: the lane index).
     """
     dev = batch.x.device
     if dev.type == "cpu":
         return event_disparity_scatter_plain(
             batch, t_bin, tables, camera_view=camera_view, window=window,
-            out_shape=out_shape, want_lanes=want_lanes,
+            out_shape=out_shape, want_lanes=want_lanes, priority=priority,
         )
     if dev.type != "cuda":
         raise ValueError(f"event_disparity_scatter: unsupported device {dev}")
@@ -98,21 +105,24 @@ def event_disparity_scatter(
             f"event_disparity_scatter: capacity {n} overflows the uint32 packing "
             f"(at most {MAX_CAPACITY})"
         )
-    for name, a, dtype in (
+    checked = [
         ("x", batch.x, torch.int32),
         ("y", batch.y, torch.int32),
         ("t_bin", t_bin, torch.int32),
         ("valid", batch.valid, torch.bool),
         ("cam_map_packed", tables.cam_map_packed, torch.int32),
         ("x_map", tables.x_map, torch.int16),
-    ):
+    ]
+    if priority is not None:
+        checked.append(("priority", priority, torch.int32))
+    for name, a, dtype in checked:
         if a.device != dev or a.dtype != dtype or not a.is_contiguous():
             raise ValueError(
                 f"event_disparity_scatter: {name} must be a contiguous {dtype} "
                 f"tensor on {dev}, got {a.dtype} on {a.device}"
             )
-    for name, a in (("y", batch.y), ("t_bin", t_bin), ("valid", batch.valid)):
-        if a.shape != (n,):
+    for name, a, _ in checked:
+        if name not in ("cam_map_packed", "x_map") and a.shape != (n,):
             raise ValueError(f"event_disparity_scatter: {name} shape {tuple(a.shape)} != ({n},)")
     lib = _build.load()
     out_h, out_w = out_shape
@@ -126,9 +136,10 @@ def event_disparity_scatter(
     cam_h, cam_w = tables.cam_map_packed.shape
     xmap_h, xmap_w = tables.x_map.shape
     oy, ox = window
+    prio_ptr = None if priority is None else priority.data_ptr()
     err = lib.event_disparity_scatter(
         batch.x.data_ptr(), batch.y.data_ptr(), t_bin.data_ptr(),
-        batch.valid.data_ptr(), n,
+        batch.valid.data_ptr(), prio_ptr, n,
         tables.cam_map_packed.data_ptr(), cam_h, cam_w,
         tables.x_map.data_ptr(), xmap_h, xmap_w,
         int(camera_view), oy, ox, out_h, out_w,

@@ -13,7 +13,11 @@ render perspectives are supported:
 On CUDA a frame is the time binning (a few PyTorch ops, skipped when the
 host staged the time bins) and two kernels:
 ``event_disparity_scatter`` then ``tail_projector`` or ``colorize_camera``.
-On CPU the same calls run the kernels' plain versions.
+With a dedup frame filter (``cfg.frame_filter``, ``ops.filters``) the
+events are first rectified (a gather of the camera LUT) and filtered; the
+time binning then runs on the filtered batch and kernel 1 takes the
+filter's scatter priority.  On CPU the same calls run the kernels' plain
+versions.
 """
 
 from __future__ import annotations
@@ -31,11 +35,12 @@ from xmaps_tpu_torch.ops.cuda_tail import (
     colorize_camera,
     tail_projector,
 )
-from xmaps_tpu_torch.ops.disparity import scale_time
+from xmaps_tpu_torch.ops.disparity import rectify_events, scale_time
 from xmaps_tpu_torch.ops.event_batch import EventBatch
+from xmaps_tpu_torch.ops.filters import FilteredBatch, apply_frame_filter
 from xmaps_tpu_torch.ops.image_tail import turbo_packed_lut
 
-__all__ = ["DeviceTables", "FrameResult", "depth_frame"]
+__all__ = ["DeviceTables", "FrameResult", "depth_frame", "filter_events"]
 
 
 class DeviceTables(NamedTuple):
@@ -94,6 +99,25 @@ class DeviceTables(NamedTuple):
         return DeviceTables(*(a.to(device) for a in self))
 
 
+def filter_events(
+    batch: EventBatch, tables: DeviceTables, cfg: PipelineConfig
+) -> FilteredBatch:
+    """``cfg.frame_filter`` applied to the batch (``ops.filters``), with the
+    per-event rectified x that first_per_yt keys on (the other filters key
+    on the raw pixel and get None)."""
+    x_rect = None
+    if cfg.frame_filter == "first_per_yt":
+        x_rect, _ = rectify_events(batch.x, batch.y, tables.cam_mapx_i16, tables.cam_mapy_i16)
+    return apply_frame_filter(
+        batch,
+        x_rect,
+        name=cfg.frame_filter,
+        camera_width=cfg.camera_width,
+        camera_height=cfg.camera_height,
+        rect_width=cfg.rect_width,
+    )
+
+
 class FrameResult(NamedTuple):
     #: (H_out, W_out, 3) uint8 colorized depth, or with display_packed one
     #: (H_out, W_out) int32 packed-BGR plane (B | G<<8 | R<<16)
@@ -135,10 +159,9 @@ def depth_frame(
             "precomputed t_scaled requires frame_filter == 'none' "
             "(filters change the frame's time bounds)"
         )
+    priority = None
     if cfg.frame_filter != "none":
-        raise NotImplementedError(
-            "frame filters are not ported (ROADMAP: port the dedup filters)"
-        )
+        batch, priority = filter_events(batch, tables, cfg)
     t_bin = (
         scale_time(batch.t, batch.valid, cfg.t_px_scale)
         if t_scaled is None
@@ -153,6 +176,7 @@ def depth_frame(
     ev = event_disparity_scatter(
         batch, t_bin, tables,
         camera_view=cfg.camera_perspective, window=window, out_shape=out_shape,
+        priority=priority,
     )
     tail = colorize_camera if cfg.camera_perspective else tail_projector
     frame, depth, disp_map = tail(

@@ -26,19 +26,10 @@ from xmaps_tpu_torch.config import RuntimeParams
 from xmaps_tpu_torch.io.filters import ActivityNoiseFilter
 from xmaps_tpu_torch.io.prefetch import HostStagingPool
 from xmaps_tpu_torch.models.depth_pipeline import XMapsDepthEngine
+from xmaps_tpu_torch.ops.filters import FILTER_NAMES
 from xmaps_tpu_torch.runtime.trigger_finder import RobustTriggerFinder
 from xmaps_tpu_torch.runtime.watchdog import TimingWatchdog
 from xmaps_tpu_torch.utils.stats import SingleTimer, StatsPrinter
-
-#: the frame dedup filters, in the E key's cycle order (the JAX package's
-#: ``xmaps_tpu.ops.filters.FILTER_NAMES``); only "none" is ported
-FILTER_NAMES = (
-    "none",
-    "first_per_yt",
-    "first_per_xy",
-    "last_per_xy",
-    "mean_first_last_per_xy",
-)
 
 
 @dataclass
@@ -186,8 +177,8 @@ class DepthReprojectionPipe:
 
     def select_next_frame_event_filter(self) -> str:
         """Cycle the frame dedup filter (reference E key,
-        depth_reprojection_pipe.py:169-171).  Only "none" is ported: the
-        engine raises NotImplementedError for the others."""
+        depth_reprojection_pipe.py:169-171).  The next frame is staged at 2
+        words an event for a filter, 1 word for "none"."""
         self._filter_idx = (self._filter_idx + 1) % len(FILTER_NAMES)
         name = FILTER_NAMES[self._filter_idx]
         self.engine.set_frame_filter(name)
