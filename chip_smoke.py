@@ -45,7 +45,8 @@ version on the card, and drives the port's paths:
   S's times (kernel, plain version, ``index_put_``).
 
 It times frames, scans and kernels (torch.profiler device time and wall
-time) and prints one JSON line with every kernel's launches on the main
+time; kernel 2 ``tail_projector`` is two launches, the shared-memory dilate
+and the remap + colorize, timed together and listed apart) and prints one JSON line with every kernel's launches on the main
 paths, error, time, plain and library time and bound, then the card's name
 and power limit, then a last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -427,7 +428,8 @@ def time_pair(kernel_fn, plain_fn):
     p2 = device_ms(plain_fn)
 
     def mean(a, b):
-        top = sorted(b[3].items(), key=lambda kv: -kv[1])[:3]
+        top = sorted(((k.replace("(anonymous namespace)::", ""), v) for k, v in b[3].items()),
+                     key=lambda kv: -kv[1])[:3]
         return dict(ms=(a[0] + b[0]) / 2, source=a[1], issue_ms=(a[2] + b[2]) / 2,
                     turns=(a[0], b[0]), top=[(k[:40], round(v, 6)) for k, v in top])
 
@@ -581,7 +583,7 @@ def phase7_offline_eval(card, errs, kernels_ms, shapes, library_ms):
                    for t in bound["forward"] + bound["back"]) / 1e6
     box = tuple(bound["prep"][0].shape)
     log(f"  depth-init setup {setup_s:.2f} s: box {box[0]}x{bound['forward'][0].shape[1]} "
-        f"(tables {box[0]}x{box[1]}), prep tables {prep_mb:.1f} MB, remap indices "
+        f"(tables {box[0]}x{box[1]}), prep tables {prep_mb:.1f} MB, packed remap indices "
         f"{remap_mb:.1f} MB on the card {card}")
     cams = [eval_esl.normalize_scan(c) for c in cams_raw]
     cam_dev = [torch.from_numpy(c).to(dev) for c in cams]
@@ -724,10 +726,8 @@ def phase7_offline_eval(card, errs, kernels_ms, shapes, library_ms):
         lambda: (remap_gather_plain(cam_dev[0], *fwd), remap_gather_plain(disp_box, *back)),
     )
     shapes["esl_disparity_search"] = (cam_box.numel(),)
-    shapes["remap_gather"] = [
-        (yi.numel(), int((xi < src.shape[1]).sum() if inb is None else inb.sum()),
-         src.numel(), int(inb is not None))
-        for src, (yi, xi, inb) in ((cam_dev[0], fwd), (disp_box, back))]
+    shapes["remap_gather"] = [(idx.numel(), int((idx >= 0).sum()), src.numel())
+                              for src, (idx,) in ((cam_dev[0], fwd), (disp_box, back))]
     library_ms["remap_gather"] = remap_library_ms(cam_dev[0], fwd, disp_box, back)
     for k in ("esl_disparity_search", "remap_gather"):
         km, pm = kernels_ms[k]
@@ -1209,20 +1209,18 @@ def phase10_store_loop(card, errs, kernels_ms, shapes, library_ms):
 
 def remap_library_ms(cam, fwd, disp_box, back):
     """Device ms of torch.take computing kernel B's forward + back remaps
-    (flat indices into the source with one zero appended, for the
-    out-of-bounds destinations), precomputed outside the timing."""
+    (an int64 flat index into the source with one zero appended, for the
+    -1 destinations of the packed index), the inputs built outside the
+    timing."""
     import torch
     from xmaps_tpu_torch.ops.remap import remap_gather_plain
 
     calls = []
-    for src, (yi, xi, inb) in ((cam, fwd), (disp_box, back)):
-        Hs, Ws = src.shape
+    for src, (idx,) in ((cam, fwd), (disp_box, back)):
         flat = torch.cat([src.reshape(-1), src.new_zeros(1)])
-        idx = yi.long() * Ws + xi.long().clamp(max=Ws - 1)
-        ok = xi < Ws if inb is None else inb & (xi < Ws)
-        calls.append((flat, torch.where(ok, idx, Hs * Ws)))
+        calls.append((flat, torch.where(idx >= 0, idx.long(), src.numel())))
         assert_exact("torch.take as kernel B's function", [
-            (torch.take(*calls[-1]), remap_gather_plain(src, yi, xi, inb))])
+            (torch.take(*calls[-1]), remap_gather_plain(src, idx))])
     return device_ms(lambda: [torch.take(f, i) for f, i in calls])[0]
 
 
@@ -1247,9 +1245,9 @@ def kernel_bytes(name, shapes) -> float:
         (box_px,) = s
         return 4 * box_px + 4 * box_px
     if name == "remap_gather":
-        # per call: (destination px, in-bounds px, source px, has an inb mask)
-        return sum((8 + has_inb) * px + 4 * min(n_in, src_px) + 4 * px
-                   for px, n_in, src_px, has_inb in s)
+        # per call (destination px, valid px, source px): the packed int32
+        # index in, one source element per valid lane, the f32 plane out
+        return sum(4 * px + 4 * min(n_in, src_px) + 4 * px for px, n_in, src_px in s)
     if name == "warmup_add_one":
         (n,) = s
         return 8 * n

@@ -134,6 +134,60 @@ def test_wrappers_check_inputs(cuda):
                        eng.tables, plan)
 
 
+def _tail_rig(crop_shape, proj_shape, seed):
+    """A hand-made projector tail on the card: a crop at (5, 9) of a
+    40 x 70 rect frame, projector maps drawn around the crop (some inside
+    the frame but outside the crop, some outside the frame), and random
+    packed words with every priority bit random."""
+    from xmaps_tpu_torch.ops.cuda_tail import TailPlan
+    from xmaps_tpu_torch.ops.frame_pipeline import DeviceTables
+
+    rng = np.random.default_rng(seed)
+    (H, W), (Hp, Wp) = crop_shape, proj_shape
+    r0, c0 = 5, 9
+    plan = TailPlan(full_H=40, full_W=70, crop_row0=r0, crop_col0=c0, H=H, W=W,
+                    p03=40.0, z_near=0.2, z_far=1.2)
+    mapx = rng.integers(c0 - 3, c0 + W + 3, (Hp, Wp)).astype(np.int16)
+    mapy = rng.integers(r0 - 3, r0 + H + 3, (Hp, Wp)).astype(np.int16)
+    mapx[0, :3] = -1
+    mapy[-1, -2:] = 40
+    zero = np.zeros((1, 1), np.int16)
+    tables = DeviceTables.from_numpy(zero, zero, zero, mapx, mapy, plan.p03, "cuda")
+    words = rng.integers(0, 2**32, (H, W), dtype=np.uint64).astype(np.uint32).view(np.int32)
+    return plan, tables, torch.from_numpy(words).cuda()
+
+
+@pytest.mark.parametrize("crop_shape,proj_shape", [
+    ((37, 70), (29, 31)),  # 899 projector pixels: a ragged tail of 3
+    ((1, 45), (16, 24)),  # a crop of one row
+    ((45, 1), (13, 7)),  # a crop of one column; 91 pixels
+    ((16, 32), (8, 16)),  # exactly one dilate tile, no ragged tail
+], ids=["ragged", "one_row", "one_col", "one_tile"])
+def test_tail_projector_edges_on_card(cuda, crop_shape, proj_shape):
+    """Kernel 2 (dilate + remap/colorize) against its plain version in all
+    three output variants; one counted launch a call."""
+    plan, tables, words = _tail_rig(crop_shape, proj_shape, seed=sum(crop_shape))
+    for variant in VARIANTS:
+        _build.reset_launch_counts()
+        got = tail_projector(words, tables, plan, **variant)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["tail_projector"] == 1
+        want = tail_projector_plain(words, tables, plan, **variant)
+        for a, b in zip(got, want):
+            _equal(a, b)
+        assert tuple(got[0].shape[:2]) == proj_shape
+
+
+def test_tail_projector_refuses_misaligned_maps(cuda):
+    plan, tables, words = _tail_rig((8, 8), (4, 6), seed=1)
+    buf = torch.zeros(4 * 6 + 1, dtype=torch.int16, device=cuda)
+    view = buf[1:].view(4, 6)  # contiguous, 2 bytes past an aligned start
+    assert view.is_contiguous() and view.data_ptr() % 16
+    for field in ("proj_mapx_i16", "proj_mapy_i16"):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            tail_projector(words, tables._replace(**{field: view}), plan)
+
+
 # -- kernel 1 at the offline eval's capacity, kernels A and B ----------------
 
 
@@ -199,18 +253,57 @@ def test_esl_search_kernel_matches_plain_on_card(cuda, W):
 
 @pytest.mark.parametrize("with_inb", [False, True])
 def test_remap_gather_matches_plain_on_card(cuda, with_inb):
-    from xmaps_tpu_torch.ops.remap import build_remap_indices, remap_gather
+    from xmaps_tpu_torch.ops.remap import build_remap_indices, pack_remap_index, remap_gather
 
     rng = np.random.default_rng(4)
     src = torch.from_numpy(rng.random((48, 64)).astype(np.float32))
     map_x = (rng.random((120, 200)) * 64 * 1.2 - 4).astype(np.float32)
     map_y = (rng.random((120, 200)) * 48 * 1.2 - 4).astype(np.float32)
-    yi, xi, inb = (torch.from_numpy(a) for a in build_remap_indices(map_x, map_y, (48, 64)))
-    mask = inb if with_inb else None
-    want = remap_gather(src, yi, xi, mask)
-    got = remap_gather(src.cuda(), yi.cuda(), xi.cuda(), None if mask is None else mask.cuda())
+    yi, xi, inb = build_remap_indices(map_x, map_y, (48, 64))
+    idx = torch.from_numpy(pack_remap_index(yi, xi, inb if with_inb else None, (48, 64)))
+    want = remap_gather(src, idx)
+    _build.reset_launch_counts()
+    got = remap_gather(src.cuda(), idx.cuda())
     torch.cuda.synchronize()
+    assert _build.LAUNCHES["remap_gather"] == 1
     _equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["ragged", "one_row", "one_col", "all_invalid", "wild"])
+def test_remap_gather_edges_on_card(cuda, case):
+    """Kernel B against its plain version at ragged lengths (n % 4 != 0,
+    the scalar tail), a one-row and a one-column destination, all indices
+    -1, and indices outside the source on both sides."""
+    from xmaps_tpu_torch.ops.remap import remap_gather, remap_gather_plain
+
+    rng = np.random.default_rng(len(case))
+    src = torch.from_numpy(rng.random((37, 53)).astype(np.float32)).cuda()
+    n_src = src.numel()
+    shape = {"ragged": (7, 13), "one_row": (1, 203), "one_col": (203, 1),
+             "all_invalid": (9, 11), "wild": (31, 33)}[case]
+    assert (shape[0] * shape[1]) % 4 != 0
+    if case == "all_invalid":
+        idx = np.full(shape, -1)
+    elif case == "wild":
+        idx = rng.integers(-3 * n_src, 3 * n_src, shape)
+    else:
+        idx = rng.integers(-1, n_src, shape)
+    idx = torch.from_numpy(idx.astype(np.int32)).cuda()
+    got = remap_gather(src, idx)
+    torch.cuda.synchronize()
+    _equal(got, remap_gather_plain(src, idx))
+    assert got.any() != (case == "all_invalid")
+
+
+def test_remap_gather_refuses_misaligned_index(cuda):
+    from xmaps_tpu_torch.ops.remap import remap_gather
+
+    src = torch.zeros((8, 8), device=cuda)
+    buf = torch.zeros(4 * 4 + 1, dtype=torch.int32, device=cuda)
+    idx = buf[1:].view(4, 4)  # contiguous, 4 bytes past an aligned start
+    assert idx.is_contiguous() and idx.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        remap_gather(src, idx)
 
 
 def test_device_depth_init_on_card_matches_cpu(cuda):

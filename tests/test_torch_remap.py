@@ -110,22 +110,72 @@ def test_remap_banded_hbm_matches_jax(trial):
 
 
 def test_prepare_apply_and_gather_contract():
-    """prepare/apply equal remap_static; the gather zeroes masked lanes,
-    ``xi == Ws`` and any out-of-range index."""
+    """prepare/apply equal remap_static; prepare packs one int32 flat index
+    (-1 for a zero); the gather zeroes -1 and any index outside the
+    source."""
     src, map_x, map_y, out_shape = _case("smooth")
     yi, xi, inb = tr.build_remap_indices(map_x, map_y, src.shape)
-    cfg, arrs = tr.prepare_remap_static(yi, xi, inb, out_shape, src.shape[1])
+    cfg, arrs = tr.prepare_remap_static(yi, xi, inb, out_shape, src.shape)
+    (idx,) = arrs
+    assert idx.dtype == np.int32 and idx.shape == out_shape and idx.flags.c_contiguous
+    np.testing.assert_array_equal(idx, tr.pack_remap_index(yi, xi, inb, src.shape))
     s = torch.from_numpy(src)
     got = tr.apply_remap_static(s, tr.upload(arrs, "cpu"), cfg)
     np.testing.assert_array_equal(got.numpy(), tr.remap_static(s, yi, xi, out_shape, inb=inb).numpy())
     Hs, Ws = src.shape
-    y = torch.tensor([[0, Hs - 1, -1, Hs, 3, 3]], dtype=torch.int32)
-    x = torch.tensor([[Ws - 1, 0, 2, 2, Ws, -1]], dtype=torch.int32)
-    out = tr.remap_gather(s, y, x)
-    np.testing.assert_array_equal(out.numpy(), [[src[0, Ws - 1], src[Hs - 1, 0], 0, 0, 0, 0]])
-    mask = torch.tensor([[False, True, True, True, True, True]])
-    assert float(tr.remap_gather(s, y, x, mask)[0, 0]) == 0.0
+    flat = torch.tensor([[0, Hs * Ws - 1, -1, Hs * Ws, Ws + 3, -7]], dtype=torch.int32)
+    out = tr.remap_gather(s, flat)
+    np.testing.assert_array_equal(out.numpy(), [[src[0, 0], src[Hs - 1, Ws - 1], 0, 0, src[1, 3], 0]])
     with pytest.raises(ValueError, match="unknown remap method"):
         tr.remap_static(s, yi, xi, out_shape, method="banded")
     with pytest.raises(ValueError, match="unsupported device"):
-        tr.remap_gather(s.to("meta"), y.to("meta"), x.to("meta"))
+        tr.remap_gather(s.to("meta"), flat.to("meta"))
+    with pytest.raises(ValueError, match="index maps"):
+        tr.prepare_remap_static(yi, xi, inb, (out_shape[0] + 1, out_shape[1]), src.shape)
+
+
+@pytest.mark.parametrize("with_inb", [False, True], ids=["no_inb", "inb"])
+def test_pack_remap_index_out_of_range(with_inb):
+    """Rows and columns outside the source (negative, == Hs / == Ws, the
+    ``xi == Ws`` zero column) pack to -1, in range to ``yi * Ws + xi``;
+    ``inb`` masks lanes that are in range."""
+    Hs, Ws = 5, 7
+    yi = np.array([[0, 4, -1, 5, 2, 2, 3, 4]])
+    xi = np.array([[0, 6, 1, 1, -1, 7, 3, Ws]])
+    inb = np.array([[True, True, True, True, True, True, False, True]])
+    want_ok = [Ws * 0 + 0, 4 * Ws + 6, -1, -1, -1, -1, 3 * Ws + 3, -1]
+    got = tr.pack_remap_index(yi, xi, inb if with_inb else None, (Hs, Ws))
+    assert got.dtype == np.int32 and got.shape == yi.shape
+    if with_inb:
+        want_ok[6] = -1
+    np.testing.assert_array_equal(got, [want_ok])
+    # build_remap_indices' own sentinel: xi == Ws where out of range
+    rng = np.random.default_rng(1)
+    mx = (rng.random((9, 11)) * Ws * 1.6 - 3).astype(np.float32)
+    my = (rng.random((9, 11)) * Hs * 1.6 - 3).astype(np.float32)
+    byi, bxi, binb = tr.build_remap_indices(mx, my, (Hs, Ws))
+    idx = tr.pack_remap_index(byi, bxi, binb if with_inb else None, (Hs, Ws))
+    np.testing.assert_array_equal(idx >= 0, binb)
+    np.testing.assert_array_equal(idx[binb], (byi * Ws + bxi)[binb])
+
+
+def test_pack_remap_index_refuses_large_sources():
+    yi = xi = np.zeros((2, 2), np.int32)
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        tr.pack_remap_index(yi, xi, None, (2**16, 2**15))
+    assert tr.pack_remap_index(yi, xi, None, (2**16, 2**15 - 1)).tolist() == [[0, 0], [0, 0]]
+
+
+@pytest.mark.parametrize("with_inb", [False, True], ids=["no_inb", "inb"])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_gather_plain_packed_matches_jax(name, with_inb):
+    """Kernel B's plain version through the packed index equals the JAX
+    package's ``remap_static`` (Pallas walk in interpret mode)."""
+    src, map_x, map_y, out_shape = _case(name)
+    yi, xi, inb = jr.build_remap_indices(map_x, map_y, src.shape)
+    kw = dict(inb=inb) if with_inb else {}
+    want = np.asarray(jr.remap_static(src, yi, xi, out_shape, interpret=True, **kw))
+    idx = tr.pack_remap_index(yi, xi, inb if with_inb else None, src.shape)
+    got = tr.remap_gather_plain(torch.from_numpy(src), torch.from_numpy(idx))
+    assert got.dtype == torch.float32 and tuple(got.shape) == out_shape
+    np.testing.assert_array_equal(got.numpy(), want)

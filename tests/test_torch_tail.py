@@ -113,6 +113,41 @@ def test_tail_projector_matches_pallas(rig_name, variant):
     assert tuple(got[0].shape[:2]) == (calib.projector_height, calib.projector_width)
 
 
+def _tiny_crop_rig():
+    """A 7-row, 11-column rect frame (narrower and shorter than one 32 x 16
+    dilate tile of the CUDA kernel, wider than one 7 x 7 window) seen by a
+    9 x 13 projector (117 pixels, not a multiple of 8) whose maps overshoot
+    the frame by one pixel on every side; one source row per projector
+    row, as a rectification gives."""
+    Hp, Wp, full_H, full_W = 9, 13, 7, 11
+    ii, jj = np.meshgrid(np.arange(Hp), np.arange(Wp), indexing="ij")
+    mapx = (jj * (full_W + 2) // Wp - 1).astype(np.int16)
+    mapy = (ii * (full_H + 2) // Hp - 1).astype(np.int16)
+    p03 = 40.0
+    args = (mapx, mapy, full_H, full_W)
+    jplan = jpt.build_tail_plan(*args, p03=p03, z_near=Z_NEAR, z_far=Z_FAR)
+    tplan = build_tail_plan(*args, p03=p03, z_near=Z_NEAR, z_far=Z_FAR)
+    zero = np.zeros((1, 1), np.int16)
+    tables = DeviceTables.from_numpy(zero, zero, zero, mapx, mapy, p03, "cpu")
+    return jplan, tplan, tables
+
+
+@pytest.mark.parametrize("variant", VARIANTS, ids=VARIANT_IDS)
+def test_tail_projector_crop_smaller_than_a_tile(variant):
+    jplan, tplan, tables = _tiny_crop_rig()
+    assert (tplan.H, tplan.W) == (7, 11) == (jplan.H, jplan.W)
+    crop = _packed_map((tplan.H, tplan.W), seed=11, density=0.15)
+    crop[1, 2] = 4095 * PACK + 170  # high priority bits, the largest disparity
+    padded = np.zeros((jplan.H_pad, jplan.W_pad), np.uint32)
+    padded[: tplan.H, : tplan.W] = crop
+    ref = jpt.pallas_tail(jnp.asarray(padded), jplan, interpret=True, pack=PACK, **variant)
+    got = tail_projector(torch.from_numpy(crop.astype(np.int32)), tables, tplan, **variant)
+    _check(got, ref, variant)
+    assert tuple(got[0].shape[:2]) == (9, 13)
+    if variant["emit_aux"]:  # windows differ, and zeros outside the frame
+        assert (got[2] == 170).any() and len(torch.unique(got[2])) >= 3
+
+
 def test_tail_projector_empty_map():
     calib, maps, jplan, tplan, tables = _rig("default")
     empty = torch.zeros((tplan.H, tplan.W), dtype=torch.int32)

@@ -315,17 +315,17 @@ def build_device_depth_init(
         return empty_depth_init
     box_shape = (r1 - r0, c1 - c0)
 
-    # the static inputs, cropped to the box once: forward remap indices
-    # (the remap emits only the box), the search's prep tables, and
-    # box-relative back-gather indices
+    # the static inputs, cropped to the box once: the packed forward remap
+    # index (the remap emits only the box), the search's prep tables, and
+    # the packed box-relative back-gather index
     cfg_fwd, arrs_fwd = prepare_remap_static(
         yi_fwd[r0:r1, c0:c1], xi_fwd[r0:r1, c0:c1],
-        inb_fwd[r0:r1, c0:c1], box_shape, calib.camera_width,
+        inb_fwd[r0:r1, c0:c1], box_shape, cam_shape,
         method=remap_method,
     )
     cfg_b, arrs_b = prepare_remap_static(
         yi_b.astype(np.int64) - r0, xi_b.astype(np.int64) - c0, inb_b,
-        cam_shape, box_shape[1],
+        cam_shape, box_shape,
     )
     arrs_fwd, arrs_b = upload(arrs_fwd, dev), upload(arrs_b, dev)
     prep = esl_search_prep(

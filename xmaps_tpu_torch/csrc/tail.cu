@@ -6,57 +6,182 @@
 // u8 -> TURBO.  colorize_camera replaces pallas_colorize (:777, body
 // _colorize_core :736): the camera view, unpack -> depth -> u8 -> TURBO.
 //
-// What bounds them on the H100: memory traffic and, for the projector tail,
-// gather latency.  Per projector pixel the tail reads 4 B of maps and a 7x7
-// window of the packed map (49 x 4 B, mostly L2/L1 hits: neighbouring output
-// pixels read overlapping windows of the ~2.3 MB crop) and writes 4 B of
-// packed BGR (or 3 B of BGR plus 8 B of f32 depth/disp).  At the
-// demonstrator's 0.92 Mpx that is under 20 MB of DRAM traffic, a few
-// microseconds at 3.35 TB/s; the window reads are what the SMs spend time on.
+// What bounds them on the H100: memory traffic.  The projector tail must
+// read the packed crop (4 B a crop pixel: 901 x 532 at the demonstrator)
+// and 4 B of maps a projector pixel, and write 4 B of packed BGR (or 3 B
+// of BGR plus 8 B of f32 depth/disp) a projector pixel: ~9 MB at the
+// demonstrator's 0.92 Mpx, under 3 us at 3.35 TB/s.  A kernel that
+// re-dilates a 7x7 window for every output pixel issues ~45 M scattered
+// L1/L2 loads a frame (each crop pixel is sampled ~1.9 times) and runs at a
+// tenth of that bound.
 //
-// What the design does about it: one thread per output pixel, no shared
-// memory.  The TPU kernel's band DMAs, yhat row-alignment stripes and tile
-// ladder existed because a TPU gather is a serial scalar loop; Hopper
-// gathers in hardware, so the kernel dilates exactly the one window each
-// output pixel samples (bit-exact with dilating the whole map: the crop
-// carries the 3-px halo, disparities are >= 0, and the window always holds
-// its in-bounds centre, so a 0-initialised max equals the -inf-padded one).
-// Both kernels share the epilogue in common.cuh verbatim.
+// What the design does about it: two passes, as the TPU kernel dilated a
+// band in VMEM before gathering from it (_tail_core :530-542).
+// - tail_dilate: one block per 32 x 32 tile of the crop.  The tile and its
+//   3-px halo are loaded into shared memory (unpacked while loading, 0
+//   outside the crop), a 7-wide horizontal max goes into a second shared
+//   array, then a 7-tall vertical max is written as uint16 (disparities
+//   are < PACK = 8192): ~14 compares a crop pixel, and the 1 MB dilated
+//   crop stays in L2.  Disparities are >= 0 and a window always holds its
+//   in-bounds centre, so the 0 padding equals dilate_max's -inf padding:
+//   the result is bit-equal.
+// - tail_remap_colorize: 8 consecutive projector pixels a thread, one
+//   16-byte load of each map, 8 gathers from the u16 dilated crop, the
+//   shared epilogue of common.cuh, and 16-byte stores of packed BGR and
+//   f32 depth/disp (8-byte stores of 3-byte BGR); the last thread takes a
+//   ragged tail of Hp * Wp % 8 pixels with scalar accesses.  Blocks of 128
+//   threads: the whole grid is one wave, and smaller blocks spread it more
+//   evenly over the SMs.  Beside its bytes, this pass pays for the
+//   epilogue's two IEEE divisions a pixel.
+// Both halo-tile and block sizes were chosen by timing variants on the
+// H100 at the demonstrator's shapes.
 #include "common.cuh"
 
 namespace {
 
-__global__ void tail_projector_kernel(
-    const int32_t* __restrict__ packed, int H, int W, int row0, int col0,
+constexpr int kDilTileW = 32;  // crop columns a dilate block writes
+constexpr int kDilTileH = 32;  // crop rows a dilate block writes
+constexpr int kDilThreadsY = 8;  // 32 x 8 threads, 4 output rows each
+constexpr int kDilThreads = kDilTileW * kDilThreadsY;
+constexpr int kR = 3;  // dilate radius (7 x 7 window)
+constexpr int kHaloW = kDilTileW + 2 * kR;
+constexpr int kHaloH = kDilTileH + 2 * kR;
+constexpr int kHaloLoads = (kHaloH * kHaloW + kDilThreads - 1) / kDilThreads;
+
+__global__ void __launch_bounds__(kDilThreads)
+tail_dilate_kernel(const int32_t* __restrict__ packed, int H, int W,
+                   uint16_t* __restrict__ dil) {
+  __shared__ int tile[kHaloH][kHaloW];
+  __shared__ int hmax[kHaloH][kDilTileW];
+  const int tx = threadIdx.x;  // column in the tile
+  const int ty = threadIdx.y;
+  const int tid = ty * kDilTileW + tx;
+  const int c0 = blockIdx.x * kDilTileW - kR;
+  const int r0 = blockIdx.y * kDilTileH - kR;
+  // every load of the halo tile is issued before the first shared store
+  int v[kHaloLoads];
+#pragma unroll
+  for (int i = 0; i < kHaloLoads; ++i) {
+    const int k = i * kDilThreads + tid;
+    const int r = k / kHaloW, c = k - r * kHaloW;
+    const int gr = r0 + r, gc = c0 + c;
+    v[i] = 0;
+    if (k < kHaloH * kHaloW && gr >= 0 && gr < H && gc >= 0 && gc < W) {
+      v[i] = static_cast<int>(
+          static_cast<uint32_t>(__ldg(packed + static_cast<long>(gr) * W + gc)) &
+          (xmaps::PACK - 1u));
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kHaloLoads; ++i) {
+    const int k = i * kDilThreads + tid;
+    if (k < kHaloH * kHaloW) (&tile[0][0])[k] = v[i];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = ty; r < kHaloH; r += kDilThreadsY) {
+    int m = tile[r][tx];
+#pragma unroll
+    for (int d = 1; d < 2 * kR + 1; ++d) m = max(m, tile[r][tx + d]);
+    hmax[r][tx] = m;
+  }
+  __syncthreads();
+  const int gc = blockIdx.x * kDilTileW + tx;
+  if (gc >= W) return;
+#pragma unroll
+  for (int r = ty; r < kDilTileH; r += kDilThreadsY) {
+    const int gr = blockIdx.y * kDilTileH + r;
+    if (gr >= H) break;
+    int m = hmax[r][tx];
+#pragma unroll
+    for (int d = 1; d < 2 * kR + 1; ++d) m = max(m, hmax[r + d][tx]);
+    dil[static_cast<long>(gr) * W + gc] = static_cast<uint16_t>(m);
+  }
+}
+
+// The dilated disparity a projector pixel samples: 0 outside the rect
+// frame or the crop.
+__device__ __forceinline__ float sample_dilated(
+    int X, int Y, const uint16_t* __restrict__ dil, int H, int W, int row0,
+    int col0, int full_h, int full_w) {
+  const int cy = Y - row0, cx = X - col0;
+  if (X >= 0 && X < full_w && Y >= 0 && Y < full_h && cy >= 0 && cy < H &&
+      cx >= 0 && cx < W) {
+    return static_cast<float>(__ldg(dil + static_cast<long>(cy) * W + cx));
+  }
+  return 0.0f;
+}
+
+constexpr int kPx = 8;  // projector pixels a remap thread
+constexpr int kRemapThreads = 128;
+
+__global__ void tail_remap_colorize_kernel(
+    const uint16_t* __restrict__ dil, int H, int W, int row0, int col0,
     int full_h, int full_w, const int16_t* __restrict__ proj_mapx,
     const int16_t* __restrict__ proj_mapy, long n_out,
     const int32_t* __restrict__ lut, float p03, float z_near, float z_far,
     int32_t* __restrict__ bgr_packed, uint8_t* __restrict__ bgr3,
     float* __restrict__ depth_out, float* __restrict__ disp_out) {
-  const long idx = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= n_out) return;
-  const int X = __ldg(proj_mapx + idx);
-  const int Y = __ldg(proj_mapy + idx);
-  int m = 0;
-  if (X >= 0 && X < full_w && Y >= 0 && Y < full_h) {
-    const int cy = Y - row0;
-    const int cx = X - col0;
-    const int r_lo = max(cy - 3, 0), r_hi = min(cy + 3, H - 1);
-    const int c_lo = max(cx - 3, 0), c_hi = min(cx + 3, W - 1);
-    for (int r = r_lo; r <= r_hi; ++r) {
-      const int32_t* row = packed + static_cast<long>(r) * W;
-      for (int c = c_lo; c <= c_hi; ++c) {
-        m = max(m, static_cast<int>(static_cast<uint32_t>(__ldg(row + c)) &
-                                    (xmaps::PACK - 1u)));
-      }
+  const long base =
+      kPx * (static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x);
+  if (base + kPx > n_out) {
+    // ragged tail: scalar accesses
+    for (long k = base; k < n_out; ++k) {
+      const float d = sample_dilated(__ldg(proj_mapx + k), __ldg(proj_mapy + k),
+                                     dil, H, W, row0, col0, full_h, full_w);
+      float depth;
+      int32_t bgr;
+      xmaps::depth_colorize(d, p03, z_near, z_far, lut, &depth, &bgr);
+      xmaps::store_pixel(k, d, depth, bgr, bgr_packed, bgr3, depth_out,
+                         disp_out);
     }
+    return;
   }
-  const float d = static_cast<float>(m);
-  float depth;
-  int32_t bgr;
-  xmaps::depth_colorize(d, p03, z_near, z_far, lut, &depth, &bgr);
-  xmaps::store_pixel(idx, d, depth, bgr, bgr_packed, bgr3, depth_out,
-                     disp_out);
+  const int4 mx = __ldg(reinterpret_cast<const int4*>(proj_mapx + base));
+  const int4 my = __ldg(reinterpret_cast<const int4*>(proj_mapy + base));
+  const int16_t* xs = reinterpret_cast<const int16_t*>(&mx);
+  const int16_t* ys = reinterpret_cast<const int16_t*>(&my);
+  float disp[kPx], depth[kPx];
+  int32_t bgr[kPx];
+#pragma unroll
+  for (int k = 0; k < kPx; ++k) {
+    disp[k] = sample_dilated(xs[k], ys[k], dil, H, W, row0, col0, full_h,
+                             full_w);
+  }
+#pragma unroll
+  for (int k = 0; k < kPx; ++k) {
+    xmaps::depth_colorize(disp[k], p03, z_near, z_far, lut, &depth[k],
+                          &bgr[k]);
+  }
+  if (bgr_packed) {
+    int4* o = reinterpret_cast<int4*>(bgr_packed + base);
+    o[0] = make_int4(bgr[0], bgr[1], bgr[2], bgr[3]);
+    o[1] = make_int4(bgr[4], bgr[5], bgr[6], bgr[7]);
+  }
+  if (bgr3) {
+    // 24 bytes at 24 * (base / 8): three 8-byte words
+    unsigned long long w[3] = {0ull, 0ull, 0ull};
+#pragma unroll
+    for (int b = 0; b < 3 * kPx; ++b) {
+      const unsigned long long byte = (bgr[b / 3] >> (8 * (b % 3))) & 255;
+      w[b / 8] |= byte << (8 * (b % 8));
+    }
+    unsigned long long* o =
+        reinterpret_cast<unsigned long long*>(bgr3 + 3 * base);
+    o[0] = w[0];
+    o[1] = w[1];
+    o[2] = w[2];
+  }
+  if (depth_out) {
+    float4* o = reinterpret_cast<float4*>(depth_out + base);
+    o[0] = make_float4(depth[0], depth[1], depth[2], depth[3]);
+    o[1] = make_float4(depth[4], depth[5], depth[6], depth[7]);
+  }
+  if (disp_out) {
+    float4* o = reinterpret_cast<float4*>(disp_out + base);
+    o[0] = make_float4(disp[0], disp[1], disp[2], disp[3]);
+    o[1] = make_float4(disp[4], disp[5], disp[6], disp[7]);
+  }
 }
 
 __global__ void colorize_camera_kernel(
@@ -83,16 +208,29 @@ inline unsigned grid_for(long n) {
 
 }  // namespace
 
+// Two launches on one stream: the dilate into the caller's (H, W) uint16
+// scratch, then the remap + colorize.  Returns the first launch error.
 extern "C" int tail_projector(
     const int32_t* packed, int H, int W, int row0, int col0, int full_h,
-    int full_w, const int16_t* proj_mapx, const int16_t* proj_mapy, int Hp,
-    int Wp, const int32_t* lut, float p03, float z_near, float z_far,
-    int32_t* bgr_packed, uint8_t* bgr3, float* depth_out, float* disp_out,
-    cudaStream_t stream) {
+    int full_w, uint16_t* dil, const int16_t* proj_mapx,
+    const int16_t* proj_mapy, int Hp, int Wp, const int32_t* lut, float p03,
+    float z_near, float z_far, int32_t* bgr_packed, uint8_t* bgr3,
+    float* depth_out, float* disp_out, cudaStream_t stream) {
+  if (H > 0 && W > 0) {
+    const dim3 block(kDilTileW, kDilThreadsY);
+    const dim3 grid((W + kDilTileW - 1) / kDilTileW,
+                    (H + kDilTileH - 1) / kDilTileH);
+    tail_dilate_kernel<<<grid, block, 0, stream>>>(packed, H, W, dil);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const long n_out = static_cast<long>(Hp) * Wp;
   if (n_out > 0) {
-    tail_projector_kernel<<<grid_for(n_out), kThreads, 0, stream>>>(
-        packed, H, W, row0, col0, full_h, full_w, proj_mapx, proj_mapy, n_out,
+    const long groups = (n_out + kPx - 1) / kPx;
+    tail_remap_colorize_kernel<<<
+        static_cast<unsigned>((groups + kRemapThreads - 1) / kRemapThreads),
+        kRemapThreads, 0, stream>>>(
+        dil, H, W, row0, col0, full_h, full_w, proj_mapx, proj_mapy, n_out,
         lut, p03, z_near, z_far, bgr_packed, bgr3, depth_out, disp_out);
   }
   return static_cast<int>(cudaGetLastError());

@@ -63,9 +63,10 @@ _SIGNATURES = {
         _P, _P, _P,  # optional lane outputs xr, yr, x_proj
         _P,  # stream
     ],
-    "tail_projector": [
+    "tail_projector": [  # two launches: tail_dilate, tail_remap_colorize
         _P, _I, _I, _I, _I, _I, _I,  # packed crop, H, W, row0, col0, full_h, full_w
-        _P, _P, _I, _I,  # proj_mapx, proj_mapy, Hp, Wp
+        _P,  # (H, W) u16 scratch: the dilated crop
+        _P, _P, _I, _I,  # proj_mapx, proj_mapy (i16, 16-byte aligned), Hp, Wp
         _P, _F, _F, _F,  # lut, p03, z_near, z_far
         _P, _P, _P, _P,  # bgr_packed, bgr3, depth, disp (nullable)
         _P,  # stream
@@ -84,9 +85,9 @@ _SIGNATURES = {
         _P,  # stream
     ],
     "remap_gather": [
-        _P, _I, _I,  # src f32, Hs, Ws
-        _P, _P, _P, _L,  # yi, xi (i32), inb (bool, nullable), n
-        _P,  # out f32
+        _P, _L,  # src f32, its element count (< 2**31)
+        _P, _L,  # packed flat index (i32, -1 = zero, 16-byte aligned), n
+        _P,  # out f32 (16-byte aligned)
         _P,  # stream
     ],
     "warmup_add_one": [

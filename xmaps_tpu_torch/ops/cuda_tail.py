@@ -1,10 +1,14 @@
 """Kernel 2 and 3 wrappers: the dense per-frame image tail.
 
 - ``tail_projector``: packed crop map -> unpack -> 7x7 max dilate -> nearest
-  remap to the projector -> depth -> u8 -> TURBO.  On CUDA it launches
-  ``csrc/tail.cu:tail_projector`` (replacing the TPU kernel ``pallas_tail``);
-  on CPU it runs the plain chain: ``dilate_max`` on the crop,
-  ``remap_nearest_i16``, then ``ops.image_tail``.
+  remap to the projector -> depth -> u8 -> TURBO.  On CUDA it runs
+  ``csrc/tail.cu:tail_projector`` (replacing the TPU kernel ``pallas_tail``)
+  as two launches on the current stream: ``tail_dilate`` (a shared-memory
+  separable 7x7 max of the crop into a uint16 scratch) and
+  ``tail_remap_colorize`` (8 projector pixels a thread, the maps read 16
+  bytes at a time), counted as one launch of ``tail_projector``; on CPU it
+  runs the plain chain: ``dilate_max`` on the crop, ``remap_nearest_i16``,
+  then ``ops.image_tail``.
 - ``colorize_camera``: the camera view, packed map -> unpack -> depth -> u8
   -> TURBO (replacing ``pallas_colorize``).
 
@@ -201,7 +205,8 @@ def tail_projector(
     """(H, W) int32 packed crop map -> projector-view (frame, depth, disp).
 
     ``tables``: ``ops.frame_pipeline.DeviceTables`` (projector maps, p03,
-    TURBO LUT) on the map's device.
+    TURBO LUT) on the map's device.  On CUDA the projector maps must be
+    16-byte aligned (a ``ValueError`` otherwise).
     """
     dev = packed_crop.device
     if dev.type == "cpu":
@@ -218,11 +223,16 @@ def tail_projector(
         proj_mapy=(tables.proj_mapy_i16, torch.int16, (Hp, Wp)),
         lut=(tables.turbo_lut, torch.int32, (256,)),
     )
+    for name in ("proj_mapx_i16", "proj_mapy_i16"):
+        if getattr(tables, name).data_ptr() % 16:
+            raise ValueError(
+                f"tail_projector: {name} must be 16-byte aligned (the kernel reads int4)")
     lib = _build.load()
     outs, ptrs = _outputs((Hp, Wp), dev, emit_aux, packed_bgr)
+    dil = torch.empty((plan.H, plan.W), dtype=torch.uint16, device=dev)
     err = lib.tail_projector(
         packed_crop.data_ptr(), plan.H, plan.W, plan.crop_row0, plan.crop_col0,
-        plan.full_H, plan.full_W,
+        plan.full_H, plan.full_W, dil.data_ptr(),
         tables.proj_mapx_i16.data_ptr(), tables.proj_mapy_i16.data_ptr(), Hp, Wp,
         tables.turbo_lut.data_ptr(), plan.p03, plan.z_near, plan.z_far,
         *ptrs, torch.cuda.current_stream(dev).cuda_stream,

@@ -12,10 +12,13 @@ walk (``remap_static``), the host-composed two-gather variant
 VMEM (``remap_banded_hbm``) -- because a TPU gather is a serial scalar
 loop and VMEM is small.  On the H100 the hardware gathers and the 1.2 MB
 camera scan sits in L2, so every route here lands on ONE kernel,
-``remap_gather`` (``csrc/remap.cu``): one thread per destination pixel.
-The ``method`` and ``col_span`` arguments are accepted so that callers keep
-their signatures; they select nothing.  With no ``inb`` mask, ``xi == Ws``
-marks an out-of-range destination (the JAX package's zero column).
+``remap_gather`` (``csrc/remap.cu``).  The maps are static, so the host
+packs ``(yi, xi, inb)`` once per calibration into one int32 flat index
+(``pack_remap_index``: ``yi * Ws + xi``, -1 for a zero), and the kernel
+reads 4 B a destination, four destinations a thread.  The ``method`` and
+``col_span`` arguments are accepted so that callers keep their signatures;
+they select nothing.  With no ``inb`` mask, ``xi == Ws`` marks an
+out-of-range destination (the JAX package's zero column).
 
 On a CUDA tensor ``remap_gather`` launches the kernel; on a CPU tensor it
 runs the plain version, ``remap_gather_plain``.
@@ -29,10 +32,10 @@ import numpy as np
 import torch
 
 from xmaps_tpu_torch.ops import _build
-from xmaps_tpu_torch.ops.image_tail import remap_nearest_i16
 
 __all__ = [
     "build_remap_indices",
+    "pack_remap_index",
     "remap_gather",
     "remap_gather_plain",
     "remap_static",
@@ -59,54 +62,67 @@ def build_remap_indices(map_x: np.ndarray, map_y: np.ndarray, src_shape):
     return yi, xi, inb
 
 
-def remap_gather_plain(
-    src: torch.Tensor,
-    yi: torch.Tensor,
-    xi: torch.Tensor,
-    inb: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """Plain PyTorch version of ``remap_gather`` (any device)."""
-    out = remap_nearest_i16(src, xi, yi)
-    return out if inb is None else torch.where(inb, out, 0.0)
+def pack_remap_index(yi, xi, inb, src_shape) -> np.ndarray:
+    """(yi, xi, inb) index maps -> one contiguous int32 flat index into a
+    source of ``src_shape``: ``yi * Ws + xi`` where the destination is
+    valid, -1 where it is zero.  Valid means ``inb`` (when given) and
+    ``(yi, xi)`` inside the source, so ``xi == Ws`` (the JAX package's zero
+    column) is -1.  Raises where the source has 2**31 elements or more."""
+    Hs, Ws = src_shape
+    if Hs * Ws >= 2**31:
+        raise ValueError(f"pack_remap_index: source {Hs}x{Ws} has >= 2**31 elements")
+    yi = np.asarray(yi, np.int64)
+    xi = np.asarray(xi, np.int64)
+    if yi.shape != xi.shape:
+        raise ValueError(f"pack_remap_index: yi {yi.shape} and xi {xi.shape} differ")
+    ok = (yi >= 0) & (yi < Hs) & (xi >= 0) & (xi < Ws)
+    if inb is not None:
+        inb = np.asarray(inb, bool)
+        if inb.shape != yi.shape:
+            raise ValueError(f"pack_remap_index: inb {inb.shape} != {yi.shape}")
+        ok &= inb
+    return np.ascontiguousarray(np.where(ok, yi * Ws + xi, -1), np.int32)
 
 
-def remap_gather(
-    src: torch.Tensor,
-    yi: torch.Tensor,
-    xi: torch.Tensor,
-    inb: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """(Hs, Ws) float32 source + (H, W) int32 index maps -> (H, W) float32,
-    ``where(inb & in range, src[yi, xi], 0)``; ``inb`` (bool) is optional.
+def remap_gather_plain(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of ``remap_gather`` (any device): a gather
+    through the flat index, 0 where it is -1 (or outside the source)."""
+    n = src.numel()
+    flat = torch.cat([src.reshape(-1), src.new_zeros(1)])
+    i = idx.long()
+    return flat[torch.where((i >= 0) & (i < n), i, n)]
+
+
+def remap_gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(Hs, Ws) float32 source + (H, W) int32 packed flat index
+    (:func:`pack_remap_index`) -> (H, W) float32, ``src.flat[idx]`` with 0
+    where ``idx`` is -1.
 
     Kernel B: it replaces the TPU kernels ``remap_static``
     (``xmaps_tpu/ops/pallas_remap.py:411``), ``_remap_static_composed_call``
     (``:235``) and ``remap_banded_hbm`` (``:542``), and the XLA flat gather
-    of the ESL back-remap.
+    of the ESL back-remap.  The kernel reads the index 16 bytes at a time,
+    so ``idx`` must be 16-byte aligned (a ``ValueError`` otherwise).
     """
     dev = src.device
     if dev.type == "cpu":
-        return remap_gather_plain(src, yi, xi, inb)
+        return remap_gather_plain(src, idx)
     if dev.type != "cuda":
         raise ValueError(f"remap_gather: unsupported device {dev}")
-    shape = tuple(yi.shape)
-    checks = [("src", src, torch.float32, tuple(src.shape)),
-              ("yi", yi, torch.int32, shape), ("xi", xi, torch.int32, shape)]
-    if inb is not None:
-        checks.append(("inb", inb, torch.bool, shape))
-    for name, a, dtype, want in checks:
-        if (a.device != dev or a.dtype != dtype or tuple(a.shape) != want
-                or not a.is_contiguous() or a.dim() != 2):
+    for name, a, dtype in (("src", src, torch.float32), ("idx", idx, torch.int32)):
+        if a.device != dev or a.dtype != dtype or not a.is_contiguous() or a.dim() != 2:
             raise ValueError(
-                f"remap_gather: {name} must be a contiguous 2-D {dtype} tensor of "
-                f"shape {want} on {dev}, got {a.dtype} {tuple(a.shape)} on {a.device}"
+                f"remap_gather: {name} must be a contiguous 2-D {dtype} tensor on {dev}, "
+                f"got {a.dtype} {tuple(a.shape)} on {a.device}"
             )
+    if idx.data_ptr() % 16:
+        raise ValueError("remap_gather: idx must be 16-byte aligned (the kernel reads int4)")
+    if src.numel() >= 2**31:
+        raise ValueError(f"remap_gather: source {tuple(src.shape)} has >= 2**31 elements")
     lib = _build.load()
-    out = torch.empty(shape, dtype=torch.float32, device=dev)
-    Hs, Ws = src.shape
+    out = torch.empty(tuple(idx.shape), dtype=torch.float32, device=dev)
     err = lib.remap_gather(
-        src.data_ptr(), Hs, Ws, yi.data_ptr(), xi.data_ptr(),
-        None if inb is None else inb.data_ptr(), yi.numel(), out.data_ptr(),
+        src.data_ptr(), src.numel(), idx.data_ptr(), idx.numel(), out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check("remap_gather", err)
@@ -115,9 +131,8 @@ def remap_gather(
 
 
 def upload(arrs, device) -> tuple:
-    """The arrays of :func:`prepare_remap_static` as tensors on ``device``
-    (None stays None)."""
-    return tuple(None if a is None else torch.from_numpy(a).to(device) for a in arrs)
+    """The arrays of :func:`prepare_remap_static` as tensors on ``device``."""
+    return tuple(torch.from_numpy(a).to(device) for a in arrs)
 
 
 def remap_static(src, yi, xi, out_shape, col_span: Optional[int] = None,
@@ -131,7 +146,7 @@ def remap_static(src, yi, xi, out_shape, col_span: Optional[int] = None,
     the JAX package and nothing here: every route is kernel B."""
     if method not in ("auto", "walk", "composed"):
         raise ValueError(f"unknown remap method {method!r}")
-    cfg, arrs = prepare_remap_static(yi, xi, inb, out_shape, src.shape[1],
+    cfg, arrs = prepare_remap_static(yi, xi, inb, out_shape, tuple(src.shape),
                                      col_span=col_span, method=method)
     return apply_remap_static(src, upload(arrs, src.device), cfg)
 
@@ -142,30 +157,27 @@ class RemapStaticCfg(NamedTuple):
     out_shape: tuple
 
 
-def prepare_remap_static(yi, xi, inb, out_shape, src_width,
+def prepare_remap_static(yi, xi, inb, out_shape, src_shape,
                          col_span: Optional[int] = None, method: str = "auto"):
-    """Host-side preparation of a static remap: (cfg, (yi, xi, inb)) as
-    contiguous int32/int32/bool arrays of ``out_shape`` (``inb`` None when
-    not given).  Upload the arrays once and call :func:`apply_remap_static`
-    per source.  ``src_width``, ``col_span`` and ``method`` are accepted for
-    the JAX package's signature; kernel B needs none of them."""
-    del src_width, col_span, method
-    H, W = out_shape
-    yi = np.ascontiguousarray(np.asarray(yi), np.int32)
-    xi = np.ascontiguousarray(np.asarray(xi), np.int32)
-    assert yi.shape == xi.shape == (H, W), (yi.shape, xi.shape, out_shape)
-    if inb is not None:
-        inb = np.ascontiguousarray(np.asarray(inb), bool)
-        assert inb.shape == (H, W)
-    return RemapStaticCfg(tuple(out_shape)), (yi, xi, inb)
+    """Host-side preparation of a static remap into a source of
+    ``src_shape``: (cfg, (idx,)) with ``idx`` the packed int32 flat index of
+    :func:`pack_remap_index`, of ``out_shape``.  Upload it once per
+    calibration and call :func:`apply_remap_static` per source.
+    ``col_span`` and ``method`` are accepted for the JAX package's
+    signature; kernel B needs neither."""
+    del col_span, method
+    idx = pack_remap_index(yi, xi, inb, src_shape)
+    if idx.shape != tuple(out_shape):
+        raise ValueError(f"prepare_remap_static: index maps {idx.shape} != {tuple(out_shape)}")
+    return RemapStaticCfg(tuple(out_shape)), (idx,)
 
 
 def apply_remap_static(src: torch.Tensor, arrs, cfg: RemapStaticCfg) -> torch.Tensor:
-    """Device half of :func:`prepare_remap_static`: ``arrs`` are its
-    arrays as tensors on src's device."""
-    yi, xi, inb = arrs
-    assert tuple(yi.shape) == cfg.out_shape
-    return remap_gather(src, yi, xi, inb)
+    """Device half of :func:`prepare_remap_static`: ``arrs`` is its
+    ``(idx,)`` as a tensor on src's device."""
+    (idx,) = arrs
+    assert tuple(idx.shape) == cfg.out_shape
+    return remap_gather(src, idx)
 
 
 def banded_hbm_viable(src_shape, yi, xi, inb, out_shape) -> bool:
@@ -179,9 +191,9 @@ def banded_hbm_viable(src_shape, yi, xi, inb, out_shape) -> bool:
 def remap_banded_hbm(src: torch.Tensor, yi, xi, inb, out_shape) -> torch.Tensor:
     """Large-source remap, ``where(inb, src[clip(yi), clip(xi)], 0)``, as
     the JAX package's ``remap_banded_hbm``: the host indices are clamped
-    into the source first, then kernel B gathers."""
+    into the source first, then packed, then kernel B gathers."""
     Hs, Ws = src.shape
     yi = np.clip(np.asarray(yi, np.int64), 0, Hs - 1)
     xi = np.clip(np.asarray(xi, np.int64), 0, Ws - 1)
-    cfg, arrs = prepare_remap_static(yi, xi, inb, out_shape, Ws)
+    cfg, arrs = prepare_remap_static(yi, xi, inb, out_shape, (Hs, Ws))
     return apply_remap_static(src, upload(arrs, src.device), cfg)
