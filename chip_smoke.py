@@ -10,13 +10,18 @@ version on the card, and drives the port's paths:
 - the per-frame engine (XMapsDepthEngine.from_calibration -> process_frame)
   at the paper's demonstrator geometry in both views and at the ESL bench
   geometry (phases 3-6), every frame checked bit for bit against the port
-  on the CPU with the same tables;
+  on the CPU with the same tables; phase 3 also holds kernel 1's staged
+  entry (the 1-word batch of the streaming path) against its plain version,
+  and phase 6 checks that no fill runs beside kernel 1 (it zeroes its map
+  inside its cooperative launch) and times the staged entry;
 - the five dedup frame filters (phase 5b): kernel 1 with each filter's
   scatter priority against its plain version, then ``set_frame_filter``
   and the 12 demonstrator frames in both views for each of the four dedup
   filters, and ``first_per_yt`` (the largest key space) on 3 frames at the
-  ESL geometry, every frame bit-equal to the CPU port; phase 6 times each
-  filter (wall and device ms a frame, the filter ops' device time);
+  ESL geometry, every frame bit-equal to the CPU port, then each filter on
+  frames with events outside the camera (no device-side assert, bit-equal
+  to the CPU port); phase 6 times each filter (wall and device ms a frame,
+  the filter ops' device time);
 - the offline evaluation at the ESL geometry (phase 7): the four eval apps
   (ESL init + refine, MC3D, X-maps, table) through their ``main`` on 4
   synthetic plane scans, with kernels A and B (ESL search, static remap)
@@ -29,7 +34,9 @@ version on the card, and drives the port's paths:
   of the same segmented events, and the 2-word staging against the 1-word
   one on the card; one replay with a dedup filter selected through the
   processor's E key (2-word staging); then trigger -> frame-ready latency,
-  replay frames/s, ingest Mev/s, the pinned H2D time and the busy share;
+  replay frames/s, ingest Mev/s, the pinned H2D time and the busy share,
+  and (``chip_smoke.py --staged-order RAW``, a process of its own) one H2D
+  copy a replayed frame, each straight into kernel 1;
   then live capture: the app without ``--input`` on the wall-clock-paced
   ``synthetic`` camera for about 1 s each, with the PNG file sink (by
   default and with ``--low-latency``) and headless, every computed frame
@@ -40,9 +47,11 @@ version on the card, and drives the port's paths:
 - the engine benchmark (phase 9): kernel W (the warm-up) against its plain
   version, then one run of ``apps.bench``, whose JSON line is printed;
 - the scatter-store micro-benchmark (phase 10): kernel S (last-write-wins
-  stores into one tile) against its plain version, then one run of
-  ``apps.bench_store_loop``, whose JSON line is printed and gives kernel
-  S's times (kernel, plain version, ``index_put_``).
+  stores into one tile held by one 16-block thread-block cluster) against
+  its plain version, on a tile several clusters share too, then one run of
+  ``apps.bench_store_loop``,
+  whose JSON line is printed and gives kernel S's times (kernel, plain
+  version, ``index_put_``).
 
 It times frames, scans and kernels (torch.profiler device time and wall
 time; kernel 2 ``tail_projector`` is two launches, the shared-memory dilate
@@ -199,7 +208,7 @@ def view_kwargs(eng):
 
 def kernel_parity(eng, ev, errs):
     """Phase 3: each kernel against its plain version on the card, on the
-    shapes the engine's main path gives it."""
+    shapes the engine's main path gives it (kernel 1's staged entry too)."""
     from xmaps_tpu_torch.ops.cuda_events import (
         event_disparity_scatter,
         event_disparity_scatter_plain,
@@ -210,16 +219,18 @@ def kernel_parity(eng, ev, errs):
     batch = eng.make_batch(ev)
     t_bin = scale_time(batch.t, batch.valid, cfg.t_px_scale)
     kw, tail, tail_plain, tail_name = view_kwargs(eng)
-    got = event_disparity_scatter(batch, t_bin, tables, want_lanes=True, **kw)
+    view = "camera" if kw["camera_view"] else "projector"
     ref = event_disparity_scatter_plain(batch, t_bin, tables, want_lanes=True, **kw)
+    got = event_disparity_scatter(batch, t_bin, tables, want_lanes=True, **kw)
     err = assert_exact(
-        f"event_disparity_scatter ({'camera' if kw['camera_view'] else 'projector'} view)",
+        f"event_disparity_scatter ({view} view)",
         [(got.packed_map, ref.packed_map), (got.num_inliers, ref.num_inliers)]
         + list(zip(got.lanes, ref.lanes)),
     )
     errs["event_disparity_scatter"] = max(errs.get("event_disparity_scatter", 0.0), err)
     log(f"  event_disparity_scatter {kw['out_shape']} n={batch.capacity} "
         f"inliers={int(got.num_inliers)}: exact")
+    staged_parity(eng, ev, kw, errs)
     for opts in (dict(emit_aux=True, packed_bgr=False),
                  dict(emit_aux=False, packed_bgr=False),
                  dict(emit_aux=False, packed_bgr=True)):
@@ -229,6 +240,41 @@ def kernel_parity(eng, ev, errs):
         errs[tail_name] = max(errs.get(tail_name, 0.0), err)
         log(f"  {tail_name} {opts} -> {tuple(a[0].shape)}: exact")
     return batch, t_bin, kw, ref.packed_map
+
+
+def staged_parity(eng, ev, kw, errs):
+    """Phase 3: kernel 1's staged entry (1-word batch, host count) against
+    its plain version on the card, at a count below the capacity and at
+    count 0; and its plain version against the
+    array entry's on the same events."""
+    from xmaps_tpu_torch.io.prefetch import HostStagingPool
+    from xmaps_tpu_torch.ops.cuda_events import (
+        event_disparity_scatter_plain,
+        event_disparity_scatter_staged,
+        event_disparity_scatter_staged_plain,
+    )
+    from xmaps_tpu_torch.ops.disparity import scale_time
+
+    cap, layout = eng.cfg.event_capacity, eng.compact_layout
+    pool = HostStagingPool(cap, device="cuda", layout=layout)
+    err, counts = 0.0, []
+    for evs in (ev[: min(len(ev), cap - 1000)], ev[:0]):
+        staged = pool.stage_compact(evs)
+        counts.append(staged.count)
+        ref = event_disparity_scatter_staged_plain(staged.word, staged.count, layout,
+                                                   eng.tables, **kw)
+        got = event_disparity_scatter_staged(staged.word, staged.count, layout, eng.tables, **kw)
+        err = max(err, assert_exact(
+            f"event_disparity_scatter_staged count {staged.count}",
+            [(got.packed_map, ref.packed_map), (got.num_inliers, ref.num_inliers)]))
+        batch = eng.make_batch(evs)
+        arr = event_disparity_scatter_plain(
+            batch, scale_time(batch.t, batch.valid, eng.cfg.t_px_scale), eng.tables, **kw)
+        assert_exact(f"staged vs array entry, count {staged.count}",
+                     [(ref.packed_map, arr.packed_map), (ref.num_inliers, arr.num_inliers)])
+    errs["event_disparity_scatter"] = max(errs.get("event_disparity_scatter", 0.0), err)
+    log(f"  event_disparity_scatter_staged at counts {counts} of {cap} (layout "
+        f"{tuple(layout)[:3]} bits): exact; == the array entry")
 
 
 def filter_batch(eng, batch, name):
@@ -313,7 +359,37 @@ def phase_filters(card, errs, engines, frames, eng_e, esl_frames):
     if launches != want:
         raise AssertionError(f"filter launches {launches} != {want}")
     log(f"  launches {launches} {card}")
+    filters_out_of_camera(engines, frames[:3])
     return launches
+
+
+def filters_out_of_camera(engines, frames):
+    """Phase 5b: each dedup filter on frames with events outside the camera
+    (a larger sensor than the configured camera): no device-side assert,
+    and every frame bit-equal to the CPU port."""
+    import torch
+    from xmaps_tpu_torch.ops.filters import FILTER_NAMES
+    from xmaps_tpu_torch.utils.synthetic import with_events_outside_camera
+
+    rng = np.random.default_rng(21)
+    for view, eng in engines.items():
+        cpu = eng.to("cpu")
+        cam_w, cam_h = eng.cfg.camera_width, eng.cfg.camera_height
+        # within the capacity, so the injected events reach the filters
+        fr = [with_events_outside_camera(ev[: eng.cfg.event_capacity - 2000], rng, cam_w, cam_h,
+                                         n=200)
+              for ev in frames]
+        for name in FILTER_NAMES[1:]:
+            eng.set_frame_filter(name)
+            cpu.set_frame_filter(name)
+            outs = [eng.process_frame(ev) for ev in fr]
+            torch.cuda.synchronize()
+            for i, (ev, got) in enumerate(zip(fr, outs)):
+                assert_exact(f"{name} {view} out-of-camera frame {i} cuda vs cpu",
+                             frame_pairs(got, cpu.process_frame(ev)))
+            eng.set_frame_filter("none")
+        log(f"  {view}: the four dedup filters on {len(fr)} frames with 400 events outside "
+            f"the {cam_w}x{cam_h} camera each: no device assert, bit-equal to the CPU port")
 
 
 def time_filters(card, eng, frames):
@@ -380,11 +456,10 @@ def time_events(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def profile_calls(fn, iters):
-    """Device ms per call of ``fn`` over ``iters`` calls under
-    torch.profiler: the summed duration of every device-side event the
-    calls launched (kernels, memsets, copies), in total and by event name.
-    Returns (None, {}) if the profiler recorded no device event."""
+def device_events(fn, iters):
+    """The device-side events (kernels, memsets, copies) of ``iters`` calls
+    of ``fn`` under torch.profiler, as (name, start us, duration us) in
+    time order."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -398,11 +473,22 @@ def profile_calls(fn, iters):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+    return sorted(((e.name, e.time_range.start, e.time_range.elapsed_us())
+                   for e in prof.events() if e.device_type == DeviceType.CUDA),
+                  key=lambda e: e[1])
+
+
+def profile_calls(fn, iters, counts=None):
+    """Device ms per call of ``fn`` over ``iters`` calls under
+    torch.profiler: the summed duration of every device-side event the
+    calls launched (kernels, memsets, copies), in total and by event name;
+    ``counts``, where given, gets the device events a call by name.
+    Returns (None, {}) if the profiler recorded no device event."""
     by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            ms = e.time_range.elapsed_us() / 1e3 / iters
-            by_name[e.name] = by_name.get(e.name, 0.0) + ms
+    for name, _, us in device_events(fn, iters):
+        by_name[name] = by_name.get(name, 0.0) + us / 1e3 / iters
+        if counts is not None:
+            counts[name] = counts.get(name, 0.0) + 1 / iters
     if not by_name:
         return None, {}
     return sum(by_name.values()), by_name
@@ -434,6 +520,52 @@ def time_pair(kernel_fn, plain_fn):
                     turns=(a[0], b[0]), top=[(k[:40], round(v, 6)) for k, v in top])
 
     return mean(k1, k2), mean(p1, p2)
+
+
+def is_fill(name) -> bool:
+    """Whether a device event is torch's fill kernel (``torch.zeros``,
+    ``full``, ``zero_``, a Python scalar wrapped on the card)."""
+    return "FillFunctor" in name
+
+
+def fills_a_call(fn):
+    """The fill kernels a call of ``fn`` runs on the card, by name, from
+    12 profiled calls."""
+    counts: dict = {}
+    profile_calls(fn, 12, counts)
+    return {k.replace("at::native::", "")[:90]: round(v, 3) for k, v in counts.items()
+            if is_fill(k)}
+
+
+def time_kernel1_staged(card, eng, ev, batch, t_bin, kw, shapes):
+    """Phase 6: kernel 1's staged entry against its array entry in turns,
+    on the demonstrator's projector frame 0, with no fill kernel beside
+    either (both zero the map inside the launch); the staged entry's bound
+    (4 B an event read in place of 13)."""
+    from xmaps_tpu_torch.io.prefetch import HostStagingPool
+    from xmaps_tpu_torch.ops.cuda_events import (
+        event_disparity_scatter,
+        event_disparity_scatter_staged,
+    )
+
+    staged = HostStagingPool(eng.cfg.event_capacity, device="cuda",
+                             layout=eng.compact_layout).stage_compact(ev)
+    calls = {
+        "array": lambda: event_disparity_scatter(batch, t_bin, eng.tables, **kw),
+        "staged": lambda: event_disparity_scatter_staged(
+            staged.word, staged.count, eng.compact_layout, eng.tables, **kw),
+    }
+    for entry, fn in calls.items():
+        fills = fills_a_call(fn)
+        if fills:
+            raise AssertionError(f"kernel 1's {entry} entry runs a fill kernel: {fills}")
+    st, arr = time_pair(calls["staged"], calls["array"])
+    _, _, lut_b, xmap_b, out_px = shapes["event_disparity_scatter"]
+    n = staged.count
+    bound = (4 * n + min(4 * n, lut_b) + min(2 * n, xmap_b) + 4 * out_px + 4) / HBM_BYTES_PER_S * 1e3
+    log(f"  kernel 1 staged entry (count {n}): {st['ms']:.5f} ms (turns {st['turns'][0]:.5f}, "
+        f"{st['turns'][1]:.5f}) vs the array entry {arr['ms']:.5f} ms in the same turns; bound "
+        f"{bound:.6f} ms (bytes, 4 B an event), share {bound / st['ms']:.4f} {card}")
 
 
 def write_cv_yaml(path, matrices) -> None:
@@ -883,16 +1015,42 @@ def check_replay_frames(what, rec, errs):
 
 def trace_device_ms(path):
     """(device ms of all kernels, copies and memsets; ms of the
-    host-to-device copies) in a torch.profiler chrome trace."""
+    host-to-device copies; device ms by event name; the events that follow
+    each host-to-device copy) in a torch.profiler chrome trace."""
     with open(path) as f:
-        events = json.load(f)["traceEvents"]
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    events.sort(key=lambda e: e["ts"])
     dev = h2d = 0.0
-    for e in events:
-        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
-            dev += e["dur"] / 1e3
-            if e["cat"] == "gpu_memcpy" and "HtoD" in e.get("name", ""):
-                h2d += e["dur"] / 1e3
-    return dev, h2d
+    by_name: dict = {}
+    after = []
+    for i, e in enumerate(events):
+        dev += e["dur"] / 1e3
+        name = e.get("name", "").replace("(anonymous namespace)::", "")
+        by_name[name] = by_name.get(name, 0.0) + e["dur"] / 1e3
+        if e["cat"] == "gpu_memcpy" and "HtoD" in e.get("name", ""):
+            h2d += e["dur"] / 1e3
+            after.append(events[i + 1].get("name", "") if i + 1 < len(events) else "(end)")
+    return dev, h2d, by_name, after
+
+
+def copies_into_kernel1(after) -> int:
+    """How many of the events that follow a host-to-device copy are kernel 1."""
+    return sum("event_disparity_scatter" in name for name in after)
+
+
+def staged_path_order(eng, events):
+    """``process_staged`` of each frame's 1-word batch, staged as the pipe
+    stages it, under the profiler: (the host-to-device copies that run
+    straight into kernel 1, the events that follow the copies)."""
+    from xmaps_tpu_torch.io.prefetch import HostStagingPool
+
+    pool = HostStagingPool(eng.cfg.event_capacity, device="cuda", layout=eng.compact_layout)
+    frames = iter(events)
+    evs = device_events(lambda: eng.process_staged(pool.stage_compact(next(frames))), len(events))
+    after = [evs[i + 1][0] if i + 1 < len(evs) else "(end)"
+             for i, (name, _, _) in enumerate(evs) if "HtoD" in name]
+    return copies_into_kernel1(after), after
 
 
 def phase8_streaming(card, errs):
@@ -973,13 +1131,34 @@ def phase8_streaming(card, errs):
     # device time, pinned H2D and busy share from the --profile-dir trace
     rec, counters, loop_s = runs["projector --profile-dir"]
     n = len(rec["events"])
-    dev_ms, h2d_ms = trace_device_ms(root / "trace" / "trace.json")
+    dev_ms, h2d_ms, by_name, after = trace_device_ms(root / "trace" / "trace.json")
+    # every host-to-device copy the trace holds runs straight into kernel 1;
+    # and, profiled again, one copy a frame does
+    fills = [k for k in by_name if is_fill(k)]
+    direct = copies_into_kernel1(after)
+    if direct != len(after) or fills:
+        raise AssertionError(f"profiled replay: {direct} of the trace's {len(after)} H2D copies "
+                             f"({n} frames) run straight into kernel 1 (after them: "
+                             f"{sorted(set(after))}); fills {fills}")
+    # in a process of its own: this one's profiler has lost records of
+    # copies after the earlier phases (PERF.md section 7)
+    child = subprocess.run([sys.executable, os.path.abspath(__file__), "--staged-order", raw_path],
+                           capture_output=True, text=True, timeout=600)
+    order = json.loads(child.stdout.strip().splitlines()[-1]) if child.returncode == 0 else None
+    if order is None or order["frames"] != n:
+        raise AssertionError(f"chip_smoke.py --staged-order: rc {child.returncode}, "
+                             f"{child.stdout[-2000:]}{child.stderr[-2000:]}")
     wall_ms = runs["projector"][2] * 1e3 / len(runs["projector"][0]["events"])
     log(f"  device per frame (profiled replay): {dev_ms / n:.4f} ms, of it H2D "
         f"{h2d_ms / n * 1e3:.2f} us (one pinned copy of the 1-word batch; phase 6 lists "
         f"process_frame's pageable copies); busy share "
         f"{dev_ms / (loop_s * 1e3):.4f} of the profiled replay loop, {dev_ms / n / wall_ms:.4f}"
         f" of the unprofiled one ({wall_ms:.4f} ms/frame) {card}")
+    log(f"  all {direct} H2D copies in the trace ({n} frames) run straight into kernel 1, no "
+        f"fill; process_staged of the {n} frames profiled in a process of its own: "
+        f"{order['copies']} H2D copies, one a frame, each straight into kernel 1; top device ops a "
+        f"frame: " + ", ".join(f"{k[:60]} {v / n * 1e3:.2f} us" for k, v in
+                              sorted(by_name.items(), key=lambda kv: -kv[1])[:6]))
 
     # live capture: the app without --input, on the paced synthetic camera:
     # with the PNG sink (every 30th frame fetched and encoded, the others
@@ -1165,18 +1344,27 @@ def phase10_store_loop(card, errs, kernels_ms, shapes, library_ms):
     )
 
     err = 0.0
-    for n, shape in ((BENCH_EVENTS, BENCH_SHAPE), (5000, (13, 3100)), (300, (3, 5))):
+    cases = ((BENCH_EVENTS, BENCH_SHAPE, False), (5000, (13, 3100), False),
+             (300, (3, 5), False), (0, BENCH_SHAPE, False), (BENCH_EVENTS, BENCH_SHAPE, True),
+             (200_000, (1024, 1024), False))
+    for n, shape, one_cell in cases:
         r, c, v = bench_store_loop.make_inputs(n, shape, seed=n, device="cuda")
-        r[::53], c[::61] = -2, shape[1]  # events outside the tile
-        err = max(err, assert_exact(f"tile_store_last {n} events into {shape}", [
-            (tile_store_last(r, c, v, shape), tile_store_last_plain(r, c, v, shape))]))
+        if one_cell:
+            r.fill_(5)
+            c.fill_(7)
+        else:
+            r[::53], c[::61] = -2, shape[1]  # events outside the tile
+        err = max(err, assert_exact(
+            f"tile_store_last {n} events into {shape}{' (one cell)' if one_cell else ''}",
+            [(tile_store_last(r, c, v, shape), tile_store_last_plain(r, c, v, shape))]))
     rows, cols, vals = bench_store_loop.make_inputs(BENCH_EVENTS, BENCH_SHAPE, device="cuda")
     err = max(err, assert_exact("tile_store_last at the benchmark's draws", [
         (tile_store_last(rows, cols, vals, BENCH_SHAPE),
          tile_store_last_plain(rows, cols, vals, BENCH_SHAPE))]))
     errs["tile_store_last"] = err
     log(f"phase 10 kernel S tile_store_last {BENCH_EVENTS} events into {BENCH_SHAPE} "
-        f"(and ragged shapes, events outside the tile): exact")
+        f"(and ragged shapes, no event, every event into one cell, 1024 x 1024 over several "
+        f"clusters, events outside the tile): exact")
     out = io.StringIO()
     torch.cuda.synchronize()
     _build.reset_launch_counts()
@@ -1405,6 +1593,14 @@ def main() -> int:
             f"{ev_per_frame / dev / 1e3:.2f} Mev/s device {card}")
         for k, v in top:
             log(f"      {v * 1e3:8.2f} us/frame  {k[:100]}")
+        frame_fills, batch_fills = (fills_a_call(fn) for fn in (
+            lambda: eng.process_frame(geo_frames[0], display_only=True, display_packed=True),
+            lambda: eng.make_batch(geo_frames[0])))
+        if frame_fills != batch_fills:
+            raise AssertionError(f"{name}: fills a frame {frame_fills} != the batch's "
+                                 f"{batch_fills}: a fill runs in the frame program")
+        log(f"      fills a frame {frame_fills}, all in make_batch (EventBatch.from_arrays); "
+            f"none in the frame program")
     for eng in (eng_p, eng_c):
         time_filters(card, eng, frames)
 
@@ -1438,6 +1634,7 @@ def main() -> int:
         log(f"  kernel {k}: {km['ms']:.5f} ms device ({km['source']}), plain "
             f"{pm['ms']:.5f} ms; issue rate {km['issue_ms']:.5f} vs {pm['issue_ms']:.5f} "
             f"ms/call (demonstrator, display-packed, mean of 2x50 calls) {card}")
+    time_kernel1_staged(card, eng_p, frames[0], batch, t_bin, ekw, shapes)
 
     # -- 7-10. the offline eval, the replay app, the benches ------------
     # launches: the engine's main path (phase 4) and the filters' (phase
@@ -1476,5 +1673,26 @@ def main() -> int:
     return 0
 
 
+def staged_order_main(raw_path) -> int:
+    """``python3 chip_smoke.py --staged-order RAW`` (phase 8 runs it): the
+    frames the trigger finder emits on the demonstrator recording RAW
+    through ``process_staged`` of a fresh demonstrator engine, profiled.
+    Prints one JSON line; exits 1 unless each frame's one host-to-device
+    copy runs straight into kernel 1."""
+    from xmaps_tpu_torch.models.depth_pipeline import XMapsDepthEngine
+    from xmaps_tpu_torch.utils.synthetic import make_synthetic_calibration
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    eng = XMapsDepthEngine.from_calibration(
+        make_synthetic_calibration(640, 480, 720, 1280), device="cuda", event_capacity=CAPACITY,
+        z_near=Z_NEAR, z_far=Z_FAR, xmap_cache_dir=os.path.join(root, "build", "xmaps_tpu_torch",
+                                                               "cache"))
+    frames = segment_host(raw_path, 60, 640, 480)
+    direct, after = staged_path_order(eng, frames)
+    print(json.dumps(dict(frames=len(frames), copies=len(after), direct=direct,
+                          after=sorted(set(after)))), flush=True)
+    return 0 if direct == len(after) == len(frames) else 1
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(staged_order_main(sys.argv[2]) if sys.argv[1:2] == ["--staged-order"] else main())

@@ -470,3 +470,148 @@ def test_tile_store_kernel_matches_plain_on_card(cuda):
         _equal(got, tile_store_last_plain(rows, cols, vals, shape))
     with pytest.raises(ValueError, match="int32"):
         tile_store_last(rows.long(), cols, vals, shape)
+
+
+@pytest.mark.parametrize("case", ["empty", "one_cell", "bench", "ragged", "tall", "one_row",
+                                  "several_clusters", "column_chunks"])
+def test_tile_store_cluster_edges_on_card(cuda, case):
+    """Kernel S's 16-block clusters against the plain version: no event,
+    every event into one cell, the benchmark's tile, ragged bands (rows not
+    a multiple of 16), a tile of fewer rows than the cluster has blocks, a
+    4 MiB tile that several clusters share, and rows wider than one block's
+    shared memory (column chunks); events outside the tile on both sides.
+    The output memory held garbage before the call."""
+    from xmaps_tpu_torch.apps.bench_store_loop import make_inputs
+    from xmaps_tpu_torch.ops.store_loop import BENCH_EVENTS, tile_store_last, tile_store_last_plain
+
+    n, shape = {"empty": (0, (64, 1152)), "one_cell": (BENCH_EVENTS, (64, 1152)),
+                "bench": (BENCH_EVENTS, (64, 1152)), "ragged": (9000, (67, 1151)),
+                "tall": (4000, (5, 333)), "one_row": (700, (1, 4097)),
+                "several_clusters": (200_000, (1024, 1024)),
+                "column_chunks": (30_000, (3, 70_001))}[case]
+    rows, cols, vals = make_inputs(n, shape, seed=len(case), device=cuda)
+    if case == "one_cell":
+        rows.fill_(5)
+        cols.fill_(7)
+    elif n:
+        rows[::53], rows[1::97] = -2, shape[0]
+        cols[::61], cols[2::89] = shape[1], -1
+    junk = torch.full(shape, -1, dtype=torch.int32, device=cuda)
+    del junk
+    _build.reset_launch_counts()
+    got = tile_store_last(rows, cols, vals, shape)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["tile_store_last"] == 1
+    want = tile_store_last_plain(rows, cols, vals, shape)
+    _equal(got, want)
+    if case == "one_cell":
+        assert int(want[5, 7]) == int(vals[-1]) and int((want != 0).sum()) == 1
+
+
+# -- kernel 1: zeroing inside the launch, the staged entry, the filter repair --
+
+
+def _scatter_rig(capacity, n, seed):
+    """The small engine's tables and ``n`` random events (a tenth outside
+    the 128 x 96 camera) in a batch of ``capacity`` lanes on the card."""
+    eng = _engine(True)
+    rng = np.random.default_rng(seed)
+    x, y = rng.integers(-4, 134, n), rng.integers(-4, 100, n)
+    t = rng.random(n).astype(np.float32)
+    batch = EventBatch.from_arrays(x, y, t, np.ones(n), capacity, device="cuda")
+    return eng, batch, scale_time(batch.t, batch.valid, eng.cfg.t_px_scale)
+
+
+@pytest.mark.parametrize("capacity", [1, 255, 28672, 307200])
+def test_event_scatter_zeroing_on_card(cuda, capacity):
+    """Kernel 1, which zeroes its map inside its cooperative launch, at
+    capacities from one lane to the eval's, into ragged maps (a word count that is no multiple of 4),
+    a 1 x 1 map and the camera frame, in both views, into memory that held
+    garbage; one launch a call, the map and count equal to the plain
+    version's."""
+    n = {1: 1, 255: 200, 28672: 28000, 307200: 300000}[capacity]
+    eng, batch, t_bin = _scatter_rig(capacity, n, seed=capacity)
+    for camera_view in (True, False):
+        for window, out_shape in (((10, 20), (37, 53)), ((50, 60), (1, 1)), ((0, 0), (96, 128))):
+            kw = dict(camera_view=camera_view, window=window, out_shape=out_shape)
+            junk = torch.full((out_shape[0] * out_shape[1] + 64,), -1, dtype=torch.int32,
+                              device=cuda)
+            del junk
+            _build.reset_launch_counts()
+            got = event_disparity_scatter(batch, t_bin, eng.tables, **kw)
+            torch.cuda.synchronize()
+            assert _build.LAUNCHES["event_disparity_scatter"] == 1
+            ref = event_disparity_scatter_plain(batch, t_bin, eng.tables, **kw)
+            _equal(got.packed_map, ref.packed_map)
+            _equal(got.num_inliers, ref.num_inliers)
+
+
+@pytest.mark.parametrize("camera_perspective", [False, True], ids=["projector", "camera"])
+def test_event_scatter_staged_on_card(cuda, camera_perspective):
+    """Kernel 1's staged entry against its plain version (the 1-word unpack
+    and the plain scatter, on the same card tensors): the engine's frames
+    staged as the pipe stages them, at count 0, below the capacity and at
+    the capacity, and random words filling 32 bits (bit 31 set) at a
+    layout of 7 + 7 + 18 bits; one launch a call."""
+    from xmaps_tpu_torch.io.prefetch import CompactLayout, HostStagingPool
+    from xmaps_tpu_torch.ops.cuda_events import (
+        event_disparity_scatter_staged,
+        event_disparity_scatter_staged_plain,
+    )
+
+    eng = _engine(camera_perspective)
+    cfg, plan = eng.cfg, eng.plan
+    if camera_perspective:
+        kw = dict(camera_view=True, window=(0, 0), out_shape=(cfg.camera_height, cfg.camera_width))
+    else:
+        kw = dict(camera_view=False, window=(plan.crop_row0, plan.crop_col0),
+                  out_shape=(plan.H, plan.W))
+    frames = _frames()
+    cases = []
+    for cap in (cfg.event_capacity, 512):
+        pool = HostStagingPool(cap, device=cuda, layout=eng.compact_layout)
+        for ev in frames + [frames[0][:0]]:
+            staged = pool.stage_compact(ev)
+            cases.append((staged.word, staged.count, eng.compact_layout))
+    assert {c[1] for c in cases} >= {0, 512}
+    rng = np.random.default_rng(4)
+    words = rng.integers(0, 2**32, 4096, dtype=np.uint64).astype(np.uint32)
+    wide = CompactLayout(7, 7, 18, cfg.t_px_scale)
+    words[::2] &= np.uint32(0x3FFF | (cfg.t_px_scale << 14))  # bins inside the X-map
+    cases.append((torch.from_numpy(words.view(np.int32)).cuda(), 3000, wide))
+    for word, count, layout in cases:
+        _build.reset_launch_counts()
+        got = event_disparity_scatter_staged(word, count, layout, eng.tables, **kw)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["event_disparity_scatter"] == 1
+        ref = event_disparity_scatter_staged_plain(word, count, layout, eng.tables, **kw)
+        _equal(got.packed_map, ref.packed_map)
+        _equal(got.num_inliers, ref.num_inliers)
+    with pytest.raises(ValueError, match="count"):
+        event_disparity_scatter_staged(word, word.shape[0] + 1, layout, eng.tables, **kw)
+
+
+@pytest.mark.parametrize("camera_perspective", [False, True], ids=["projector", "camera"])
+def test_filters_out_of_camera_on_card(cuda, camera_perspective):
+    """Each dedup filter on frames with events outside the camera (past the
+    last column on the last row, rows past the last one): no device-side
+    assert, and every frame equal to the CPU run."""
+    from xmaps_tpu_torch.ops.filters import FILTER_NAMES
+    from xmaps_tpu_torch.utils.synthetic import with_events_outside_camera
+
+    eng = _engine(camera_perspective)
+    cpu = eng.to("cpu")
+    cam_w, cam_h = eng.cfg.camera_width, eng.cfg.camera_height
+    rng = np.random.default_rng(8)
+    frames = [with_events_outside_camera(ev, rng, cam_w, cam_h, n=100) for ev in _frames()]
+    try:
+        for name in FILTER_NAMES[1:]:
+            eng.set_frame_filter(name)
+            cpu.set_frame_filter(name)
+            for ev in frames:
+                got, ref = eng.process_frame(ev), cpu.process_frame(ev)
+                torch.cuda.synchronize()
+                for field in ("frame_bgr", "depth", "disp_map", "num_inliers"):
+                    _equal(getattr(got, field), getattr(ref, field))
+    finally:
+        eng.set_frame_filter("none")

@@ -243,3 +243,113 @@ def test_kernel1_without_lanes(rig):
     assert a.lanes is None
     assert torch.equal(a.packed_map, b.packed_map)
     assert torch.equal(a.num_inliers, b.num_inliers)
+
+
+# -- kernel 1's staged entry (the 1-word batch of the streaming path) ---------
+
+
+def _staged_words(rig, rng, layout):
+    """(capacity,) uint32 words of the rig's events (x | y << bx | t_bin <<
+    (bx + by), host bins) with the widths summing to 32: a quarter of the
+    lanes get a time bin with its top bit set (bit 31 of the word, past
+    the X-map), a tenth a row past the camera."""
+    calib, cfg, jt, tt, events = rig
+    n = min(len(events), CAPACITY)
+    from xmaps_tpu_torch.io.prefetch import _scale_time_int_host
+
+    ts = _scale_time_int_host(events["t"][:n], cfg.t_px_scale).astype(np.uint32)
+    y = events["y"][:n].astype(np.uint32)
+    high = rng.random(n) < 0.25
+    ts[high] |= np.uint32(1 << (layout.bits_t - 1))
+    y[rng.random(n) < 0.1] = (1 << layout.bits_y) - 1
+    words = np.zeros(CAPACITY, np.uint32)
+    words[:n] = (events["x"][:n].astype(np.uint32) | (y << layout.bits_x)
+                 | (ts << (layout.bits_x + layout.bits_y)))
+    words[n:] = rng.integers(0, 2**32, CAPACITY - n, dtype=np.uint64).astype(np.uint32)
+    assert (words[:n] >> 31).any()
+    return words
+
+
+def _views(cfg, camera_view):
+    if camera_view:
+        return dict(camera_view=True, window=(0, 0),
+                    out_shape=(cfg.camera_height, cfg.camera_width))
+    return dict(camera_view=False, window=(40, 60),
+                out_shape=(cfg.rect_height - 90, cfg.rect_width - 130))
+
+
+@pytest.mark.parametrize("count", [0, 1777, CAPACITY], ids=["empty", "partial", "full"])
+@pytest.mark.parametrize("camera_view", [False, True], ids=["projector", "camera"])
+def test_staged_entry_plain_matches_array_entry(rig, count, camera_view):
+    """Kernel 1's staged entry on the CPU (its plain version: the 1-word
+    unpack, then the plain scatter) against the array entry's plain
+    version on the same lanes decoded with numpy; the words fill 32 bits
+    (bit 31 set), and lanes at and above the count hold random words."""
+    from xmaps_tpu_torch.io.prefetch import CompactLayout
+    from xmaps_tpu_torch.ops.cuda_events import (
+        event_disparity_scatter_staged,
+        event_disparity_scatter_staged_plain,
+    )
+
+    calib, cfg, jt, tt, events = rig
+    layout = CompactLayout(7, 7, 18, cfg.t_px_scale)
+    words = _staged_words(rig, np.random.default_rng(count), layout)
+    kw = _views(cfg, camera_view)
+    got = event_disparity_scatter_staged(_t(words.view(np.int32)), count, layout, tt, **kw)
+    x = (words & 127).astype(np.int32)
+    y = ((words >> 7) & 127).astype(np.int32)
+    ts = (words >> 14).astype(np.int32)
+    valid = np.arange(CAPACITY) < count
+    batch = TBatch(_t(x), _t(y), _t(ts), torch.ones(CAPACITY, dtype=torch.int32), _t(valid),
+                   torch.tensor(count, dtype=torch.int32))
+    want = event_disparity_scatter(batch, _t(ts), tt, **kw)
+    assert got.packed_map.dtype == torch.int32 and got.lanes is None
+    assert torch.equal(got.packed_map, want.packed_map)
+    assert int(got.num_inliers) == int(want.num_inliers)
+    assert (int(got.num_inliers) > 500) == (count > 0)
+    plain = event_disparity_scatter_staged_plain(_t(words.view(np.int32)), count, layout, tt,
+                                                 **kw)
+    assert torch.equal(plain.packed_map, got.packed_map)
+
+
+@pytest.mark.parametrize("camera_view", [False, True], ids=["projector", "camera"])
+def test_staged_entry_matches_jax(rig, camera_view):
+    """The staged entry against the JAX package's 1-word unpack, per-event
+    stage (host time bins) and packed scatter, at the rig's own layout."""
+    from xmaps_tpu.io.prefetch import CompactLayout as JLayout
+    from xmaps_tpu.io.prefetch import CompactStagedBatch as JStaged
+    from xmaps_tpu.io.prefetch import unpack_staged_compact as j_unpack
+
+    from xmaps_tpu_torch.io.prefetch import CompactLayout, HostStagingPool
+    from xmaps_tpu_torch.ops.cuda_events import event_disparity_scatter_staged
+
+    calib, cfg, jt, tt, events = rig
+    layout = CompactLayout.for_pipeline(cfg)
+    staged = HostStagingPool(CAPACITY, device="cpu", layout=layout).stage_compact(events)
+    words, count = staged.word.numpy(), staged.count
+    jb, jts = j_unpack(JStaged(jnp.asarray(words), count), JLayout(*layout))
+    res = jdisp.compute_event_disparity(jb, jt.cam_mapx_i16, jt.cam_mapy_i16, jt.x_map,
+                                        t_px_scale=cfg.t_px_scale, t_scaled=jts)
+    kw = _views(cfg, camera_view)
+    (oy, ox), (wh, ww) = kw["window"], kw["out_shape"]
+    if camera_view:
+        ys, xs, H, W = jb.y, jb.x, cfg.camera_height, cfg.camera_width
+    else:
+        ys, xs = res.y_rect, res.x_rect + res.disp.astype(jnp.int32)
+        H, W = cfg.rect_height, cfg.rect_width
+    want = j_scatter(ys, xs, res.disp, res.inlier, height=H, width=W, window=(oy, ox, wh, ww))
+    got = event_disparity_scatter_staged(staged.word, count, layout, tt, **kw)
+    np.testing.assert_array_equal(got.packed_map.numpy().view(np.uint32), np.asarray(want))
+    assert int(got.num_inliers) == int(np.asarray(res.inlier).sum()) > 1000
+
+
+def test_staged_entry_refuses_other_devices(rig):
+    """The staged entry refuses a tensor neither on the CPU nor on CUDA."""
+    from xmaps_tpu_torch.io.prefetch import CompactLayout
+    from xmaps_tpu_torch.ops.cuda_events import event_disparity_scatter_staged
+
+    calib, cfg, jt, tt, events = rig
+    word = torch.zeros(16, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        event_disparity_scatter_staged(word, 3, CompactLayout(7, 7, 18, cfg.t_px_scale), tt,
+                                       camera_view=True, window=(0, 0), out_shape=(4, 4))

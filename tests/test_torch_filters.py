@@ -39,6 +39,7 @@ from xmaps_tpu_torch.ops.event_batch import EventBatch  # noqa: E402
 from xmaps_tpu_torch.ops.filters import FILTER_NAMES, apply_frame_filter  # noqa: E402
 from xmaps_tpu_torch.ops.frame_pipeline import filter_events  # noqa: E402
 from xmaps_tpu_torch.utils.synthetic import make_synthetic_calibration as t_calib  # noqa: E402
+from xmaps_tpu_torch.utils.synthetic import with_events_outside_camera  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -102,6 +103,48 @@ def test_rectified_x_read_only_by_first_per_yt(name):
     got, want = apply_frame_filter(batch, None, **kw), apply_frame_filter(batch, xr, **kw)
     for a, b in zip((*got.batch, got.scatter_priority), (*want.batch, want.scatter_priority)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n", [600, 1100], ids=["padded", "over_capacity"])
+@pytest.mark.parametrize("name", FILTER_NAMES[1:])
+def test_apply_frame_filter_out_of_camera_matches_jax(name, n):
+    """Events outside the 16x12 camera (x past the last column on the last
+    row, rows past the last one) are treated as JAX's index modes treat
+    their keys: no error, and the same mask, times and priority."""
+    rng = np.random.default_rng(len(name) * 13 + n)
+    ev = with_events_outside_camera(_events(rng, n - 120), rng, CAM_W, CAM_H)
+    xr = rng.integers(-5, RECT_W + 5, CAPACITY).astype(np.int32)
+    kw = dict(name=name, camera_width=CAM_W, camera_height=CAM_H, rect_width=RECT_W)
+    batch = EventBatch.from_structured(ev, CAPACITY, device="cpu")
+    outside = ((batch.x >= CAM_W) | (batch.y >= CAM_H)) & batch.valid & (batch.p == 1)
+    assert outside.sum() > 50
+    got = apply_frame_filter(batch, torch.from_numpy(xr), **kw)
+    want = j_filter(JBatch.from_structured(ev, CAPACITY), jnp.asarray(xr), **kw)
+    for field in JBatch._fields:
+        np.testing.assert_array_equal(getattr(got.batch, field).numpy(),
+                                      np.asarray(getattr(want.batch, field)), err_msg=field)
+    np.testing.assert_array_equal(got.scatter_priority.numpy(),
+                                  np.asarray(want.scatter_priority))
+    assert got.batch.valid.sum() > 0
+
+
+@pytest.mark.parametrize("size", [1, 5, 193])
+def test_jax_index_modes(size):
+    """``_jax_index`` against JAX's scatter (mode="drop") and gather on
+    keys inside, past and before the map, at both ends of the wrap."""
+    from xmaps_tpu_torch.ops.filters import _jax_index
+
+    k = np.array([0, size - 1, size, size + 6, -1, -size, -size - 1, -3 * size, 2**31 - 1,
+                  -(2**31)], dtype=np.int32)
+    prio = np.arange(1, len(k) + 1, dtype=np.int32)
+    put, get = _jax_index(torch.from_numpy(k), size)
+    got = torch.zeros(size + 1, dtype=torch.int32).scatter_reduce_(
+        0, put, torch.from_numpy(prio), reduce="amax")
+    want = jnp.zeros(size, jnp.int32).at[jnp.asarray(k)].max(jnp.asarray(prio), mode="drop")
+    np.testing.assert_array_equal(got[:size].numpy(), np.asarray(want))
+    src = np.arange(size, dtype=np.int32) * 10 + 3
+    np.testing.assert_array_equal(torch.from_numpy(src)[get].numpy(),
+                                  np.asarray(jnp.asarray(src)[jnp.asarray(k)]))
 
 
 def test_unknown_filter_refused():
@@ -183,6 +226,22 @@ def test_process_frame_with_filter_matches_jax(name, view):
             _assert_same(got, jeng.process_frame(ev))
             inliers.append(int(got.num_inliers))
     assert inliers[1] > 300 and inliers[-1] == 0
+
+
+@pytest.mark.parametrize("view", sorted(VIEWS))
+@pytest.mark.parametrize("name", FILTER_NAMES[1:])
+def test_process_frame_out_of_camera_matches_jax(name, view):
+    """A frame with events outside the camera (past the last column on the
+    last row, rows past the last one) through each dedup filter: no error,
+    and the JAX engine's frame bit for bit."""
+    rng = np.random.default_rng(len(name) + len(view))
+    calib = j_calib()
+    ev = with_events_outside_camera(_frames()[0][:1500], rng, calib.camera_width,
+                                    calib.camera_height)
+    with _filtered(name, VIEWS[view]) as (jeng, teng):
+        got = teng.process_frame(ev)
+        _assert_same(got, jeng.process_frame(ev))
+    assert int(got.num_inliers) > 100
 
 
 @pytest.mark.parametrize("view", sorted(VIEWS))

@@ -11,7 +11,8 @@
 // one atomicMax into the packed disparity map; at ~28k events a frame that
 // is ~170 KB of event reads and ~56k scattered 32 B sectors -- latency, not
 // bandwidth.  Both tables fit in the 50 MB L2 at both geometries (camera LUT
-// 1.2 MB; X-map 1.9 MB at the demonstrator, 12.4 MB at the ESL rig).
+// 1.2 MB; X-map 1.9 MB at the demonstrator, 12.4 MB at the ESL rig).  The
+// map the scatter lands in (1.9 MB at the demonstrator) must start zeroed.
 //
 // What the design does about it: one thread per event lane, tables read
 // through the read-only path straight from global memory / L2.  The TPU
@@ -22,68 +23,227 @@
 // highest priority per pixel, which is NumPy's last-write-wins regardless
 // of the order in which threads run.  The priority is the lane index, or
 // with a dedup frame filter (ops/filters.py) the lane's dense raster rank,
-// read from an optional per-lane int32 array (< capacity).  The key is unsigned 32-bit, as in the
-// JAX package, so capacities up to 524286 lanes fit (the offline eval's
-// whole-image batch is 307200); the map is handed over as int32 words.
-// The inlier count is reduced per warp (ballot + popc) before one
+// read from an optional per-lane int32 array (< capacity).  The key is
+// unsigned 32-bit, as in the JAX package, so capacities up to 524286 lanes
+// fit (the offline eval's whole-image batch is 307200); the map is handed
+// over as int32 words.  The inlier count is summed per warp before one
 // atomicAdd.
+//
+// The map and the count are zeroed inside the launch: a cooperative grid,
+// sized to be co-resident, loads and gathers its first lane a thread
+// (nothing of that touches the map), stores 16-byte zeros over the map,
+// meets at one grid barrier, then does its atomics and the remaining lanes
+// in a grid-stride loop: the gather chain's latency hides under the zeroing
+// and the barrier.  (cudaMemsetAsync of both before a plain launch measured
+// slower on the H100; PERF.md section 6.)
+//
+// Two entries share the per-lane device function: the array entry (x, y,
+// time bin, valid, optional priority and lane outputs) and the staged entry,
+// which reads the streaming path's one 32-bit word an event (x | y << bx |
+// t_bin << (bx + by), io/prefetch.py CompactLayout) and a host count, and
+// decodes the lane in registers (4 B an event in place of 13).
+#include <cooperative_groups.h>
+
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace {
 
-__global__ void event_disparity_scatter_kernel(
-    const int32_t* __restrict__ x, const int32_t* __restrict__ y,
-    const int32_t* __restrict__ t_bin, const bool* __restrict__ valid,
-    const int32_t* __restrict__ prio, int n,
-    const int32_t* __restrict__ cam_lut, int cam_h, int cam_w,
-    const int16_t* __restrict__ x_map, int xmap_h, int xmap_w,
-    int camera_view, int oy, int ox, int out_h, int out_w,
-    uint32_t* __restrict__ packed_map, int32_t* __restrict__ inlier_count,
-    int32_t* __restrict__ xr_out, int32_t* __restrict__ yr_out,
-    int32_t* __restrict__ xproj_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  bool inlier = false;
-  if (i < n) {
-    const int xi = x[i];
-    const int yi = y[i];
-    // 1-2. clip the raw coordinates, gather from the packed camera LUT
-    //      (mapy << 16 | mapx & 0xffff) and sign-extend both i16 halves
-    const int yc = min(max(yi, 0), cam_h - 1);
-    const int xc = min(max(xi, 0), cam_w - 1);
-    const int32_t pk = __ldg(cam_lut + yc * cam_w + xc);
-    const int xr = static_cast<int16_t>(pk & 0xffff);
-    const int yr = pk >> 16;
-    // 3-4. clip the rectified row and the time bin, gather the X-map
-    const int tb = t_bin[i];
-    const int yg = min(max(yr, 0), xmap_h - 1);
-    const int tg = min(max(tb, 0), xmap_w - 1);
-    const int xp = __ldg(x_map + static_cast<long>(yg) * xmap_w + tg);
-    // 5. disparity and the inlier mask (disparity.py:299-309)
-    const int disp = xp - xr - xmaps::X_OFFSET;
-    inlier = valid[i] && yr >= 0 && yr < xmap_h - 1 && disp >= 0 &&
-             tb >= 0 && tb < xmap_w;
+namespace cg = cooperative_groups;
+
+constexpr int THREADS = 256;
+// phase A's 16-byte stores a thread, in the grid size of a cooperative launch
+constexpr long ZERO_VECS_PER_THREAD = 4;
+
+struct Lane {
+  int x, y, tb;
+  bool valid;
+  uint32_t prio;
+};
+
+// The per-lane inputs of the array entry.
+struct ArrayLanes {
+  const int32_t* __restrict__ x;
+  const int32_t* __restrict__ y;
+  const int32_t* __restrict__ t_bin;
+  const bool* __restrict__ valid;
+  const int32_t* __restrict__ prio;  // nullable: the lane index
+  int32_t* __restrict__ xr_out;      // nullable, with yr_out and xproj_out
+  int32_t* __restrict__ yr_out;
+  int32_t* __restrict__ xproj_out;
+  int n;
+
+  __device__ __forceinline__ Lane load(int i) const {
+    return Lane{x[i], y[i], t_bin[i], valid[i],
+                static_cast<uint32_t>(prio ? prio[i] : i)};
+  }
+  __device__ __forceinline__ void store(int i, int xr, int yr, int xp) const {
     if (xr_out) {
       xr_out[i] = xr;
       yr_out[i] = yr;
       xproj_out[i] = xp;
     }
-    // 6. target: the projector-view pixel (yr, xr + disp) shifted by the
-    //    crop origin, or the raw camera pixel (y, x)
-    const int ty = (camera_view ? yi : yr) - oy;
-    const int tx = (camera_view ? xi : xr + disp) - ox;
-    const bool keep = inlier && ty >= 0 && ty < out_h && tx >= 0 &&
-                      tx < out_w && disp < static_cast<int>(xmaps::PACK);
-    if (keep) {
-      const uint32_t p = static_cast<uint32_t>(prio ? prio[i] : i);
-      atomicMax(packed_map + static_cast<long>(ty) * out_w + tx,
-                (p + 1u) * xmaps::PACK + static_cast<uint32_t>(disp));
+  }
+};
+
+// The 1-word staged batch: lanes below the count are valid and only they
+// are read.  Decoded as uint32: bit 31 is set where the widths sum to 32.
+struct StagedLanes {
+  const uint32_t* __restrict__ word;
+  int n;  // the host count
+  int bits_x, bits_y, bits_t;
+
+  __device__ __forceinline__ Lane load(int i) const {
+    const uint32_t w = __ldg(word + i);
+    const uint32_t mx = (1u << bits_x) - 1u;
+    const uint32_t my = (1u << bits_y) - 1u;
+    const uint32_t mt = (1u << bits_t) - 1u;
+    return Lane{static_cast<int>(w & mx), static_cast<int>((w >> bits_x) & my),
+                static_cast<int>((w >> (bits_x + bits_y)) & mt), true,
+                static_cast<uint32_t>(i)};
+  }
+  __device__ __forceinline__ void store(int, int, int, int) const {}
+};
+
+struct Target {
+  const int32_t* __restrict__ cam_lut;
+  int cam_h, cam_w;
+  const int16_t* __restrict__ x_map;
+  int xmap_h, xmap_w;
+  int camera_view, oy, ox, out_h, out_w;
+  uint32_t* __restrict__ packed_map;
+  int32_t* __restrict__ inlier_count;
+};
+
+// One lane's scatter, prepared: its inlier bit, and the map word and packed
+// key of its atomicMax (word -1: no store).
+struct Scatter {
+  bool inlier;
+  long word;
+  uint32_t key;
+};
+
+// One lane: rectify, X-map gather, disparity, inlier mask, the packed key
+// and its target word; nothing of it touches the map.
+template <class Src>
+__device__ __forceinline__ Scatter prepare_lane(const Src& src, const Target& g, int i) {
+  const Lane e = src.load(i);
+  // 1-2. clip the raw coordinates, gather from the packed camera LUT
+  //      (mapy << 16 | mapx & 0xffff) and sign-extend both i16 halves
+  const int yc = min(max(e.y, 0), g.cam_h - 1);
+  const int xc = min(max(e.x, 0), g.cam_w - 1);
+  const int32_t pk = __ldg(g.cam_lut + yc * g.cam_w + xc);
+  const int xr = static_cast<int16_t>(pk & 0xffff);
+  const int yr = pk >> 16;
+  // 3-4. clip the rectified row and the time bin, gather the X-map
+  const int yg = min(max(yr, 0), g.xmap_h - 1);
+  const int tg = min(max(e.tb, 0), g.xmap_w - 1);
+  const int xp = __ldg(g.x_map + static_cast<long>(yg) * g.xmap_w + tg);
+  // 5. disparity and the inlier mask (disparity.py:299-309)
+  const int disp = xp - xr - xmaps::X_OFFSET;
+  const bool inlier = e.valid && yr >= 0 && yr < g.xmap_h - 1 && disp >= 0 &&
+                      e.tb >= 0 && e.tb < g.xmap_w;
+  src.store(i, xr, yr, xp);
+  // 6. target: the projector-view pixel (yr, xr + disp) shifted by the
+  //    crop origin, or the raw camera pixel (y, x)
+  const int ty = (g.camera_view ? e.y : yr) - g.oy;
+  const int tx = (g.camera_view ? e.x : xr + disp) - g.ox;
+  const bool keep = inlier && ty >= 0 && ty < g.out_h && tx >= 0 && tx < g.out_w &&
+                    disp < static_cast<int>(xmaps::PACK);
+  return Scatter{inlier, keep ? static_cast<long>(ty) * g.out_w + tx : -1L,
+                 (e.prio + 1u) * xmaps::PACK + static_cast<uint32_t>(disp)};
+}
+
+__device__ __forceinline__ void commit(const Target& g, const Scatter& s) {
+  if (s.word >= 0) atomicMax(g.packed_map + s.word, s.key);
+}
+
+template <class Src>
+__global__ void __launch_bounds__(THREADS)
+    event_disparity_scatter_kernel(Src src, Target g) {
+  // the thread's first lane, loaded and gathered before the zeroing
+  const int stride = gridDim.x * blockDim.x;
+  const int first = blockIdx.x * blockDim.x + threadIdx.x;
+  const Scatter s0 = first < src.n ? prepare_lane(src, g, first) : Scatter{false, -1L, 0u};
+  // phase A: 16-byte zeros over the map (torch allocations are 16-byte
+  // aligned), a scalar ragged tail, the count; then one grid barrier
+  const long words = static_cast<long>(g.out_h) * g.out_w;
+  int4* v = reinterpret_cast<int4*>(g.packed_map);
+  const long nv = words / 4;
+  for (long k = first; k < nv; k += stride) v[k] = make_int4(0, 0, 0, 0);
+  for (long k = 4 * nv + first; k < words; k += stride) g.packed_map[k] = 0u;
+  if (first == 0) *g.inlier_count = 0;
+  cg::this_grid().sync();
+  // phase B: the first lane's atomic, then the other lanes grid-stride (none
+  // where the grid covers the events); the loop bound is uniform over a
+  // block, so every lane of a warp meets the warp sum
+  commit(g, s0);
+  int inliers = s0.inlier;
+  for (int base = blockIdx.x * blockDim.x + stride; base < src.n; base += stride) {
+    const int i = base + threadIdx.x;
+    if (i < src.n) {
+      const Scatter s = prepare_lane(src, g, i);
+      commit(g, s);
+      inliers += s.inlier;
     }
   }
-  // 7. inlier count: one atomic per warp
-  const unsigned mask = __ballot_sync(0xffffffffu, inlier);
-  if ((threadIdx.x & 31) == 0 && mask != 0u) {
-    atomicAdd(inlier_count, __popc(mask));
+  inliers = __reduce_add_sync(0xffffffffu, inliers);
+  if ((threadIdx.x & 31) == 0 && inliers != 0) atomicAdd(g.inlier_count, inliers);
+}
+
+// The co-resident grid of a cooperative launch on the current device,
+// cached per device.
+int resident_blocks(const void* kernel, int* cached, int* out) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (cached[dev] == 0) {
+    int coop = 0, sms = 0, per_sm = 0;
+    if ((e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) != cudaSuccess ||
+        (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+        (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, 0)) !=
+            cudaSuccess) {
+      return e;
+    }
+    if (!coop) return cudaErrorNotSupported;
+    if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+    cached[dev] = per_sm * sms;
   }
+  *out = cached[dev];
+  return cudaSuccess;
+}
+
+// One cooperative launch, at most the co-resident grid; one block at least,
+// so an empty frame still zeroes (and counts) its map.  A refused launch
+// returns its error.
+template <class Src>
+int launch(const Src& src, const Target& g, cudaStream_t stream) {
+  static int cached[64] = {};
+  const void* kernel = (const void*)event_disparity_scatter_kernel<Src>;
+  int resident = 0;
+  const int err = resident_blocks(kernel, cached, &resident);
+  if (err != cudaSuccess) return err;
+  const long vecs = (static_cast<long>(g.out_h) * g.out_w + 3) / 4;
+  const long work = std::max(static_cast<long>(src.n),
+                             (vecs + ZERO_VECS_PER_THREAD - 1) / ZERO_VECS_PER_THREAD);
+  const long want = std::max(1L, (work + THREADS - 1) / THREADS);
+  const int blocks = static_cast<int>(std::min(want, static_cast<long>(resident)));
+  Src s = src;
+  Target t = g;
+  void* args[] = {&s, &t};
+  const cudaError_t e =
+      cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(THREADS), args, 0, stream);
+  const cudaError_t last = cudaGetLastError();  // clears a refused launch's error
+  return e != cudaSuccess ? e : last;
+}
+
+Target target(const int32_t* cam_lut, int cam_h, int cam_w, const int16_t* x_map,
+              int xmap_h, int xmap_w, int camera_view, int oy, int ox, int out_h,
+              int out_w, int32_t* packed_map, int32_t* inlier_count) {
+  return Target{cam_lut, cam_h, cam_w, x_map, xmap_h, xmap_w, camera_view, oy, ox,
+                out_h, out_w, reinterpret_cast<uint32_t*>(packed_map), inlier_count};
 }
 
 }  // namespace
@@ -94,14 +254,20 @@ extern "C" int event_disparity_scatter(
     const int16_t* x_map, int xmap_h, int xmap_w, int camera_view, int oy,
     int ox, int out_h, int out_w, int32_t* packed_map, int32_t* inlier_count,
     int32_t* xr_out, int32_t* yr_out, int32_t* xproj_out, cudaStream_t stream) {
-  constexpr int threads = 256;
-  const int blocks = (n + threads - 1) / threads;
-  if (blocks > 0) {
-    event_disparity_scatter_kernel<<<blocks, threads, 0, stream>>>(
-        x, y, t_bin, valid, prio, n, cam_lut, cam_h, cam_w, x_map, xmap_h,
-        xmap_w, camera_view, oy, ox, out_h, out_w,
-        reinterpret_cast<uint32_t*>(packed_map), inlier_count, xr_out, yr_out,
-        xproj_out);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const ArrayLanes src{x, y, t_bin, valid, prio, xr_out, yr_out, xproj_out, n};
+  return launch(src, target(cam_lut, cam_h, cam_w, x_map, xmap_h, xmap_w, camera_view,
+                            oy, ox, out_h, out_w, packed_map, inlier_count),
+                stream);
+}
+
+extern "C" int event_disparity_scatter_staged(
+    const int32_t* word, int count, int bits_x, int bits_y, int bits_t,
+    const int32_t* cam_lut, int cam_h, int cam_w, const int16_t* x_map, int xmap_h,
+    int xmap_w, int camera_view, int oy, int ox, int out_h, int out_w,
+    int32_t* packed_map, int32_t* inlier_count, cudaStream_t stream) {
+  const StagedLanes src{reinterpret_cast<const uint32_t*>(word), count, bits_x, bits_y,
+                        bits_t};
+  return launch(src, target(cam_lut, cam_h, cam_w, x_map, xmap_h, xmap_w, camera_view,
+                            oy, ox, out_h, out_w, packed_map, inlier_count),
+                stream);
 }

@@ -124,8 +124,10 @@ def unpack_staged_compact(
     """Unpack to (EventBatch, t_scaled).
 
     The returned batch carries p=1 (host polarity filter ran before
-    staging) and t = t_scaled (only the bins exist at this point); pass
-    t_scaled explicitly to the frame program so it skips re-binning.
+    staging) and t = t_scaled (only the bins exist at this point).  This
+    is the plain version of kernel 1's staged entry
+    (``ops.cuda_events.event_disparity_scatter_staged``), which decodes the
+    words in registers on the card.
     """
     w = staged.word
     valid, count = _lanes_valid(w.shape[0], staged.count, w.device)

@@ -18,16 +18,16 @@ import torch
 
 from xmaps_tpu_torch.calib.maps import CalibrationParams, CamProjMaps
 from xmaps_tpu_torch.config import PipelineConfig, RuntimeParams
-from xmaps_tpu_torch.io.prefetch import (
-    CompactLayout,
-    CompactStagedBatch,
-    unpack_staged,
-    unpack_staged_compact,
-)
+from xmaps_tpu_torch.io.prefetch import CompactLayout, CompactStagedBatch, unpack_staged
 from xmaps_tpu_torch.ops.cuda_tail import CamTailPlan, TailPlan, build_tail_plan
 from xmaps_tpu_torch.ops.event_batch import EventBatch
 from xmaps_tpu_torch.ops.filters import check_filter_name
-from xmaps_tpu_torch.ops.frame_pipeline import DeviceTables, FrameResult, depth_frame
+from xmaps_tpu_torch.ops.frame_pipeline import (
+    DeviceTables,
+    FrameResult,
+    depth_frame,
+    staged_depth_frame,
+)
 from xmaps_tpu_torch.ops.scatter import MAX_CAPACITY
 from xmaps_tpu_torch.ops.xmap import build_x_map, xmap_cache_key
 
@@ -261,7 +261,8 @@ class XMapsDepthEngine:
         packed-BGR plane, as the JAX engine's streaming program.  Accepts
         a StagedBatch (2 words/event) or, when the pipeline is
         unfiltered, a CompactStagedBatch (1 word/event with host-binned
-        time)."""
+        time), which kernel 1 decodes itself: nothing runs on the card
+        between the batch's copy and kernel 1."""
         kw = dict(display_only=True, display_packed=True)
         if isinstance(staged, CompactStagedBatch):
             layout = self.compact_layout
@@ -270,8 +271,7 @@ class XMapsDepthEngine:
                     "compact staging requires frame_filter == 'none' and "
                     "a 32-bit-fit CompactLayout"
                 )
-            batch, ts = unpack_staged_compact(staged, layout)
-            return depth_frame(batch, self.tables, self.cfg, self.plan, t_scaled=ts, **kw)
+            return staged_depth_frame(staged, layout, self.tables, self.cfg, self.plan, **kw)
         return depth_frame(unpack_staged(staged), self.tables, self.cfg, self.plan, **kw)
 
     def process_frames(self, frames: list, **kw) -> list:

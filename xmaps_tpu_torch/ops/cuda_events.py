@@ -9,6 +9,15 @@ it runs the plain version, ``compute_event_disparity`` +
 ``scatter_disp_packed``.  The last-write-wins priority is the lane index,
 or a per-lane int32 ``priority`` (the dedup filters' dense raster rank,
 ``ops.filters``).
+
+``event_disparity_scatter_staged`` is the same kernel on the streaming
+path's 1-word staged batch (``io.prefetch.CompactStagedBatch``): it decodes
+x, y and the time bin of each lane below the host count in registers, so
+nothing runs between the batch's host-to-device copy and the kernel.  Its
+plain version is ``unpack_staged_compact`` + the plain scatter.
+
+The map and the count are zeroed inside the kernel's cooperative launch:
+both are allocated with ``torch.empty``, and no fill runs on the path.
 """
 
 from __future__ import annotations
@@ -17,6 +26,11 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from xmaps_tpu_torch.io.prefetch import (
+    CompactLayout,
+    CompactStagedBatch,
+    unpack_staged_compact,
+)
 from xmaps_tpu_torch.ops import _build
 from xmaps_tpu_torch.ops.disparity import compute_event_disparity
 from xmaps_tpu_torch.ops.event_batch import EventBatch
@@ -26,6 +40,8 @@ __all__ = [
     "EventScatterResult",
     "event_disparity_scatter",
     "event_disparity_scatter_plain",
+    "event_disparity_scatter_staged",
+    "event_disparity_scatter_staged_plain",
 ]
 
 
@@ -126,8 +142,7 @@ def event_disparity_scatter(
             raise ValueError(f"event_disparity_scatter: {name} shape {tuple(a.shape)} != ({n},)")
     lib = _build.load()
     out_h, out_w = out_shape
-    packed = torch.zeros((out_h, out_w), dtype=torch.int32, device=dev)
-    count = torch.zeros((), dtype=torch.int32, device=dev)
+    packed, count = _outputs(out_shape, dev)
     lanes = None
     lane_ptrs = (None, None, None)
     if want_lanes:
@@ -149,3 +164,87 @@ def event_disparity_scatter(
     _build.check("event_disparity_scatter", err)
     _build.LAUNCHES["event_disparity_scatter"] += 1
     return EventScatterResult(packed, count, lanes)
+
+
+def _outputs(out_shape: tuple[int, int], dev) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's packed map and inlier count, left unzeroed: the launch
+    zeroes both.  (``torch.empty`` is 16-byte aligned, as the kernel's
+    vector zeroing needs.)"""
+    return (torch.empty(out_shape, dtype=torch.int32, device=dev),
+            torch.empty((), dtype=torch.int32, device=dev))
+
+
+def event_disparity_scatter_staged_plain(
+    word: torch.Tensor,
+    count: int,
+    layout: CompactLayout,
+    tables,
+    *,
+    camera_view: bool,
+    window: tuple[int, int],
+    out_shape: tuple[int, int],
+) -> EventScatterResult:
+    """Plain PyTorch version of ``event_disparity_scatter_staged`` (any
+    device): the device-side unpack, then the plain scatter."""
+    batch, t_bin = unpack_staged_compact(CompactStagedBatch(word, count), layout)
+    return event_disparity_scatter_plain(
+        batch, t_bin, tables, camera_view=camera_view, window=window, out_shape=out_shape,
+    )
+
+
+def event_disparity_scatter_staged(
+    word: torch.Tensor,
+    count: int,
+    layout: CompactLayout,
+    tables,
+    *,
+    camera_view: bool,
+    window: tuple[int, int],
+    out_shape: tuple[int, int],
+) -> EventScatterResult:
+    """One frame's 1-word staged batch -> packed disparity map + inlier
+    count, equal to ``event_disparity_scatter`` on the unpacked batch.
+
+    ``word``: (capacity,) int32 words ``x | y << bits_x | t_bin << (bits_x
+    + bits_y)`` (``io.prefetch.HostStagingPool.stage_compact``); ``count``:
+    the host count, lanes below it valid; ``layout``: the bit widths.
+    """
+    dev = word.device
+    if dev.type == "cpu":
+        return event_disparity_scatter_staged_plain(
+            word, count, layout, tables, camera_view=camera_view, window=window,
+            out_shape=out_shape,
+        )
+    if dev.type != "cuda":
+        raise ValueError(f"event_disparity_scatter_staged: unsupported device {dev}")
+    n = word.shape[0]
+    if word.dtype != torch.int32 or word.dim() != 1 or not word.is_contiguous():
+        raise ValueError(f"event_disparity_scatter_staged: word must be a contiguous 1-d "
+                         f"int32 tensor, got {tuple(word.shape)} {word.dtype}")
+    if n > MAX_CAPACITY or not 0 <= count <= n:
+        raise ValueError(f"event_disparity_scatter_staged: count {count} outside [0, {n}] "
+                         f"or capacity {n} over {MAX_CAPACITY}")
+    bits = (layout.bits_x, layout.bits_y, layout.bits_t)
+    if min(bits) < 1 or sum(bits) > 32:
+        raise ValueError(f"event_disparity_scatter_staged: layout widths {bits}")
+    for name, a, dtype in (("cam_map_packed", tables.cam_map_packed, torch.int32),
+                           ("x_map", tables.x_map, torch.int16)):
+        if a.device != dev or a.dtype != dtype or not a.is_contiguous():
+            raise ValueError(f"event_disparity_scatter_staged: {name} must be a contiguous "
+                             f"{dtype} tensor on {dev}, got {a.dtype} on {a.device}")
+    lib = _build.load()
+    packed, inliers = _outputs(out_shape, dev)
+    cam_h, cam_w = tables.cam_map_packed.shape
+    xmap_h, xmap_w = tables.x_map.shape
+    (oy, ox), (out_h, out_w) = window, out_shape
+    err = lib.event_disparity_scatter_staged(
+        word.data_ptr(), count, *bits,
+        tables.cam_map_packed.data_ptr(), cam_h, cam_w,
+        tables.x_map.data_ptr(), xmap_h, xmap_w,
+        int(camera_view), oy, ox, out_h, out_w,
+        packed.data_ptr(), inliers.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check("event_disparity_scatter_staged", err)
+    _build.LAUNCHES["event_disparity_scatter"] += 1
+    return EventScatterResult(packed, inliers)

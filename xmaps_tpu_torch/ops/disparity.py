@@ -62,16 +62,12 @@ def time_bounds(
     t: torch.Tensor, valid: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Masked (min, max) of event times, with identity elements for
-    invalid lanes."""
-    if not t.is_floating_point():
-        big = torch.iinfo(t.dtype).max
-        t_min = torch.where(valid, t, big).min()
-        t_max = torch.where(valid, t, -big).max()
-    else:
-        inf = float("inf")
-        t_min = torch.where(valid, t, inf).min()
-        t_max = torch.where(valid, t, -inf).max()
-    return t_min, t_max
+    invalid lanes.  ``masked_fill`` takes the identity as a kernel argument
+    (``torch.where`` with a Python scalar first fills a device tensor with
+    it)."""
+    big = float("inf") if t.is_floating_point() else torch.iinfo(t.dtype).max
+    invalid = ~valid
+    return t.masked_fill(invalid, big).min(), t.masked_fill(invalid, -big).max()
 
 
 def _scale_time_int(

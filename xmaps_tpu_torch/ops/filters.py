@@ -21,8 +21,11 @@ event wins" via a reversed-array fancy-index scatter
 behavior in NumPy.  These filters implement the documented intent (true
 first event by stream order) deterministically.
 
-Keys are assumed inside their key space (events inside the camera), as in
-the JAX package.  On CUDA tensors these are a stable sort, two
+A key outside its key space (an event outside the camera: a larger
+sensor, or a camera width below the sensor's) is treated as JAX's index
+modes treat it (``_jax_index``): a negative key counts from the end of the
+map, the scatters (``mode="drop"``) drop a key still outside it, and the
+gathers clamp it.  On CUDA tensors these are a stable sort, two
 ``scatter_reduce_`` and a few gathers; kernel 1 (``ops.cuda_events``)
 takes the priority.
 """
@@ -75,21 +78,35 @@ def _dense_rank(key: torch.Tensor) -> torch.Tensor:
     return torch.empty_like(idx).scatter_(0, order, idx)
 
 
+def _jax_index(k: torch.Tensor, size: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(scatter index, gather index) of integer keys into a map of ``size``
+    slots, as JAX indexes ``.at[k].max(..., mode="drop")`` and ``map[k]``:
+    a negative key first counts from the end (k + size); the scatter then
+    drops a key still outside [0, size), which goes here to a spare slot
+    ``size`` past the map that no gather reads, and the gather clamps it
+    into [0, size - 1].  A plain clamp would alias a real pixel."""
+    kn = k.long()
+    kn = torch.where(kn < 0, kn + size, kn)
+    inside = (kn >= 0) & (kn < size)
+    return torch.where(inside, kn, size), kn.clamp(0, size - 1)
+
+
 def _winner_mask(
     key: torch.Tensor, valid: torch.Tensor, n_keys: int, *, first: bool
 ) -> torch.Tensor:
     """Per-lane mask: is this lane the first/last valid event of its key?
 
-    Scatter-max of (event index + 1) per key, then compare with a gather.
-    For ``first``, indices are flipped so the smallest index wins."""
+    Scatter-max of (event index + 1) per key into ``n_keys + 1`` slots (the
+    last one for invalid lanes), then compare with a gather.  For
+    ``first``, indices are flipped so the smallest index wins."""
     n = key.shape[0]
     idx = torch.arange(n, dtype=torch.int32, device=key.device)
     prio = (n - idx) if first else (idx + 1)
     prio = torch.where(valid, prio, 0)
-    k = torch.where(valid, key, n_keys).long()
-    winners = torch.zeros(n_keys + 1, dtype=torch.int32, device=key.device)
-    winners.scatter_reduce_(0, k, prio, reduce="amax")
-    return valid & (winners[k] == prio)
+    put, get = _jax_index(torch.where(valid, key, n_keys), n_keys + 1)
+    winners = torch.zeros(n_keys + 2, dtype=torch.int32, device=key.device)
+    winners.scatter_reduce_(0, put, prio, reduce="amax")
+    return valid & (winners[get] == prio)
 
 
 def apply_frame_filter(
@@ -141,11 +158,11 @@ def apply_frame_filter(
     # the t of the last event at this lane's pixel, gathered through the
     # winning index
     idx1 = torch.where(pos, idx_order + 1, 0)
-    k = torch.where(pos, key_xy, n_xy).long()
-    last_idx = torch.zeros(n_xy + 1, dtype=torch.int32, device=batch.x.device)
-    last_idx.scatter_reduce_(0, k, idx1, reduce="amax")
+    put, get = _jax_index(torch.where(pos, key_xy, n_xy), n_xy + 1)
+    last_idx = torch.zeros(n_xy + 2, dtype=torch.int32, device=batch.x.device)
+    last_idx.scatter_reduce_(0, put, idx1, reduce="amax")
     t_i32 = batch.t.int()
-    li = last_idx[k]
+    li = last_idx[get]
     t_last = torch.where(li > 0, t_i32[(li - 1).clamp_min(0).long()], 0)
     t_mean = torch.div(t_i32 + t_last, 2, rounding_mode="floor")
     out = batch._replace(

@@ -10,9 +10,11 @@ render perspectives are supported:
 - camera view: scatter at raw event coordinates
   (cam_proj_calibration.py:312-317).
 
-On CUDA a frame is the time binning (a few PyTorch ops, skipped when the
-host staged the time bins) and two kernels:
+On CUDA a frame is the time binning (a few PyTorch ops) and two kernels:
 ``event_disparity_scatter`` then ``tail_projector`` or ``colorize_camera``.
+``staged_depth_frame`` runs the 1-word staged batch of the streaming path
+(the time bins binned on the host) through the kernel's staged entry, which
+decodes the words itself: the two kernels and nothing else.
 With a dedup frame filter (``cfg.frame_filter``, ``ops.filters``) the
 events are first rectified (a gather of the camera LUT) and filtered; the
 time binning then runs on the filtered batch and kernel 1 takes the
@@ -28,7 +30,11 @@ import numpy as np
 import torch
 
 from xmaps_tpu_torch.config import PipelineConfig
-from xmaps_tpu_torch.ops.cuda_events import event_disparity_scatter
+from xmaps_tpu_torch.io.prefetch import CompactLayout, CompactStagedBatch
+from xmaps_tpu_torch.ops.cuda_events import (
+    event_disparity_scatter,
+    event_disparity_scatter_staged,
+)
 from xmaps_tpu_torch.ops.cuda_tail import (
     CamTailPlan,
     TailPlan,
@@ -40,7 +46,7 @@ from xmaps_tpu_torch.ops.event_batch import EventBatch
 from xmaps_tpu_torch.ops.filters import FilteredBatch, apply_frame_filter
 from xmaps_tpu_torch.ops.image_tail import turbo_packed_lut
 
-__all__ = ["DeviceTables", "FrameResult", "depth_frame", "filter_events"]
+__all__ = ["DeviceTables", "FrameResult", "depth_frame", "filter_events", "staged_depth_frame"]
 
 
 class DeviceTables(NamedTuple):
@@ -133,7 +139,6 @@ def depth_frame(
     cfg: PipelineConfig,
     plan: Union[TailPlan, CamTailPlan],
     *,
-    t_scaled: Optional[torch.Tensor] = None,
     display_only: bool = False,
     display_packed: bool = False,
 ) -> FrameResult:
@@ -141,10 +146,6 @@ def depth_frame(
 
     ``plan``: the engine's ``TailPlan`` (projector view) or
     ``CamTailPlan`` (camera view, ``cfg.camera_perspective``).
-    ``t_scaled`` (int32 X-map time bins, computed exactly on the host by
-    ``io.prefetch`` compact staging) skips the time binning; only valid
-    with ``frame_filter == "none"`` (filters change the frame's time
-    bounds, so bins must be computed after filtering).
     ``display_only`` returns depth and disp_map as None (the kernels skip
     the two f32 stores); ``display_packed`` (requires display_only) returns
     frame_bgr as one packed-BGR int32 plane.
@@ -154,30 +155,51 @@ def depth_frame(
             "display_packed emits only the packed colorized plane; it "
             "requires display_only"
         )
-    if t_scaled is not None and cfg.frame_filter != "none":
-        raise ValueError(
-            "precomputed t_scaled requires frame_filter == 'none' "
-            "(filters change the frame's time bounds)"
-        )
     priority = None
     if cfg.frame_filter != "none":
         batch, priority = filter_events(batch, tables, cfg)
-    t_bin = (
-        scale_time(batch.t, batch.valid, cfg.t_px_scale)
-        if t_scaled is None
-        else t_scaled
+    t_bin = scale_time(batch.t, batch.valid, cfg.t_px_scale)
+    ev = event_disparity_scatter(
+        batch, t_bin, tables, **_scatter_view(cfg, plan), priority=priority,
     )
+    return _tail(ev, tables, cfg, plan, display_only, display_packed)
+
+
+def staged_depth_frame(
+    staged: CompactStagedBatch,
+    layout: CompactLayout,
+    tables: DeviceTables,
+    cfg: PipelineConfig,
+    plan: Union[TailPlan, CamTailPlan],
+    *,
+    display_only: bool = False,
+    display_packed: bool = False,
+) -> FrameResult:
+    """``depth_frame`` of a 1-word staged batch (``io.prefetch``
+    ``stage_compact``: host time bins, validity implied by the count),
+    unfiltered: kernel 1's staged entry, then the tail."""
+    if cfg.frame_filter != "none":
+        raise ValueError("a 1-word staged batch requires frame_filter == 'none'")
+    ev = event_disparity_scatter_staged(
+        staged.word, staged.count, layout, tables, **_scatter_view(cfg, plan),
+    )
+    return _tail(ev, tables, cfg, plan, display_only, display_packed)
+
+
+def _scatter_view(cfg: PipelineConfig, plan) -> dict:
+    """Kernel 1's view arguments: the camera frame, or the tail's crop of
+    the rectified frame."""
     if cfg.camera_perspective:
         assert isinstance(plan, CamTailPlan), plan
-        window, out_shape = (0, 0), (cfg.camera_height, cfg.camera_width)
-    else:
-        assert isinstance(plan, TailPlan), plan
-        window, out_shape = (plan.crop_row0, plan.crop_col0), (plan.H, plan.W)
-    ev = event_disparity_scatter(
-        batch, t_bin, tables,
-        camera_view=cfg.camera_perspective, window=window, out_shape=out_shape,
-        priority=priority,
-    )
+        return dict(camera_view=True, window=(0, 0),
+                    out_shape=(cfg.camera_height, cfg.camera_width))
+    assert isinstance(plan, TailPlan), plan
+    return dict(camera_view=False, window=(plan.crop_row0, plan.crop_col0),
+                out_shape=(plan.H, plan.W))
+
+
+def _tail(ev, tables, cfg, plan, display_only, display_packed) -> FrameResult:
+    """The view's tail kernel on kernel 1's packed map."""
     tail = colorize_camera if cfg.camera_perspective else tail_projector
     frame, depth, disp_map = tail(
         ev.packed_map, tables, plan,

@@ -6,8 +6,9 @@ the last write to a cell wins, and events outside the tile are dropped.
 uint32 is held as the int32 bit pattern (as ``ops.scatter`` does): ``vals``
 and the tile are int32 tensors.  On a CUDA tensor it launches
 ``csrc/store_loop.cu`` (replacing the TPU kernel ``kernel_rowcol``,
-``eval/bench_store_loop.py:52-83``); on a CPU tensor it runs the plain
-version, ``tile_store_last_plain``.
+``eval/bench_store_loop.py:52-83``), one launch of thread-block clusters
+that hold the tile in distributed shared memory; on a CPU tensor it runs
+the plain version, ``tile_store_last_plain``.
 """
 
 from __future__ import annotations
@@ -16,7 +17,12 @@ import torch
 
 from xmaps_tpu_torch.ops import _build
 
-__all__ = ["BENCH_SHAPE", "BENCH_EVENTS", "tile_store_last", "tile_store_last_plain"]
+__all__ = [
+    "BENCH_SHAPE",
+    "BENCH_EVENTS",
+    "tile_store_last",
+    "tile_store_last_plain",
+]
 
 #: the TPU benchmark's tile (one tail band of the ESL crop) and event count
 BENCH_SHAPE = (64, 1152)
@@ -42,7 +48,10 @@ def tile_store_last_plain(
 
 
 def tile_store_last(
-    rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor, shape: tuple[int, int]
+    rows: torch.Tensor,
+    cols: torch.Tensor,
+    vals: torch.Tensor,
+    shape: tuple[int, int],
 ) -> torch.Tensor:
     """(N,) int32 rows and cols, (N,) int32 vals (uint32 bits) -> the (H, W)
     int32 tile of the last value stored in each cell (0 where none)."""

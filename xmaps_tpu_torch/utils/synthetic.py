@@ -23,6 +23,7 @@ __all__ = [
     "make_synthetic_calibration",
     "simulate_plane_events",
     "simulate_sequence",
+    "with_events_outside_camera",
 ]
 
 
@@ -191,3 +192,24 @@ def simulate_sequence(
         )
         frames.append(ev)
     return np.concatenate(frames)
+
+
+def with_events_outside_camera(
+    events: np.ndarray, rng: np.random.Generator, camera_width: int, camera_height: int,
+    n: int = 60,
+) -> np.ndarray:
+    """``events`` with ``n`` events at x = camera_width + 5 on the last row
+    and ``n`` at rows camera_height .. camera_height + 3 (x = 0 there is the
+    key just past a dedup filter's key space), as a sensor larger than the
+    configured camera gives them: polarity in {0, 1}, at random times inside
+    the frame, merged in time order."""
+    out = np.zeros(2 * n, dtype=events.dtype)
+    out["x"][:n], out["y"][:n] = camera_width + 5, camera_height - 1
+    out["x"][n:] = rng.integers(0, camera_width, n)
+    out["y"][n:] = rng.integers(camera_height, camera_height + 4, n)
+    out["x"][n] = 0
+    out["p"] = rng.choice([0, 1, 1], 2 * n)
+    lo, hi = (int(events["t"].min()), int(events["t"].max())) if len(events) else (0, 16_000)
+    out["t"] = rng.integers(lo, hi + 1, 2 * n)
+    merged = np.concatenate([events, out])
+    return merged[np.argsort(merged["t"], kind="stable")]
