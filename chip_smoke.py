@@ -3,9 +3,10 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-Builds the seven CUDA kernels from xmaps_tpu_torch/csrc/ with nvcc (one
+Builds the eight CUDA kernels from xmaps_tpu_torch/csrc/ with nvcc (one
 process a source, started together), checks each against its plain PyTorch
-version on the card, and drives the port's paths:
+version on the card (kernel 3's per-engine colorize table against the plain
+epilogue of all 8192 disparities, bit for bit), and drives the port's paths:
 
 - the per-frame engine (XMapsDepthEngine.from_calibration -> process_frame)
   at the paper's demonstrator geometry in both views and at the ESL bench
@@ -26,7 +27,10 @@ version on the card, and drives the port's paths:
   (ESL init + refine, MC3D, X-maps, table) through their ``main`` on 4
   synthetic plane scans, with kernels A and B (ESL search, static remap)
   held against their plain versions and the brute force, and the outputs
-  against the port on the CPU;
+  against the port on the CPU; kernel A's bound counts the distinct table
+  elements its search reads on the scan (``esl_table_elements``), kernel
+  3's the table entries of the distinct disparities in its map
+  (``distinct_disparities``);
 - the streaming replay app (phase 8): ``apps.depth_reprojection.main`` on a
   60-frame EVT3 recording of the demonstrator rig (1 s at 60 Hz, ~28k
   events a frame, blanking gaps), in both views, every frame the pipe
@@ -72,6 +76,7 @@ MC3D, whose disparities are a third as fine).
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import io
@@ -97,6 +102,11 @@ KERNEL_INFO = {
     "colorize_camera": (
         "xmaps_tpu_torch/csrc/tail.cu",
         "xmaps_tpu/ops/pallas_tail.py:777",
+    ),
+    # kernel 3's per-engine table: the epilogue of pallas_colorize's body
+    "colorize_table": (
+        "xmaps_tpu_torch/csrc/tail.cu",
+        "xmaps_tpu/ops/pallas_tail.py:736",
     ),
     "esl_disparity_search": (
         "xmaps_tpu_torch/csrc/esl.cu",
@@ -130,6 +140,9 @@ ESL_DISPARITIES = (180, 220, 260, 300)
 STREAM_FRAMES = 60
 #: phase 8: seconds of each live-capture run
 LIVE_S = 1.0
+#: host seconds of untimed calls on each side of a profiled window
+#: (device_events)
+PROFILE_PAD_S = 0.02
 
 
 def log(msg: str) -> None:
@@ -231,6 +244,8 @@ def kernel_parity(eng, ev, errs):
     log(f"  event_disparity_scatter {kw['out_shape']} n={batch.capacity} "
         f"inliers={int(got.num_inliers)}: exact")
     staged_parity(eng, ev, kw, errs)
+    if kw["camera_view"]:
+        table_parity(eng, errs)
     for opts in (dict(emit_aux=True, packed_bgr=False),
                  dict(emit_aux=False, packed_bgr=False),
                  dict(emit_aux=False, packed_bgr=True)):
@@ -240,6 +255,21 @@ def kernel_parity(eng, ev, errs):
         errs[tail_name] = max(errs.get(tail_name, 0.0), err)
         log(f"  {tail_name} {opts} -> {tuple(a[0].shape)}: exact")
     return batch, t_bin, kw, ref.packed_map
+
+
+def table_parity(eng, errs):
+    """Kernel 3's colorize table, built on the card with the engine, against
+    the plain epilogue of all PACK disparities, bit for bit."""
+    import torch
+    from xmaps_tpu_torch.ops.cuda_tail import colorize_table_plain
+
+    bgr, depth = eng.plan.table
+    ref_bgr, ref_depth = colorize_table_plain(eng.tables, eng.plan)
+    err = assert_exact("colorize_table (BGR, depth bits) vs the plain epilogue",
+                       [(bgr, ref_bgr), (depth.view(torch.int32), ref_depth.view(torch.int32))])
+    errs["colorize_table"] = max(errs.get("colorize_table", 0.0), err)
+    log(f"  colorize_table: all {bgr.numel()} disparities bit-equal to the plain epilogue "
+        f"(p03 {eng.plan.p03:.4f}, {len(torch.unique(bgr))} distinct colours)")
 
 
 def staged_parity(eng, ev, kw, errs):
@@ -459,23 +489,52 @@ def time_events(fn, iters):
 def device_events(fn, iters):
     """The device-side events (kernels, memsets, copies) of ``iters`` calls
     of ``fn`` under torch.profiler, as (name, start us, duration us) in
-    time order."""
+    time order.  The profiler can lose device events near the start and
+    the end of a session (9 to 40 of 50 short kernels in single sessions
+    on the H100), so the ``iters`` calls sit between two marker kernels
+    (``torch.cuda._sleep``), with untimed calls of ``fn`` for at least
+    ``PROFILE_PAD_S`` seconds of host time before the first marker and
+    after the second, and only the events between the markers are
+    returned.  A session that lost a marker, or that holds a device event
+    a non-whole number of times a call (it lost events), is taken again
+    (at most twice more)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    # an empty session first: device records of work run outside a session
-    # that are still buffered are delivered to it, not counted below
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
-        torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
+    def pad():
+        t0 = time.perf_counter()
+        fn()
+        while time.perf_counter() - t0 < PROFILE_PAD_S:
             fn()
+
+    for _ in range(3):
         torch.cuda.synchronize()
-    return sorted(((e.name, e.time_range.start, e.time_range.elapsed_us())
-                   for e in prof.events() if e.device_type == DeviceType.CUDA),
-                  key=lambda e: e[1])
+        # an empty session first: device records of work run outside a
+        # session that are still buffered are delivered to it
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            pad()
+            torch.cuda._sleep(1)
+            for _ in range(iters):
+                fn()
+            torch.cuda._sleep(1)
+            pad()
+            torch.cuda.synchronize()
+        events = sorted(((e.name, e.time_range.start, e.time_range.elapsed_us())
+                         for e in prof.events() if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e[1])
+        marks = [i for i, e in enumerate(events) if "spin_kernel" in e[0]]
+        if len(marks) != 2:
+            lost = f"{len(marks)} marker kernels"
+            continue
+        events = events[marks[0] + 1:marks[1]]
+        counts = collections.Counter(e[0] for e in events)
+        lost = {k[:60]: c / iters for k, c in counts.items() if c % iters}
+        if not lost:
+            return events
+    raise AssertionError(f"the profiler lost device events in 3 sessions: {lost}")
 
 
 def profile_calls(fn, iters, counts=None):
@@ -756,7 +815,7 @@ def phase7_offline_eval(card, errs, kernels_ms, shapes, library_ms):
     esl_peak_mb = (torch.cuda.max_memory_allocated() - mem0) / 1e6
     lm, _ = run_app(eval_mc3d.main, args["cuda"] + ["-device", "cuda"], {})
     lx, _ = run_app(eval_xmaps.main, args["cuda"] + ["-device", "cuda"],
-                    {"event_disparity_scatter": n, "colorize_camera": n})
+                    {"event_disparity_scatter": n, "colorize_camera": n, "colorize_table": 1})
     for part in (la, lx):
         for k, v in part.items():
             launches[k] = launches.get(k, 0) + v
@@ -770,7 +829,7 @@ def phase7_offline_eval(card, errs, kernels_ms, shapes, library_ms):
         f"{la['remap_gather']} B for {n} scans (peak {esl_peak_mb:.1f} MB above the "
         f"resident tables), eval_mc3d no kernel, eval_xmaps "
         f"{lx['event_disparity_scatter']} x kernel 1 + {lx['colorize_camera']} x kernel 3 "
-        f"at capacity {ESL_CAM[0] * ESL_CAM[1]}")
+        f"(+ {lx['colorize_table']} table build) at capacity {ESL_CAM[0] * ESL_CAM[1]}")
     log("  eval_table:\n" + "\n".join("    " + line for line in table.strip().splitlines()))
 
     def load(seq, sub, i=0):
@@ -808,6 +867,7 @@ def phase7_offline_eval(card, errs, kernels_ms, shapes, library_ms):
         event_capacity=ESL_CAM[0] * ESL_CAM[1], camera_perspective=True, scan_upwards=False,
         border_replicate=False, zero_undistort_proj_map=True, xmap_cache_dir=cache,
     )
+    table_parity(eng, errs)
     events = eval_xmaps.scan_image_to_events(cams_raw[0])
     batch_args = (events["x"], events["y"], events["t"], events["p"], eng.cfg.event_capacity)
     batch = EventBatch.from_arrays(*batch_args, device="cuda")
@@ -840,6 +900,7 @@ def phase7_offline_eval(card, errs, kernels_ms, shapes, library_ms):
         ("X-maps (kernels 1+3)", lambda: eng.process_batch_device(batch), 20),
     )
     log(f"  per-scan times {card}:")
+    in_stage = {}
     for name, fn, iters in stages:
         w = wall_ms(fn, iters)
         d, by_name = profile_calls(fn, iters)
@@ -849,15 +910,27 @@ def phase7_offline_eval(card, errs, kernels_ms, shapes, library_ms):
                         sorted(by_name.items(), key=lambda kv: -kv[1])[:3])
         log(f"    {name}: {w:.4f} ms/scan wall (median of {iters}), {d:.4f} ms/scan device; "
             f"top: {top}")
+        in_stage[name] = by_name
     kernels_ms["esl_disparity_search"] = time_pair(
         lambda: esl_search_box(cam_box, prep, **search),
         lambda: esl_search_box_plain(cam_box, prep, **search),
     )
+    # kernel A's bound counts the table elements its search reads on scan 0
+    elements = esl_table_elements(cam_box, prep, **search)
+    shapes["esl_disparity_search"] = (cam_box.numel(), elements)
+    a_ms = sum(v for k, v in in_stage["ESL depth init (kernels A+B)"].items()
+               if "esl_search_kernel" in k)
+    log(f"  kernel A on scan 0's box ({int((cam_box != 0).sum())} nonzero of {cam_box.numel()} "
+        f"px): distinct table elements read {elements}, {4 * sum(elements.values()) / 1e6:.2f} MB"
+        f" of tables beside {8 * cam_box.numel() / 1e6:.2f} MB of box in and out; its device "
+        f"time inside the depth-init stage {a_ms:.5f} ms a scan, paired "
+        f"{kernels_ms['esl_disparity_search'][0]['ms']:.5f} ms {card}")
+    if not a_ms:
+        raise AssertionError(f"no esl_search_kernel in the depth-init stage: {in_stage}")
     kernels_ms["remap_gather"] = time_pair(
         lambda: (remap_gather(cam_dev[0], *fwd), remap_gather(disp_box, *back)),
         lambda: (remap_gather_plain(cam_dev[0], *fwd), remap_gather_plain(disp_box, *back)),
     )
-    shapes["esl_disparity_search"] = (cam_box.numel(),)
     shapes["remap_gather"] = [(idx.numel(), int((idx >= 0).sum()), src.numel())
                               for src, (idx,) in ((cam_dev[0], fwd), (disp_box, back))]
     library_ms["remap_gather"] = remap_library_ms(cam_dev[0], fwd, disp_box, back)
@@ -945,7 +1018,7 @@ def replay(app, argv, want_tail, expect_frames, keys=""):
     before the replay starts.  Checks that the pipe dispatched exactly
     ``expect_frames`` (the trigger finder's frames, from segment_host), the
     counts and the launches; returns (record, counters, replay-loop wall
-    seconds)."""
+    seconds, launches)."""
     import torch
     from xmaps_tpu_torch.ops import _build
 
@@ -984,10 +1057,12 @@ def replay(app, argv, want_tail, expect_frames, keys=""):
         if not np.array_equal(got, want):
             raise AssertionError(f"replay frame {i}: events differ from the trigger finder's")
     want = {k: 0 for k in launches}
-    want.update({"event_disparity_scatter": n, want_tail: n})
+    # a camera-view engine builds its colorize table once
+    want.update({"event_disparity_scatter": n, want_tail: n,
+                 "colorize_table": int(want_tail == "colorize_camera")})
     if launches != want:
         raise AssertionError(f"replay launches {launches} != {want}")
-    return rec, counters, loop_s[0]
+    return rec, counters, loop_s[0], launches
 
 
 def check_replay_frames(what, rec, errs):
@@ -1046,7 +1121,9 @@ def staged_path_order(eng, events):
     from xmaps_tpu_torch.io.prefetch import HostStagingPool
 
     pool = HostStagingPool(eng.cfg.event_capacity, device="cuda", layout=eng.compact_layout)
-    frames = iter(events)
+    # the padding calls take frames too: the len(events) calls between the
+    # markers are each frame once
+    frames = itertools.cycle(events)
     evs = device_events(lambda: eng.process_staged(pool.stage_compact(next(frames))), len(events))
     after = [evs[i + 1][0] if i + 1 < len(evs) else "(end)"
              for i, (name, _, _) in enumerate(evs) if "HtoD" in name]
@@ -1096,8 +1173,8 @@ def phase8_streaming(card, errs):
         # one E key press: the first dedup filter, first_per_yt
         ("projector, E key (first_per_yt)", [], "tail_projector", "e"),
     ):
-        rec, counters, loop_s = replay(app, base + extra, tail, expect, keys)
-        for k, v in dict(event_disparity_scatter=len(rec["events"]), **{tail: len(rec["events"])}).items():
+        rec, counters, loop_s, got = replay(app, base + extra, tail, expect, keys)
+        for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
         runs[name] = (rec, counters, loop_s)
         n = len(rec["events"])
@@ -1412,6 +1489,49 @@ def remap_library_ms(cam, fwd, disp_box, back):
     return device_ms(lambda: [torch.take(f, i) for f, i in calls])[0]
 
 
+def esl_table_elements(cam_box, prep, *, w_clip, min_disp, max_disp, steps):
+    """The distinct elements of each of kernel A's tables (G, F, N, R, C)
+    that its search reads on ``cam_box``, by table name: the index
+    arithmetic of ``ops.esl_search.esl_search_box_plain`` replayed on the
+    tensors' device for the nonzero pixels (the kernel returns at once on
+    a zero pixel).  G: the search's midpoints and j0; N: j0 and lo; F, R:
+    j0 - 1; C: lo - 1, j0 - 1 and hi - 1, each clamped into the row."""
+    import torch
+
+    G = prep[0]
+    last = G.shape[1] - 1
+    rows, cols = torch.nonzero(cam_box, as_tuple=True)
+    cam = cam_box[rows, cols]
+    row = rows.long() * G.shape[1]
+    c = cols.long()
+    g = G.reshape(-1)
+    lo = c + min_disp
+    hi = torch.clamp_max(c + max_disp, w_clip)
+    left, right, mids = lo, hi, []
+    for _ in range(steps):
+        m = torch.clamp_max(torch.div(left + right, 2, rounding_mode="floor"), last)
+        mids.append(m)
+        cond = g[row + m] >= cam
+        right = torch.where(cond, m, right)
+        left = torch.where(cond, left, m + 1)
+    j0 = torch.minimum(right, hi)
+    j0c = torch.clamp_max(j0, last)
+    j0m1 = torch.clamp(j0 - 1, 0, last)
+    reads = {"G": mids + [j0c], "F": [j0m1], "N": [j0c, torch.clamp_max(lo, last)],
+             "R": [j0m1], "C": [torch.clamp(lo - 1, 0, last), j0m1, torch.clamp(hi - 1, 0, last)]}
+    return {k: int(torch.unique(torch.cat([row + j for j in js])).numel())
+            for k, js in reads.items()}
+
+
+def distinct_disparities(packed) -> int:
+    """How many distinct disparities (``packed & (PACK - 1)``) a packed map
+    holds: the colorize table entries kernel 3 reads on it."""
+    import torch
+    from xmaps_tpu_torch.ops.scatter import PACK
+
+    return int(torch.unique(packed & (PACK - 1)).numel())
+
+
 def kernel_bytes(name, shapes) -> float:
     """The bytes ``name`` must move on the main path's inputs of this run:
     each input read once, each output written once; for gathers, one
@@ -1424,14 +1544,19 @@ def kernel_bytes(name, shapes) -> float:
         crop_px, proj_px = s
         return 4 * crop_px + 2 * 2 * proj_px + 4 * 256 + 4 * proj_px
     if name == "colorize_camera":
-        (px,) = s
-        return 4 * px + 4 * 256 + 4 * px
+        # the map in, packed BGR out, and the table entries of the distinct
+        # disparities the map holds (BGR, and depth where it is written)
+        px, distinct, with_depth = s
+        return 4 * px + 4 * distinct * (2 if with_depth else 1) + 4 * px
+    if name == "colorize_table":
+        # the TURBO LUT in, the BGR and depth tables out
+        (n,) = s
+        return 4 * 256 + 8 * n
     if name == "esl_disparity_search":
-        # the box in and out; the table bytes a search touches are
-        # data-dependent and shared by neighbouring pixels (unknown here),
-        # so they are left out and the bound stays a lower bound
-        (box_px,) = s
-        return 4 * box_px + 4 * box_px
+        # the box in and out, and each distinct table element the search
+        # reads on this run's box (esl_table_elements)
+        box_px, elements = s
+        return 8 * box_px + 4 * sum(elements.values())
     if name == "remap_gather":
         # per call (destination px, valid px, source px): the packed int32
         # index in, one source element per valid lane, the f32 plane out
@@ -1461,8 +1586,10 @@ def main() -> int:
         event_disparity_scatter_plain,
     )
     from xmaps_tpu_torch.ops.cuda_tail import (
+        build_colorize_table,
         colorize_camera,
         colorize_camera_plain,
+        colorize_table_plain,
         tail_projector,
         tail_projector_plain,
     )
@@ -1593,6 +1720,9 @@ def main() -> int:
             f"{ev_per_frame / dev / 1e3:.2f} Mev/s device {card}")
         for k, v in top:
             log(f"      {v * 1e3:8.2f} us/frame  {k[:100]}")
+        tail = {k.replace("(anonymous namespace)::", "")[:40]: round(v * 1e3, 3)
+                for k, v in by_name.items() if "colorize" in k or "tail_" in k}
+        log(f"      the tail kernel(s), us/frame: {tail}")
         frame_fills, batch_fills = (fills_a_call(fn) for fn in (
             lambda: eng.process_frame(geo_frames[0], display_only=True, display_packed=True),
             lambda: eng.make_batch(geo_frames[0])))
@@ -1620,6 +1750,10 @@ def main() -> int:
         lambda: colorize_camera(packed_c, eng_c.tables, eng_c.plan, **disp),
         lambda: colorize_camera_plain(packed_c, eng_c.tables, eng_c.plan, **disp),
     )
+    kernels_ms["colorize_table"] = time_pair(
+        lambda: build_colorize_table(eng_c.tables, eng_c.plan),
+        lambda: colorize_table_plain(eng_c.tables, eng_c.plan),
+    )
     # bounds: this run's inputs (kernel 1: the projector-view frame 0)
     t = eng_p.tables
     shapes = {
@@ -1627,8 +1761,11 @@ def main() -> int:
             batch.capacity, int(batch.valid.sum()),
             t.cam_map_packed.numel() * 4, t.x_map.numel() * 2, packed_p.numel()),
         "tail_projector": (packed_p.numel(), t.proj_mapx_i16.numel()),
-        "colorize_camera": (packed_c.numel(),),
+        "colorize_camera": (packed_c.numel(), distinct_disparities(packed_c), False),
+        "colorize_table": (eng_c.plan.table[0].numel(),),
     }
+    log(f"  kernel 3's bound reads {shapes['colorize_camera'][1]} BGR table entries: the "
+        f"distinct disparities of the camera-view map")
     library_ms: dict = {}
     for k, (km, pm) in kernels_ms.items():
         log(f"  kernel {k}: {km['ms']:.5f} ms device ({km['source']}), plain "

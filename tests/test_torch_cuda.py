@@ -188,6 +188,107 @@ def test_tail_projector_refuses_misaligned_maps(cuda):
             tail_projector(words, tables._replace(**{field: view}), plan)
 
 
+# -- kernel 3 and its colorize table ------------------------------------------
+
+
+def _cam_rig(shape, seed):
+    """A camera-view plan of ``shape`` with its colorize table on the card
+    (the demonstrator's scalars), and random packed words with every
+    priority bit random."""
+    from xmaps_tpu_torch.ops.cuda_tail import CamTailPlan, with_colorize_table
+    from xmaps_tpu_torch.ops.frame_pipeline import DeviceTables
+
+    zero = np.zeros((1, 1), np.int16)
+    tables = DeviceTables.from_numpy(zero, zero, zero, zero, zero, 187.25, "cuda")
+    plan = with_colorize_table(
+        CamTailPlan(H=shape[0], W=shape[1], p03=187.25, z_near=0.2, z_far=1.2), tables)
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 2**32, shape, dtype=np.uint64).astype(np.uint32).view(np.int32)
+    return plan, tables, torch.from_numpy(words).cuda()
+
+
+def test_colorize_table_matches_plain_on_card(cuda):
+    """The table built on the card holds the plain epilogue of every
+    disparity 0 .. PACK - 1: the BGR words and the depth bits."""
+    from xmaps_tpu_torch.ops.cuda_tail import build_colorize_table, colorize_table_plain
+    from xmaps_tpu_torch.ops.scatter import PACK
+
+    plan, tables, _ = _cam_rig((1, 1), seed=0)
+    _build.reset_launch_counts()
+    bgr, depth = build_colorize_table(tables, plan)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["colorize_table"] == 1
+    ref_bgr, ref_depth = colorize_table_plain(tables, plan)
+    assert bgr.shape == depth.shape == (PACK,)
+    _equal(bgr, ref_bgr)
+    _equal(depth.view(torch.int32), ref_depth.view(torch.int32))
+    _equal(plan.table[0], ref_bgr)
+    _equal(plan.table[1].view(torch.int32), ref_depth.view(torch.int32))
+    assert len(torch.unique(bgr)) > 100
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (1, 7), (1, 8), (1, 9), (31, 223), (480, 640)],
+                         ids=["n1", "n7", "n8", "n9", "n6913", "n307200"])
+def test_colorize_camera_edges_on_card(cuda, shape):
+    """Kernel 3 (4 pixels a thread, the last thread a ragged tail) against
+    its plain version in all three output variants, its outputs allocated
+    over memory filled with garbage; one counted launch a call."""
+    plan, tables, words = _cam_rig(shape, seed=shape[0] * shape[1])
+    for variant in VARIANTS:
+        # three blocks of garbage return to the cache the outputs come from
+        garbage = [torch.full((4 * shape[0] * shape[1],), 0x7B, dtype=torch.uint8,
+                              device=cuda) for _ in range(3)]
+        del garbage
+        _build.reset_launch_counts()
+        got = colorize_camera(words, tables, plan, **variant)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["colorize_camera"] == 1
+        assert _build.LAUNCHES["colorize_table"] == 0
+        want = colorize_camera_plain(words, tables, plan, **variant)
+        for a, b in zip(got, want):
+            _equal(a, b)
+        assert tuple(got[0].shape[:2]) == shape
+
+
+def test_colorize_camera_refuses_misaligned_map_and_no_table(cuda):
+    import dataclasses
+
+    plan, tables, words = _cam_rig((4, 6), seed=1)
+    buf = torch.zeros(4 * 6 + 1, dtype=torch.int32, device=cuda)
+    view = buf[1:].view(4, 6)  # contiguous, 4 bytes past an aligned start
+    assert view.is_contiguous() and view.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        colorize_camera(view, tables, plan)
+    _build.reset_launch_counts()
+    with pytest.raises(ValueError, match="no colorize table"):
+        colorize_camera(words, tables, dataclasses.replace(plan, table=None))
+    with pytest.raises(ValueError, match="no colorize table"):
+        colorize_camera(words, tables, dataclasses.replace(
+            plan, table=tuple(t.cpu() for t in plan.table)))
+    assert _build.LAUNCHES["colorize_table"] == _build.LAUNCHES["colorize_camera"] == 0
+
+
+def test_engine_to_rebuilds_colorize_table(cuda):
+    """A camera-view engine holds its table on the card; moved to the CPU it
+    holds none (the plain version runs), moved back it builds it again."""
+    eng = _engine(True)
+    assert eng.plan.table is not None and eng.plan.table[0].device.type == "cuda"
+    cpu = eng.to("cpu")
+    assert cpu.plan.table is None
+    _build.reset_launch_counts()
+    back = cpu.to("cuda")
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["colorize_table"] == 1
+    assert back.plan.table[0].device.type == "cuda"
+    _equal(back.plan.table[0], eng.plan.table[0])
+    _equal(back.plan.table[1].view(torch.int32), eng.plan.table[1].view(torch.int32))
+    assert eng.to("cuda").plan.table is eng.plan.table  # kept on its own device
+    frames = _frames()
+    for got, ref in zip(back.process_frames(frames), cpu.process_frames(frames)):
+        for name in ("frame_bgr", "depth", "disp_map", "num_inliers"):
+            _equal(getattr(got, name), getattr(ref, name))
+
+
 # -- kernel 1 at the offline eval's capacity, kernels A and B ----------------
 
 

@@ -205,3 +205,56 @@ def test_search_kernel_wrapper_refuses_other_devices(rig):
     tables = tuple(torch.zeros((8, 128), device="meta") for _ in range(5))
     with pytest.raises(ValueError, match="unsupported device"):
         tse.esl_search_box(cam, tables, w_clip=8, min_disp=5, max_disp=900, steps=11)
+
+
+# -- the table reads that kernel A's bound counts (chip_smoke) ---------------
+
+def _brute_force_table_reads(cam, tables, *, w_clip, min_disp, max_disp, steps):
+    """The distinct (row, column) elements of each table that the search
+    reads, pixel by pixel: the binary search's midpoints and its two
+    candidates with their counts."""
+    G = tables[0].numpy()
+    last = G.shape[1] - 1
+    reads = {k: set() for k in "GFNRC"}
+    for r, c in zip(*np.nonzero(cam)):
+        lo, hi = c + min_disp, min(c + max_disp, w_clip)
+        left, right = lo, hi
+        for _ in range(steps):
+            m = min((left + right) // 2, last)
+            reads["G"].add((r, m))
+            if G[r, m] >= cam[r, c]:
+                right = m
+            else:
+                left = m + 1
+        j0 = min(right, hi)
+        j0c, j0m1 = min(j0, last), min(max(j0 - 1, 0), last)
+        reads["G"].add((r, j0c))
+        reads["N"] |= {(r, j0c), (r, min(lo, last))}
+        reads["F"].add((r, j0m1))
+        reads["R"].add((r, j0m1))
+        reads["C"] |= {(r, min(max(lo - 1, 0), last)), (r, j0m1),
+                       (r, min(max(hi - 1, 0), last))}
+    return {k: len(v) for k, v in reads.items()}
+
+
+@pytest.mark.parametrize("case", ["frame_edge", "padded_clip"])
+def test_esl_table_elements_match_brute_force(case):
+    """``chip_smoke.esl_table_elements`` on a small random monotone box:
+    the full frame (windows clip at its edge), and a box whose windows
+    clip inside the 128-column padding."""
+    from chip_smoke import esl_table_elements
+
+    rng = np.random.default_rng(300 + len(case))
+    H, W, max_disp = (10, 260, 120) if case == "frame_edge" else (14, 300, 200)
+    base = np.sort(rng.random((H, W)).astype(np.float32), axis=1)
+    proj = np.where(rng.random((H, W)) < 0.25, base + 1e-3, 0).astype(np.float32)
+    cam = np.where(rng.random((H, W)) < 0.3, rng.random((H, W)), 0).astype(np.float32)
+    assert tse.rows_monotone(proj)
+    tables = tse.esl_search_prep(torch.from_numpy(proj), max_disp=max_disp)
+    frame_w = W if case == "frame_edge" else 4 * W
+    search = tse.box_search_args(frame_w, 0, W, max_disp=max_disp)
+    assert search["w_clip"] == (W if case == "frame_edge" else 384)
+    got = esl_table_elements(torch.from_numpy(cam), tables, **search)
+    want = _brute_force_table_reads(cam, tables, **search)
+    assert got == want
+    assert all(v > 0 for v in got.values())

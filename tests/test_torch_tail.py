@@ -178,3 +178,27 @@ def test_packed_bgr_requires_display_only():
     m = torch.zeros((tplan.H, tplan.W), dtype=torch.int32)
     with pytest.raises(ValueError, match="display-only"):
         tail_projector(m, tables, tplan, emit_aux=True, packed_bgr=True)
+
+
+@pytest.mark.parametrize("variant", VARIANTS, ids=VARIANT_IDS)
+def test_colorize_camera_every_disparity_matches_pallas(variant):
+    """Each disparity 0 .. PACK - 1 once, in a (64, 128) map of words with
+    random priority bits above PACK (bit 31 included): everything the
+    colorize table of the CUDA kernel holds."""
+    calib, maps, jplan, tplan, tables = _rig("default")
+    H, W = 64, 128
+    assert H * W == PACK
+    rng = np.random.default_rng(8192)
+    disp = rng.permutation(PACK).astype(np.uint64)
+    words = (rng.integers(0, 2**32 // PACK, PACK).astype(np.uint64) * PACK + disp)
+    packed = words.astype(np.uint32).reshape(H, W)
+    assert (packed >= 2**31).any()
+    jcam = jpt.build_cam_tail_plan(H, W, p03=float(maps.P2[0, 3]), z_near=Z_NEAR, z_far=Z_FAR)
+    tcam = CamTailPlan(H=H, W=W, p03=jcam.p03, z_near=Z_NEAR, z_far=Z_FAR)
+    padded = np.zeros((jcam.H_pad, jcam.W_pad), np.uint32)
+    padded[:H, :W] = packed
+    ref = jpt.pallas_colorize(jnp.asarray(padded), jcam, interpret=True, pack=PACK, **variant)
+    got = colorize_camera(torch.from_numpy(packed.view(np.int32)), tables, tcam, **variant)
+    _check(got, ref, variant)
+    if variant["emit_aux"]:
+        np.testing.assert_array_equal(np.sort(got[2].numpy().ravel()), np.arange(PACK))

@@ -35,6 +35,22 @@
 //   epilogue's two IEEE divisions a pixel.
 // Both halo-tile and block sizes were chosen by timing variants on the
 // H100 at the demonstrator's shapes.
+//
+// colorize_camera moves 8 B a camera pixel (2.5 MB at 640 x 480, 0.74 us
+// at 3.35 TB/s).  One pixel a thread in 256-thread blocks left one
+// dependent chain a thread (load, two IEEE divisions, LUT gather, store)
+// over 1.14 waves.  Its result depends on the disparity packed & (PACK - 1)
+// alone, so colorize_table writes the epilogue of all 8192 disparities once
+// per engine (32 KB of BGR, 32 KB of depth), and the pass reads 4 pixels a
+// thread with one 16-byte load, looks each up in the table (the few
+// distinct disparities of a frame stay in L1) and stores 16 bytes at a time:
+// 128-thread blocks, one wave at 640 x 480.  Four pixels a thread, with
+// neighbouring threads on neighbouring 16-byte runs, timed faster on the
+// H100 than eight (two runs a thread, which split each warp access in two)
+// in every output variant (experiments/kernel3_designs.py times the
+// designs in turns).  The table stays in global memory: filling 32 KB
+// of shared memory in each block would read several times the image from
+// L2.
 #include "common.cuh"
 
 namespace {
@@ -184,26 +200,89 @@ __global__ void tail_remap_colorize_kernel(
   }
 }
 
-__global__ void colorize_camera_kernel(
-    const int32_t* __restrict__ packed, long n, const int32_t* __restrict__ lut,
-    float p03, float z_near, float z_far, int32_t* __restrict__ bgr_packed,
-    uint8_t* __restrict__ bgr3, float* __restrict__ depth_out,
-    float* __restrict__ disp_out) {
-  const long idx = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  const float d = static_cast<float>(
-      static_cast<uint32_t>(__ldg(packed + idx)) & (xmaps::PACK - 1u));
+// Kernel 3's table: the epilogue of every disparity a packed map can hold
+// (d = packed & (PACK - 1)), one thread a disparity, through the same
+// depth_colorize and scalars as kernel 2, so a table entry equals the
+// epilogue of its disparity bit for bit.  BGR and depth are two arrays: the
+// display path, which writes no depth, reads only the 32 KB BGR table.
+__global__ void colorize_table_kernel(const int32_t* __restrict__ lut,
+                                      float p03, float z_near, float z_far,
+                                      int32_t* __restrict__ bgr_table,
+                                      float* __restrict__ depth_table) {
+  const int d = blockIdx.x * blockDim.x + threadIdx.x;
+  if (d >= static_cast<int>(xmaps::PACK)) return;
   float depth;
   int32_t bgr;
-  xmaps::depth_colorize(d, p03, z_near, z_far, lut, &depth, &bgr);
-  xmaps::store_pixel(idx, d, depth, bgr, bgr_packed, bgr3, depth_out,
-                     disp_out);
+  xmaps::depth_colorize(static_cast<float>(d), p03, z_near, z_far, lut, &depth,
+                        &bgr);
+  bgr_table[d] = bgr;
+  depth_table[d] = depth;
 }
 
-constexpr int kThreads = 256;
+constexpr int kCamPx = 4;  // camera pixels a colorize thread: one int4
+constexpr int kCamThreads = 128;
 
-inline unsigned grid_for(long n) {
-  return static_cast<unsigned>((n + kThreads - 1) / kThreads);
+// Kernel 3: kCamPx consecutive pixels a thread, neighbouring threads on
+// neighbouring 16-byte runs, so that every load and store of a warp covers
+// one contiguous run: one int4 of the packed map in, one table read a
+// pixel (two with depth) in place of the epilogue, 16-byte stores of packed
+// BGR, depth and disparity, three 4-byte words of 3-byte BGR.  The last
+// thread takes a ragged tail of n % kCamPx pixels with scalar accesses.
+__global__ void __launch_bounds__(kCamThreads) colorize_camera_kernel(
+    const int32_t* __restrict__ packed, long n,
+    const int32_t* __restrict__ bgr_table,
+    const float* __restrict__ depth_table, int32_t* __restrict__ bgr_packed,
+    uint8_t* __restrict__ bgr3, float* __restrict__ depth_out,
+    float* __restrict__ disp_out) {
+  const long base =
+      kCamPx * (static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x);
+  if (base + kCamPx > n) {
+    for (long k = base; k < n; ++k) {
+      const uint32_t d =
+          static_cast<uint32_t>(__ldg(packed + k)) & (xmaps::PACK - 1u);
+      const float depth = depth_out ? __ldg(depth_table + d) : 0.0f;
+      xmaps::store_pixel(k, static_cast<float>(d), depth,
+                         __ldg(bgr_table + d), bgr_packed, bgr3, depth_out,
+                         disp_out);
+    }
+    return;
+  }
+  const int4 w = __ldg(reinterpret_cast<const int4*>(packed + base));
+  const int32_t words[kCamPx] = {w.x, w.y, w.z, w.w};
+  float disp[kCamPx], depth[kCamPx];
+  int32_t bgr[kCamPx];
+#pragma unroll
+  for (int k = 0; k < kCamPx; ++k) {
+    const uint32_t d = static_cast<uint32_t>(words[k]) & (xmaps::PACK - 1u);
+    disp[k] = static_cast<float>(d);
+    bgr[k] = __ldg(bgr_table + d);
+    depth[k] = depth_out ? __ldg(depth_table + d) : 0.0f;
+  }
+  if (bgr_packed) {
+    *reinterpret_cast<int4*>(bgr_packed + base) =
+        make_int4(bgr[0], bgr[1], bgr[2], bgr[3]);
+  }
+  if (bgr3) {
+    // 12 bytes at 3 * base: three 4-byte words
+    uint32_t b3[3] = {0u, 0u, 0u};
+#pragma unroll
+    for (int b = 0; b < 3 * kCamPx; ++b) {
+      b3[b / 4] |= ((static_cast<uint32_t>(bgr[b / 3]) >> (8 * (b % 3))) & 255u)
+                   << (8 * (b % 4));
+    }
+    uint32_t* o = reinterpret_cast<uint32_t*>(bgr3 + 3 * base);
+    o[0] = b3[0];
+    o[1] = b3[1];
+    o[2] = b3[2];
+  }
+  if (depth_out) {
+    *reinterpret_cast<float4*>(depth_out + base) =
+        make_float4(depth[0], depth[1], depth[2], depth[3]);
+  }
+  if (disp_out) {
+    *reinterpret_cast<float4*>(disp_out + base) =
+        make_float4(disp[0], disp[1], disp[2], disp[3]);
+  }
 }
 
 }  // namespace
@@ -236,14 +315,27 @@ extern "C" int tail_projector(
   return static_cast<int>(cudaGetLastError());
 }
 
+extern "C" int colorize_table(const int32_t* lut, float p03, float z_near,
+                              float z_far, int32_t* bgr_table,
+                              float* depth_table, cudaStream_t stream) {
+  constexpr int threads = 256;
+  colorize_table_kernel<<<xmaps::PACK / threads, threads, 0, stream>>>(
+      lut, p03, z_near, z_far, bgr_table, depth_table);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The packed map and the outputs must be 16-byte aligned (the wrapper
+// checks the map; it allocates the outputs).
 extern "C" int colorize_camera(
-    const int32_t* packed, int n, const int32_t* lut, float p03, float z_near,
-    float z_far, int32_t* bgr_packed, uint8_t* bgr3, float* depth_out,
-    float* disp_out, cudaStream_t stream) {
+    const int32_t* packed, int n, const int32_t* bgr_table,
+    const float* depth_table, int32_t* bgr_packed, uint8_t* bgr3,
+    float* depth_out, float* disp_out, cudaStream_t stream) {
   if (n > 0) {
-    colorize_camera_kernel<<<grid_for(n), kThreads, 0, stream>>>(
-        packed, n, lut, p03, z_near, z_far, bgr_packed, bgr3, depth_out,
-        disp_out);
+    const long groups = (static_cast<long>(n) + kCamPx - 1) / kCamPx;
+    colorize_camera_kernel<<<
+        static_cast<unsigned>((groups + kCamThreads - 1) / kCamThreads),
+        kCamThreads, 0, stream>>>(packed, n, bgr_table, depth_table,
+                                  bgr_packed, bgr3, depth_out, disp_out);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -19,7 +19,12 @@ import torch
 from xmaps_tpu_torch.calib.maps import CalibrationParams, CamProjMaps
 from xmaps_tpu_torch.config import PipelineConfig, RuntimeParams
 from xmaps_tpu_torch.io.prefetch import CompactLayout, CompactStagedBatch, unpack_staged
-from xmaps_tpu_torch.ops.cuda_tail import CamTailPlan, TailPlan, build_tail_plan
+from xmaps_tpu_torch.ops.cuda_tail import (
+    CamTailPlan,
+    TailPlan,
+    build_tail_plan,
+    with_colorize_table,
+)
 from xmaps_tpu_torch.ops.event_batch import EventBatch
 from xmaps_tpu_torch.ops.filters import check_filter_name
 from xmaps_tpu_torch.ops.frame_pipeline import (
@@ -124,10 +129,10 @@ class XMapsDepthEngine:
         tables = DeviceTables.from_maps(maps, x_map_np, dev)
         p03 = float(maps.P2[0, 3])
         if camera_perspective:
-            plan = CamTailPlan(
+            plan = with_colorize_table(CamTailPlan(
                 H=calib.camera_height, W=calib.camera_width,
                 p03=p03, z_near=z_near, z_far=z_far,
-            )
+            ), tables)
         else:
             plan = build_tail_plan(
                 maps.disp_proj_mapx_i16,
@@ -207,15 +212,20 @@ class XMapsDepthEngine:
         return x_map
 
     def to(self, device) -> "XMapsDepthEngine":
-        """The same engine (same tables) on another device."""
+        """The same engine (same tables) on another device; a camera-view
+        plan's colorize table is built there on CUDA, dropped on CPU."""
         dev = resolve_device(device)
+        tables = self.tables.to(dev)
+        plan = self.plan
+        if isinstance(plan, CamTailPlan):
+            plan = with_colorize_table(plan, tables)
         return XMapsDepthEngine(
             cfg=self.cfg,
             maps=self.maps,
-            tables=self.tables.to(dev),
+            tables=tables,
             x_map_np=self.x_map_np,
             time_map_rect=self.time_map_rect,
-            plan=self.plan,
+            plan=plan,
             device=dev,
         )
 

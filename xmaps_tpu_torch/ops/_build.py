@@ -41,6 +41,7 @@ LAUNCHES = {
     "event_disparity_scatter": 0,
     "tail_projector": 0,
     "colorize_camera": 0,
+    "colorize_table": 0,
     "esl_disparity_search": 0,
     "remap_gather": 0,
     "warmup_add_one": 0,
@@ -79,10 +80,15 @@ _SIGNATURES = {
         _P, _P, _P, _P,  # bgr_packed, bgr3, depth, disp (nullable)
         _P,  # stream
     ],
-    "colorize_camera": [
-        _P, _I,  # packed map, n pixels
-        _P, _F, _F, _F,  # lut, p03, z_near, z_far
+    "colorize_camera": [  # 4 px a thread through the per-engine table
+        _P, _I,  # packed map (16-byte aligned), n pixels
+        _P, _P,  # the (PACK,) BGR (i32) and depth (f32) tables
         _P, _P, _P, _P,  # bgr_packed, bgr3, depth, disp (nullable)
+        _P,  # stream
+    ],
+    "colorize_table": [
+        _P, _F, _F, _F,  # lut, p03, z_near, z_far
+        _P, _P,  # the (PACK,) BGR (i32) and depth (f32) tables out
         _P,  # stream
     ],
     "esl_disparity_search": [

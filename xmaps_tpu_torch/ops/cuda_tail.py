@@ -10,7 +10,12 @@
   runs the plain chain: ``dilate_max`` on the crop, ``remap_nearest_i16``,
   then ``ops.image_tail``.
 - ``colorize_camera``: the camera view, packed map -> unpack -> depth -> u8
-  -> TURBO (replacing ``pallas_colorize``).
+  -> TURBO (replacing ``pallas_colorize``).  The result depends on the
+  disparity ``packed & (PACK - 1)`` alone, so on CUDA the engine's plan
+  holds the epilogue of all PACK disparities (``build_colorize_table``,
+  one launch of ``csrc/tail.cu:colorize_table`` per engine) and the kernel
+  reads it, 4 pixels a thread; on CPU the plan holds no table and the plain
+  chain runs.
 
 The plans keep only what the GPU needs: the crop of the rectified frame
 that the projector remap samples (plus the 3-px dilate halo) and the
@@ -23,7 +28,9 @@ depth and disp are float32 planes, or None unless ``emit_aux``.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -37,12 +44,15 @@ from xmaps_tpu_torch.ops.image_tail import (
     disparity_to_depth,
     remap_nearest_i16,
 )
-from xmaps_tpu_torch.ops.scatter import unpack_disp
+from xmaps_tpu_torch.ops.scatter import PACK, unpack_disp
 
 __all__ = [
     "TailPlan",
     "build_tail_plan",
     "CamTailPlan",
+    "with_colorize_table",
+    "build_colorize_table",
+    "colorize_table_plain",
     "tail_projector",
     "tail_projector_plain",
     "colorize_camera",
@@ -101,13 +111,17 @@ def build_tail_plan(
 
 @dataclass(frozen=True)
 class CamTailPlan:
-    """Camera-view tail: the camera frame and the scalars."""
+    """Camera-view tail: the camera frame, the scalars and, on CUDA, the
+    colorize table of ``with_colorize_table``."""
 
     H: int
     W: int
     p03: float
     z_near: float
     z_far: float
+    #: (bgr, depth): (PACK,) int32 packed BGR and float32 depth of every
+    #: disparity, on the card; None on the CPU
+    table: Optional[tuple] = dataclasses.field(default=None, compare=False, repr=False)
 
 
 def _check(kernel, dev, **tensors):
@@ -194,6 +208,52 @@ def colorize_camera_plain(
     )
 
 
+def colorize_table_plain(tables, plan: CamTailPlan):
+    """Plain PyTorch version of ``build_colorize_table`` (any device): the
+    epilogue of the disparities 0 .. PACK - 1."""
+    d = torch.arange(PACK, dtype=torch.float32, device=tables.turbo_lut.device)
+    bgr, _, _ = _plain_epilogue(d, tables.p03, plan.z_near, plan.z_far,
+                                emit_aux=False, packed_bgr=True)
+    return bgr, disparity_to_depth(d, tables.p03)
+
+
+def build_colorize_table(tables, plan: CamTailPlan):
+    """(bgr, depth): the packed BGR (int32) and depth (float32) of every
+    disparity 0 .. PACK - 1, on ``tables.turbo_lut``'s CUDA device, in one
+    launch of ``colorize_table`` (the epilogue kernel 2 runs, so each entry
+    equals ``colorize_camera_plain`` of its disparity bit for bit).  Only
+    the card holds a table: on the CPU ``with_colorize_table`` builds none
+    and ``colorize_camera`` runs its plain chain, so any other device
+    raises."""
+    lut = tables.turbo_lut
+    dev = lut.device
+    if dev.type != "cuda":
+        raise ValueError(f"colorize_table: the table is built on CUDA only, not on {dev}")
+    _check("colorize_table", dev, lut=(lut, torch.int32, (256,)))
+    lib = _build.load()
+    bgr = torch.empty(PACK, dtype=torch.int32, device=dev)
+    depth = torch.empty(PACK, dtype=torch.float32, device=dev)
+    err = lib.colorize_table(
+        lut.data_ptr(), plan.p03, plan.z_near, plan.z_far, bgr.data_ptr(),
+        depth.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check("colorize_table", err)
+    _build.LAUNCHES["colorize_table"] += 1
+    return bgr, depth
+
+
+def with_colorize_table(plan: CamTailPlan, tables) -> CamTailPlan:
+    """``plan`` holding the colorize table on ``tables``' device: built
+    there on CUDA (kept where the plan already holds one there), none on
+    CPU."""
+    dev = tables.turbo_lut.device
+    if dev.type == "cpu":
+        return dataclasses.replace(plan, table=None)
+    if plan.table is not None and plan.table[0].device == dev:
+        return plan
+    return dataclasses.replace(plan, table=build_colorize_table(tables, plan))
+
+
 def tail_projector(
     packed_crop: torch.Tensor,
     tables,
@@ -250,7 +310,12 @@ def colorize_camera(
     emit_aux: bool = True,
     packed_bgr: bool = False,
 ):
-    """(H, W) int32 packed camera-view map -> (frame, depth, disp)."""
+    """(H, W) int32 packed camera-view map -> (frame, depth, disp).
+
+    On CUDA the plan must hold the colorize table on the map's device
+    (``with_colorize_table``; the engine's plan does) and the map must be
+    16-byte aligned: a ``ValueError`` otherwise.
+    """
     dev = packed.device
     if dev.type == "cpu":
         return colorize_camera_plain(
@@ -258,16 +323,23 @@ def colorize_camera(
         )
     if dev.type != "cuda":
         raise ValueError(f"colorize_camera: unsupported device {dev}")
+    if plan.table is None or plan.table[0].device != dev:
+        raise ValueError(
+            f"colorize_camera: the plan holds no colorize table on {dev} "
+            "(build it with with_colorize_table)")
+    bgr_table, depth_table = plan.table
     _check(
         "colorize_camera", dev,
         packed=(packed, torch.int32, (plan.H, plan.W)),
-        lut=(tables.turbo_lut, torch.int32, (256,)),
+        bgr_table=(bgr_table, torch.int32, (PACK,)),
+        depth_table=(depth_table, torch.float32, (PACK,)),
     )
+    if packed.data_ptr() % 16:
+        raise ValueError("colorize_camera: packed must be 16-byte aligned (the kernel reads int4)")
     lib = _build.load()
     outs, ptrs = _outputs((plan.H, plan.W), dev, emit_aux, packed_bgr)
     err = lib.colorize_camera(
-        packed.data_ptr(), plan.H * plan.W,
-        tables.turbo_lut.data_ptr(), plan.p03, plan.z_near, plan.z_far,
+        packed.data_ptr(), plan.H * plan.W, bgr_table.data_ptr(), depth_table.data_ptr(),
         *ptrs, torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check("colorize_camera", err)
