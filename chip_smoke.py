@@ -12,9 +12,13 @@ epilogue of all 8192 disparities, bit for bit), and drives the port's paths:
   at the paper's demonstrator geometry in both views and at the ESL bench
   geometry (phases 3-6), every frame checked bit for bit against the port
   on the CPU with the same tables; phase 3 also holds kernel 1's staged
-  entry (the 1-word batch of the streaming path) against its plain version,
-  and phase 6 checks that no fill runs beside kernel 1 (it zeroes its map
-  inside its cooperative launch) and times the staged entry;
+  entry (the 1-word batch of the segmented streaming path) and its ring
+  entry (the frame read from k = 1, 4, 8 rows of the packet ring, partial
+  first and last packets, words with bit 31 set, a frame over the
+  capacity) against their plain versions, and phase 6 checks that no fill
+  runs beside kernel 1 (it zeroes its map inside its cooperative launch),
+  times the staged and ring entries, and times the engine's dispatch from
+  the trigger on, ``process_ring`` against ``process_staged``, in turns;
 - the five dedup frame filters (phase 5b): kernel 1 with each filter's
   scatter priority against its plain version, then ``set_frame_filter``
   and the 12 demonstrator frames in both views for each of the four dedup
@@ -33,23 +37,33 @@ epilogue of all 8192 disparities, bit for bit), and drives the port's paths:
   (``distinct_disparities``);
 - the streaming replay app (phase 8): ``apps.depth_reprojection.main`` on a
   60-frame EVT3 recording of the demonstrator rig (1 s at 60 Hz, ~28k
-  events a frame, blanking gaps), in both views, every frame the pipe
-  computed checked bit for bit against the CPU port's ``process_staged``
-  of the same segmented events, and the 2-word staging against the 1-word
-  one on the card; one replay with a dedup filter selected through the
-  processor's E key (2-word staging); then trigger -> frame-ready latency,
-  replay frames/s, ingest Mev/s, the pinned H2D time and the busy share,
-  and (``chip_smoke.py --staged-order RAW``, a process of its own) one H2D
-  copy a replayed frame, each straight into kernel 1;
+  events a frame, blanking gaps), in both views, through the pipe's
+  default packet-ring prestaging (every frame from the ring: no ring
+  fallback, no overrun) and once with ``prestage=False`` (segmented
+  staging), every frame the pipe computed checked bit for bit against the
+  CPU port's ``process_staged`` of the same segmented events and the ring
+  replay against the segmented one, and the 2-word staging against the
+  ring's frames on the card; one replay with a dedup filter selected
+  through the processor's E key; then trigger -> frame-ready latency,
+  replay frames/s, ingest Mev/s, the pinned H2D time and the busy share
+  from a profiled ring and a profiled segmented replay (the segmented
+  trace's H2D copies each straight into kernel 1; the ring trace's at most
+  one a staged packet), and (``chip_smoke.py --staged-order RAW``, a
+  process of its own) one H2D copy a segmented frame, each straight into
+  kernel 1, and no H2D copy at all from a ring frame's dispatch to its
+  kernel 1;
   then live capture: the app without ``--input`` on the wall-clock-paced
   ``synthetic`` camera for about 1 s each, with the PNG file sink (by
   default and with ``--low-latency``) and headless, every computed frame
   bit-equal to the CPU port, at least as many frames as the watchdog lets
   through at the run's measured host cost (``live_frame_floor``), with the
   trigger -> frame-ready latency, the stream lag and the host's stage
-  timers under a paced stream;
+  timers (``prestage packet`` among the per-packet ones) under a paced
+  stream;
 - the engine benchmark (phase 9): kernel W (the warm-up) against its plain
-  version, then one run of ``apps.bench``, whose JSON line is printed;
+  version, then one run of ``apps.bench`` and one of ``apps.bench_stream``
+  (the streaming latency of the ring and of segmented staging), whose JSON
+  lines are printed;
 - the scatter-store micro-benchmark (phase 10): kernel S (last-write-wins
   stores into one tile held by one 16-block thread-block cluster) against
   its plain version, on a tile several clusters share too, then one run of
@@ -78,11 +92,13 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import cProfile
 import dataclasses
 import io
 import itertools
 import json
 import os
+import pstats
 import statistics
 import subprocess
 import sys
@@ -219,9 +235,10 @@ def view_kwargs(eng):
     return kw, tail_projector, tail_projector_plain, "tail_projector"
 
 
-def kernel_parity(eng, ev, errs):
+def kernel_parity(eng, ev, errs, frames=None):
     """Phase 3: each kernel against its plain version on the card, on the
-    shapes the engine's main path gives it (kernel 1's staged entry too)."""
+    shapes the engine's main path gives it (kernel 1's staged entry too, and
+    with ``frames`` its ring entry)."""
     from xmaps_tpu_torch.ops.cuda_events import (
         event_disparity_scatter,
         event_disparity_scatter_plain,
@@ -244,6 +261,8 @@ def kernel_parity(eng, ev, errs):
     log(f"  event_disparity_scatter {kw['out_shape']} n={batch.capacity} "
         f"inliers={int(got.num_inliers)}: exact")
     staged_parity(eng, ev, kw, errs)
+    if frames is not None:
+        ring_parity(eng, frames, kw, errs)
     if kw["camera_view"]:
         table_parity(eng, errs)
     for opts in (dict(emit_aux=True, packed_bgr=False),
@@ -305,6 +324,81 @@ def staged_parity(eng, ev, kw, errs):
     errs["event_disparity_scatter"] = max(errs.get("event_disparity_scatter", 0.0), err)
     log(f"  event_disparity_scatter_staged at counts {counts} of {cap} (layout "
         f"{tuple(layout)[:3]} bits): exact; == the array entry")
+
+
+def ring_parity(eng, frames, kw, errs):
+    """Phase 3: kernel 1's ring entry (the frame read from k rows of the
+    1-word packet ring) against its plain version on the card, exact, over
+    memory that held garbage: k = 1, 4 and 8 packets of 6 ms (t_rel past
+    4096 us sets bit 31 of the 10 + 9 + 13-bit word), the frame starting
+    inside the first packet and ending inside the last, and 8 packets of
+    two frames' events, over the capacity."""
+    import torch
+    from xmaps_tpu_torch.io.prefetch import PacketRing
+    from xmaps_tpu_torch.ops.cuda_events import (
+        event_disparity_scatter_ring,
+        event_disparity_scatter_ring_plain,
+    )
+    from xmaps_tpu_torch.utils.synthetic import as_arrival_packets
+
+    cfg, layout = eng.cfg, eng.ring_layout
+    rng = np.random.default_rng(17)
+    err, cases = 0.0, []
+    for k, ev in ((1, frames[0]), (4, frames[1]), (8, frames[2]),
+                  (8, np.concatenate(frames[3:5]))):
+        ev, packets = as_arrival_packets(ev, k, 6000, rng)
+        ring = PacketRing(packet_capacity=max(len(p) for p in packets), n_slots=16,
+                          device="cuda", layout=layout)
+        for packet in packets:
+            if not ring.stage_packets(packet):
+                raise AssertionError("ring overrun in phase 3")
+        gs, ge = int(rng.integers(1, 500)), len(ev) - int(rng.integers(1, 500))
+        frame = ev[gs:ge]
+        pkts, meta, t_bounds = ring.frame(gs, frame, cfg.event_capacity)
+        count = min(len(frame), cfg.event_capacity)
+        args = (tuple(p.xy for p in pkts), meta, count, t_bounds, layout, eng.tables)
+        junk = torch.full((kw["out_shape"][0] * kw["out_shape"][1] + 64,), -1,
+                          dtype=torch.int32, device="cuda")
+        del junk
+        got = event_disparity_scatter_ring(*args, t_px_scale=cfg.t_px_scale, **kw)
+        ref = event_disparity_scatter_ring_plain(*args, t_px_scale=cfg.t_px_scale, **kw)
+        err = max(err, assert_exact(
+            f"event_disparity_scatter_ring k={k} count {count}",
+            [(got.packed_map, ref.packed_map), (got.num_inliers, ref.num_inliers)]))
+        cases.append((len(pkts), count, len(frame), bool((ring.rows["xy"] < 0).any()),
+                      int(got.num_inliers)))
+    if not (cases[-1][1] == cfg.event_capacity < cases[-1][2] and all(c[3] for c in cases)
+            and all(c[4] > 1000 for c in cases)):
+        raise AssertionError(f"ring parity cases (k, count, frame events, bit 31, inliers): "
+                             f"{cases}")
+    errs["event_disparity_scatter"] = max(errs.get("event_disparity_scatter", 0.0), err)
+    log(f"  event_disparity_scatter_ring (k, count, frame events, bit 31 set, inliers) {cases} "
+        f"(layout {tuple(layout)}): exact")
+
+
+def ring_of_frames(eng, frames):
+    """The frames as the pipe's ring holds them: each frame's events as 4
+    arrival packets (its time quarters), staged into one 1-word ring on the
+    card with room for all (rows of the pipe's size, so a long quarter
+    splits); per frame (packets, meta, time bounds)."""
+    from xmaps_tpu_torch.io.prefetch import PacketRing
+
+    cap = eng.cfg.event_capacity
+    ring = PacketRing(packet_capacity=max(2048, cap // 4), n_slots=16 * len(frames),
+                      device="cuda", layout=eng.ring_layout)
+    out, base = [], 0
+    for ev in frames:
+        t = ev["t"]
+        cuts = np.searchsorted(t, t[0] + (int(t[-1]) - int(t[0]) + 1) * np.arange(5) // 4)
+        for a, b in zip(cuts[:-1], cuts[1:]):
+            if b > a and not ring.stage_packets(ev[a:b]):
+                raise AssertionError("ring overrun")
+        args = ring.frame(base, ev, cap)
+        if args is None:
+            raise AssertionError("a frame spans more than RING_SLOTS_PER_FRAME packets")
+        out.append(args)
+        base += len(ev)
+    return ring, out
 
 
 def filter_batch(eng, batch, name):
@@ -596,35 +690,123 @@ def fills_a_call(fn):
             if is_fill(k)}
 
 
-def time_kernel1_staged(card, eng, ev, batch, t_bin, kw, shapes):
-    """Phase 6: kernel 1's staged entry against its array entry in turns,
-    on the demonstrator's projector frame 0, with no fill kernel beside
-    either (both zero the map inside the launch); the staged entry's bound
-    (4 B an event read in place of 13)."""
+def time_kernel1_entries(card, eng, ev, batch, t_bin, kw, shapes):
+    """Phase 6: kernel 1's staged entry against its array entry, then its
+    ring entry against its staged entry, each pair in turns, on the
+    demonstrator's projector frame 0 (the ring holds it as 4 arrival
+    packets), with no fill kernel beside any entry (each zeroes the map
+    inside its launch); the bound of the staged and ring entries (4 B an
+    event read in place of 13)."""
     from xmaps_tpu_torch.io.prefetch import HostStagingPool
     from xmaps_tpu_torch.ops.cuda_events import (
         event_disparity_scatter,
+        event_disparity_scatter_ring,
         event_disparity_scatter_staged,
     )
 
     staged = HostStagingPool(eng.cfg.event_capacity, device="cuda",
                              layout=eng.compact_layout).stage_compact(ev)
+    _, ((pkts, meta, t_bounds),) = ring_of_frames(eng, [ev])
+    rows = tuple(p.xy for p in pkts)
     calls = {
         "array": lambda: event_disparity_scatter(batch, t_bin, eng.tables, **kw),
         "staged": lambda: event_disparity_scatter_staged(
             staged.word, staged.count, eng.compact_layout, eng.tables, **kw),
+        "ring": lambda: event_disparity_scatter_ring(
+            rows, meta, staged.count, t_bounds, eng.ring_layout, eng.tables,
+            t_px_scale=eng.cfg.t_px_scale, **kw),
     }
     for entry, fn in calls.items():
         fills = fills_a_call(fn)
         if fills:
             raise AssertionError(f"kernel 1's {entry} entry runs a fill kernel: {fills}")
+    assert_exact("kernel 1's ring entry vs its staged entry", [
+        (calls["ring"]().packed_map, calls["staged"]().packed_map)])
     st, arr = time_pair(calls["staged"], calls["array"])
+    rg, st2 = time_pair(calls["ring"], calls["staged"])
     _, _, lut_b, xmap_b, out_px = shapes["event_disparity_scatter"]
     n = staged.count
     bound = (4 * n + min(4 * n, lut_b) + min(2 * n, xmap_b) + 4 * out_px + 4) / HBM_BYTES_PER_S * 1e3
     log(f"  kernel 1 staged entry (count {n}): {st['ms']:.5f} ms (turns {st['turns'][0]:.5f}, "
         f"{st['turns'][1]:.5f}) vs the array entry {arr['ms']:.5f} ms in the same turns; bound "
         f"{bound:.6f} ms (bytes, 4 B an event), share {bound / st['ms']:.4f} {card}")
+    log(f"  kernel 1 ring entry ({len(pkts)} packets, count {n}): {rg['ms']:.5f} ms (turns "
+        f"{rg['turns'][0]:.5f}, {rg['turns'][1]:.5f}) vs the staged entry {st2['ms']:.5f} ms in "
+        f"the same turns ({rg['ms'] / st2['ms']:.3f}x); bound {bound:.6f} ms (bytes, 4 B an "
+        f"event), share {bound / rg['ms']:.4f} {card}")
+
+
+def time_ring_vs_staged(card, eng, frames):
+    """Phase 6: the engine's dispatch of a frame from the trigger on, in
+    turns: the ring (``PacketRing.frame``: ``frame_meta`` and the time
+    bounds, then ``process_ring`` on packets already on the card) against segmented staging
+    (``stage_compact`` and ``process_staged``); wall ms a frame (host clock
+    + synchronize, median of 60) and device ms a frame (profiler, 48
+    frames), on the demonstrator frames."""
+    import torch
+    from xmaps_tpu_torch.io.prefetch import HostStagingPool
+
+    cap = eng.cfg.event_capacity
+    ring, held = ring_of_frames(eng, frames)
+    pool = HostStagingPool(cap, device="cuda", layout=eng.compact_layout)
+    bases = np.cumsum([0] + [len(ev) for ev in frames])
+
+    def ring_dispatch(i):
+        return eng.process_ring(*ring.frame(int(bases[i]), frames[i], cap))
+
+    def staged_dispatch(i):
+        return eng.process_staged(pool.stage_compact(frames[i]))
+
+    for i in range(len(frames)):
+        assert_exact(f"process_ring vs process_staged, frame {i}", [
+            (ring_dispatch(i).frame_bgr, staged_dispatch(i).frame_bgr)])
+    out = {}
+    for name, fn in (("ring", ring_dispatch), ("staged", staged_dispatch),
+                     ("staged", staged_dispatch), ("ring", ring_dispatch)):
+        wall = []
+        for j in range(60):
+            t0 = time.perf_counter()
+            fn(j % len(frames))
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+        it = itertools.cycle(range(len(frames)))
+        dev, _ = profile_calls(lambda: fn(next(it)), 48)
+        out.setdefault(name, []).append((statistics.median(wall), dev))
+    view = "camera" if eng.cfg.camera_perspective else "projector"
+    (rw, rd), (sw, sd) = ([statistics.mean(v) for v in zip(*out[k])] for k in ("ring", "staged"))
+    log(f"  {view} dispatch from the trigger, in turns: ring (frame_meta + bounds + "
+        f"process_ring) {rw:.4f} ms wall, {rd:.4f} ms device a frame (turns "
+        f"{[round(w, 4) for w, _ in out['ring']]}); segmented (stage_compact + process_staged) "
+        f"{sw:.4f} ms wall, {sd:.4f} ms device (turns {[round(w, 4) for w, _ in out['staged']]})"
+        f"; {len(frames)} frames, {ring.packets_staged} packets {card}")
+    # the host alone: the engine call without a synchronize, on a batch
+    # already staged (segmented) or packets already on the card (ring)
+    staged = [pool.stage_compact(ev) for ev in frames[:2]]
+    calls = (("process_ring", lambda i: eng.process_ring(*held[i % len(held)])),
+             ("process_staged", lambda i: eng.process_staged(staged[i % 2])))
+    host = {}
+    for name, fn in calls + calls[::-1]:
+        ts = []
+        for i in range(200):
+            t0 = time.perf_counter()
+            fn(i)
+            ts.append((time.perf_counter() - t0) * 1e3)
+            if i % 20 == 19:
+                torch.cuda.synchronize()
+        host.setdefault(name, []).append(statistics.median(ts))
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    prof.enable()
+    for i in range(200):
+        calls[0][1](i)
+    prof.disable()
+    torch.cuda.synchronize()
+    top = sorted(pstats.Stats(prof).stats.items(), key=lambda kv: -kv[1][2])[:6]
+    log(f"  {view} host ms a call, no synchronize, median of 200 in turns: "
+        + ", ".join(f"{k} {statistics.mean(v):.4f} (turns {[round(x, 4) for x in v]})"
+                    for k, v in host.items())
+        + "; process_ring's top host functions, us a call (cProfile, tottime): "
+        + ", ".join(f"{fn[2][:40]} {st[2] / 200 * 1e6:.1f}" for fn, st in top))
 
 
 def write_cv_yaml(path, matrices) -> None:
@@ -644,17 +826,6 @@ def write_esl_yaml(path, calib) -> None:
     write_cv_yaml(path, (("cam_K", calib.camera_K), ("cam_kc", calib.camera_D),
                          ("proj_K", calib.projector_K), ("proj_kc", calib.projector_D),
                          ("R", calib.cam2proj_R), ("T", calib.cam2proj_T)))
-
-
-def write_xmaps_yaml(path, calib) -> None:
-    """An X-maps calibration yaml (the replay app's ``--calib`` dialect,
-    ``CalibrationParams.from_yaml``) of ``calib``; projector distortion is
-    not part of the dialect."""
-    write_cv_yaml(path, (("camera_intrinsic_matrix", calib.camera_K),
-                         ("camera_distortion_coefficients", calib.camera_D),
-                         ("projector_intrinsic_matrix", calib.projector_K),
-                         ("relative_rotation", calib.cam2proj_R),
-                         ("relative_translation", calib.cam2proj_T)))
 
 
 def run_app(main_fn, argv, launch_expect):
@@ -944,30 +1115,42 @@ def phase7_offline_eval(card, errs, kernels_ms, shapes, library_ms):
 
 
 @contextlib.contextmanager
-def record_pipe():
+def record_pipe(prestage=True):
     """Record what every DepthReprojectionPipe does while the block runs:
     the host clock at each trigger (the trigger finder's frame callback),
-    each dispatched frame's segmented events and device result, the host
-    clock when its result reached the host (frame fetched or inlier count
-    read), the pipe's engine and its stats."""
+    each dispatched frame's segmented events, how it was dispatched ("ring",
+    or the staging call of a segmented frame) and its device result, the
+    host clock when its result reached the host (frame fetched or inlier
+    count read), the pipe, its engine and its stats.  ``prestage`` is set on
+    every pipe built inside the block (the pipe's own default is True)."""
     from xmaps_tpu_torch.io.prefetch import HostStagingPool as Pool
     from xmaps_tpu_torch.runtime.pipe import DepthReprojectionPipe as Pipe
 
     rec = dict(t_trigger=[], events=[], results=[], t_ready=[], engine=None, stats=None,
-               staged=[])
+               how=[], pipe=None)
     orig = {k: getattr(Pipe, k) for k in
-            ("process_ev_frame", "_dispatch_segmented", "_flush_pending")}
+            ("__post_init__", "process_ev_frame", "process_ev_frame_indexed",
+             "_dispatch_segmented", "_dispatch_ring", "_flush_pending")}
     orig_pool = {k: getattr(Pool, k) for k in ("stage", "stage_compact")}
 
     def staging(name):
         def stage(self, evs):
-            rec["staged"].append(name)
+            rec["how"].append(name)
             return orig_pool[name](self, evs)
         return stage
+
+    def post_init(self):
+        self.prestage = prestage
+        orig["__post_init__"](self)
+        rec["pipe"] = self
 
     def process_ev_frame(self, evs):
         rec["t_trigger"].append(time.perf_counter())
         orig["process_ev_frame"](self, evs)
+
+    def process_ev_frame_indexed(self, evs, gstart):
+        rec["t_trigger"].append(time.perf_counter())
+        orig["process_ev_frame_indexed"](self, evs, gstart)
 
     def dispatch(self, evs):
         rec["events"].append(evs.copy())
@@ -975,14 +1158,24 @@ def record_pipe():
         orig["_dispatch_segmented"](self, evs)
         rec["results"].append(self._pending)
 
+    def dispatch_ring(self, evs, gstart):
+        done = orig["_dispatch_ring"](self, evs, gstart)
+        if done:
+            rec["events"].append(evs.copy())
+            rec["engine"], rec["stats"] = self.engine, self.stats_printer
+            rec["how"].append("ring")
+            rec["results"].append(self._pending)
+        return done
+
     def flush(self):
         pending = self._pending is not None
         orig["_flush_pending"](self)
         if pending:
             rec["t_ready"].append(time.perf_counter())
 
-    Pipe.process_ev_frame, Pipe._dispatch_segmented, Pipe._flush_pending = (
-        process_ev_frame, dispatch, flush)
+    (Pipe.__post_init__, Pipe.process_ev_frame, Pipe.process_ev_frame_indexed,
+     Pipe._dispatch_segmented, Pipe._dispatch_ring, Pipe._flush_pending) = (
+        post_init, process_ev_frame, process_ev_frame_indexed, dispatch, dispatch_ring, flush)
     Pool.stage, Pool.stage_compact = staging("stage"), staging("stage_compact")
     try:
         yield rec
@@ -991,6 +1184,43 @@ def record_pipe():
             setattr(Pipe, k, fn)
         for k, fn in orig_pool.items():
             setattr(Pool, k, fn)
+
+
+@contextlib.contextmanager
+def profiled_stage_packets():
+    """cProfile inside every ``PacketRing.stage_packets`` call made while
+    the block runs (and nowhere else).  Yields a dict that holds, once the
+    block has ended: ``calls``, ``events`` (staged), ``wall_ms`` (host ms a
+    call, profiled) and ``top``: the 10 functions with the most own time
+    (name, calls a packet, us a packet), the profiler's own switch left out."""
+    from xmaps_tpu_torch.io.prefetch import PacketRing
+
+    prof = cProfile.Profile()
+    orig = PacketRing.stage_packets
+    out = dict(calls=0, events=0, wall_s=0.0)
+
+    def stage_packets(self, evs):
+        out["calls"] += 1
+        out["events"] += len(evs)
+        t0 = time.perf_counter()
+        prof.enable()
+        try:
+            return orig(self, evs)
+        finally:
+            prof.disable()
+            out["wall_s"] += time.perf_counter() - t0
+
+    PacketRing.stage_packets = stage_packets
+    try:
+        yield out
+    finally:
+        PacketRing.stage_packets = orig
+    n = max(out["calls"], 1)
+    out["wall_ms"] = out["wall_s"] * 1e3 / n
+    rows = sorted(((fn, st) for fn, st in pstats.Stats(prof).stats.items()
+                   if "_lsprof" not in fn[2]), key=lambda kv: -kv[1][2])[:10]
+    out["top"] = [(f"{fn[2][:48]} ({os.path.basename(fn[0])}:{fn[1]})" if fn[0] != "~"
+                   else fn[2][:48], st[1] / n, st[2] / n * 1e6) for fn, st in rows]
 
 
 def segment_host(raw_path, fps, width, height):
@@ -1011,14 +1241,15 @@ def segment_host(raw_path, fps, width, height):
     return frames
 
 
-def replay(app, argv, want_tail, expect_frames, keys=""):
+def replay(app, argv, want_tail, expect_frames, keys="", prestage=True):
     """One run of the replay app's ``main`` on the card, its stdout kept
     out of the log, with the launch counts reset just before and read just
     after; ``keys`` are pressed on the processor (its keyboard callback)
-    before the replay starts.  Checks that the pipe dispatched exactly
-    ``expect_frames`` (the trigger finder's frames, from segment_host), the
-    counts and the launches; returns (record, counters, replay-loop wall
-    seconds, launches)."""
+    before the replay starts; ``prestage`` is set on the pipe.  Checks that
+    the pipe dispatched exactly ``expect_frames`` (the trigger finder's
+    frames, from segment_host), the counts and the launches, and with the
+    ring that every frame came from it (no ``ring fallback``, no overrun);
+    returns (record, counters, replay-loop wall seconds, launches)."""
     import torch
     from xmaps_tpu_torch.ops import _build
 
@@ -1038,7 +1269,7 @@ def replay(app, argv, want_tail, expect_frames, keys=""):
     app.project_events = timed_loop
     _build.reset_launch_counts()
     try:
-        with record_pipe() as rec, contextlib.redirect_stdout(out):
+        with record_pipe(prestage) as rec, contextlib.redirect_stdout(out):
             app.main.main(args=argv, standalone_mode=False)
     finally:
         app.project_events = orig_loop
@@ -1056,6 +1287,13 @@ def replay(app, argv, want_tail, expect_frames, keys=""):
     for i, (got, want) in enumerate(zip(rec["events"], expect_frames)):
         if not np.array_equal(got, want):
             raise AssertionError(f"replay frame {i}: events differ from the trigger finder's")
+    ring = rec["pipe"].ring
+    if prestage and (ring is None or rec["how"] != ["ring"] * n or ring.overruns
+                     or counters.get("ring fallback", 0)):
+        raise AssertionError(f"prestaged replay: dispatched {collections.Counter(rec['how'])}, "
+                             f"overruns {ring and ring.overruns}, {counters}")
+    if not prestage and (ring is not None or "ring" in rec["how"]):
+        raise AssertionError("a prestage=False replay used the ring")
     want = {k: 0 for k in launches}
     # a camera-view engine builds its colorize table once
     want.update({"event_disparity_scatter": n, want_tail: n,
@@ -1068,14 +1306,15 @@ def replay(app, argv, want_tail, expect_frames, keys=""):
 def check_replay_frames(what, rec, errs):
     """Every frame the pipe computed on the card equals the CPU port's
     process_staged of the same segmented events, staged as the pipe stages
-    them (1 word an event; 2 words with a dedup filter), bit for bit."""
+    a segmented frame (1 word an event; 2 words with a dedup filter), bit
+    for bit, however it was dispatched (from the ring, or segmented)."""
     from xmaps_tpu_torch.io.prefetch import HostStagingPool
 
     cpu = rec["engine"].to("cpu")
     pool = HostStagingPool(cpu.cfg.event_capacity, device="cpu", layout=cpu.compact_layout)
     how = "stage" if cpu.cfg.frame_filter != "none" else "stage_compact"
-    if rec["staged"] != [how] * len(rec["events"]):
-        raise AssertionError(f"{what}: the pipe staged {set(rec['staged'])}, not {how}")
+    if not set(rec["how"]) <= {how, "ring"} or len(rec["how"]) != len(rec["events"]):
+        raise AssertionError(f"{what}: the pipe dispatched {set(rec['how'])}, not {how} or ring")
     lit = []
     for i, (ev, got) in enumerate(zip(rec["events"], rec["results"])):
         ref = cpu.process_staged(getattr(pool, how)(ev))
@@ -1130,6 +1369,52 @@ def staged_path_order(eng, events):
     return copies_into_kernel1(after), after
 
 
+def ring_path_order(eng, raw_path):
+    """Every frame the trigger finder emits on the recording, its packets
+    staged as the pipe stages them (decoder, activity filter, one 1-word
+    ring on the card with room for the whole recording), then
+    ``process_ring`` of each frame with its time bounds under the profiler:
+    (frames, the host-to-device copies among the calls' device events,
+    kernel 1's launches among them, the device events a frame by name)."""
+    import torch
+    from xmaps_tpu_torch.io.event_iterator import FileEventsIterator
+    from xmaps_tpu_torch.io.filters import ActivityNoiseFilter
+    from xmaps_tpu_torch.io.prefetch import PacketRing
+    from xmaps_tpu_torch.runtime.trigger_finder import RobustTriggerFinder
+    from xmaps_tpu_torch.utils.stats import StatsPrinter
+
+    cfg = eng.cfg
+    cap = cfg.event_capacity
+    ring = PacketRing(packet_capacity=max(2048, cap // 4), n_slots=1024, device="cuda",
+                      layout=eng.ring_layout)
+    held = []
+
+    def on_frame(evs, gs):
+        args = ring.frame(gs, evs, cap)
+        if args is None:
+            raise AssertionError(f"ring_path_order: frame at {gs} not resident")
+        held.append(args)
+
+    act = ActivityNoiseFilter(cfg.camera_width, cfg.camera_height, window_us=int(1e6 / 60),
+                              keep_polarity=1)
+    finder = RobustTriggerFinder(projector_fps=60, stats=StatsPrinter(silent=True),
+                                 frame_callback=None, frame_callback_indexed=on_frame)
+    for packet in FileEventsIterator(raw_path, delta_t=1e6 / 60 / 4):
+        if len(packet):
+            packet = act.process(packet)
+            if len(packet) and not ring.stage_packets(packet):
+                raise AssertionError("ring_path_order: ring overrun")
+            finder.process_events(packet)
+    torch.cuda.synchronize()
+    frames = itertools.cycle(held)
+    evs = device_events(lambda: eng.process_ring(*next(frames)), len(held))
+    by_name = collections.Counter(name.replace("(anonymous namespace)::", "")[:50]
+                                  for name, _, _ in evs)
+    return (len(held), sum("HtoD" in name for name, _, _ in evs),
+            sum("event_disparity_scatter" in name for name, _, _ in evs),
+            {k: v / len(held) for k, v in by_name.items()})
+
+
 def phase8_streaming(card, errs):
     """Phase 8: the streaming replay app at the demonstrator rig."""
     import tempfile
@@ -1137,6 +1422,7 @@ def phase8_streaming(card, errs):
 
     import torch
     from xmaps_tpu_torch.apps import depth_reprojection as app
+    from xmaps_tpu_torch.apps.make_demo_data import write_xmaps_yaml
     from xmaps_tpu_torch.io.evt_encode import encode_evt3
     from xmaps_tpu_torch.io.prefetch import HostStagingPool
     from xmaps_tpu_torch.utils.synthetic import make_synthetic_calibration, simulate_sequence
@@ -1165,77 +1451,133 @@ def phase8_streaming(card, errs):
             "--out-dir", str(root / "frames"), "--device", "cuda"]
     launches: dict = {}
     runs = {}
-    for name, extra, tail, keys in (
-        ("projector", [], "tail_projector", ""),
-        ("camera", ["--camera-perspective"], "colorize_camera", ""),
-        ("projector --low-latency", ["--low-latency"], "tail_projector", ""),
-        ("projector --profile-dir", ["--profile-dir", str(root / "trace")], "tail_projector", ""),
-        # one E key press: the first dedup filter, first_per_yt
-        ("projector, E key (first_per_yt)", [], "tail_projector", "e"),
+    ring_entry = 0  # kernel 1's ring-entry launches: unfiltered ring frames
+    seg = ", prestage=False"
+    for name, extra, tail, keys, prestage in (
+        ("projector", [], "tail_projector", "", True),
+        ("projector" + seg, [], "tail_projector", "", False),
+        ("camera", ["--camera-perspective"], "colorize_camera", "", True),
+        ("projector --low-latency", ["--low-latency"], "tail_projector", "", True),
+        ("projector --low-latency" + seg, ["--low-latency"], "tail_projector", "", False),
+        ("projector --profile-dir", ["--profile-dir", str(root / "trace")], "tail_projector",
+         "", True),
+        ("projector --profile-dir" + seg, ["--profile-dir", str(root / "trace_seg")],
+         "tail_projector", "", False),
+        # one E key press: the first dedup filter, first_per_yt; from the
+        # ring (assembled, the array entry) and staged segmented (2 words)
+        ("projector, E key (first_per_yt)", [], "tail_projector", "e", True),
+        ("projector, E key (first_per_yt)" + seg, [], "tail_projector", "e", False),
     ):
-        rec, counters, loop_s, got = replay(app, base + extra, tail, expect, keys)
+        rec, counters, loop_s, got = replay(app, base + extra, tail, expect, keys, prestage)
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
         runs[name] = (rec, counters, loop_s)
         n = len(rec["events"])
+        ring = rec["pipe"].ring
+        if ring is not None and not keys:
+            ring_entry += n
         lat = [(r - t) * 1e3 for t, r in zip(rec["t_trigger"], rec["t_ready"])]
+        timers = rec["stats"]._global.times_ns
+        staged = (f"ring: {ring.packets_staged} packets staged ({ring.packets_staged / n:.2f} a "
+                  f"frame), prestage packet {timers['prestage packet'].mean / 1e6:.4f} ms avg, "
+                  f"ring fallback {counters.get('ring fallback', 0)}, overruns "
+                  f"{ring.overruns}" if ring is not None else "segmented staging")
         log(f"  {name}: trig ok {counters['trig ok']}, trig fail {counters.get('trig fail', 0)}, "
             f"shown {counters.get('frames shown', 0)} + display skipped "
             f"{counters.get('frames computed (display skipped)', 0)}; launches = frames "
-            f"dispatched = {n}; replay loop {loop_s:.3f} s: {n / loop_s:.2f} frames/s, "
-            f"{counters['processed evs'] / loop_s / 1e6:.2f} Mev/s ingest; trigger -> "
+            f"dispatched = {n}; {staged}; replay loop {loop_s:.3f} s: {n / loop_s:.2f} "
+            f"frames/s, {counters['processed evs'] / loop_s / 1e6:.2f} Mev/s ingest; trigger -> "
             f"frame ready median {statistics.median(lat):.4f} ms, p90 "
             f"{statistics.quantiles(lat, n=10)[-1]:.4f} ms {card}")
 
-    # every frame of both views and of the filtered replay against the CPU
-    # port; 2-word vs 1-word
-    for name in ("projector", "camera", "projector, E key (first_per_yt)"):
+    # every frame of both views, of the segmented and of the filtered
+    # replay against the CPU port; the ring replay against the segmented
+    # one; 2-word vs 1-word
+    for name in ("projector", "projector" + seg, "camera", "projector, E key (first_per_yt)",
+                 "projector, E key (first_per_yt)" + seg):
         rec = runs[name][0]
         lit = check_replay_frames(name, rec, errs)
         log(f"  {name}: all {len(lit)} frames bit-equal to the CPU port's process_staged "
-            f"(packed BGR + inliers; {rec['staged'][0]}, filter {rec['engine'].cfg.frame_filter})"
-            f"; defined pixels {min(lit):.3f}..{max(lit):.3f}")
+            f"(packed BGR + inliers; dispatched {set(rec['how'])}, filter "
+            f"{rec['engine'].cfg.frame_filter}); defined pixels {min(lit):.3f}..{max(lit):.3f}")
+    for i, (a, b) in enumerate(zip(runs["projector"][0]["results"],
+                                   runs["projector" + seg][0]["results"])):
+        assert_exact(f"projector frame {i}: ring replay vs prestage=False replay",
+                     [(a.frame_bgr, b.frame_bgr), (a.num_inliers, b.num_inliers)])
+    log(f"  the ring replay == the prestage=False replay on the card: "
+        f"{len(runs['projector'][0]['results'])} frames exact; kernel 1's ring entry launched "
+        f"{ring_entry} times in the unfiltered ring replays")
     rec = runs["projector"][0]
     eng = rec["engine"]
     pool = HostStagingPool(eng.cfg.event_capacity, device="cuda")
     for i, (ev, got) in enumerate(zip(rec["events"], rec["results"])):
-        assert_exact(f"projector frame {i}: 2-word vs 1-word staging on the card",
+        assert_exact(f"projector frame {i}: 2-word staging vs the 1-word ring on the card",
                      [(eng.process_staged(pool.stage(ev)).frame_bgr, got.frame_bgr)])
     torch.cuda.synchronize()
-    log(f"  2-word staging (stage) == 1-word staging (stage_compact) on the card: "
+    log(f"  2-word staging (stage) == the 1-word ring's frames on the card: "
         f"{len(rec['events'])} frames exact")
 
-    # device time, pinned H2D and busy share from the --profile-dir trace
-    rec, counters, loop_s = runs["projector --profile-dir"]
+    # where a packet's prestaging goes: the projector ring replay again,
+    # cProfile on inside PacketRing.stage_packets only
+    with profiled_stage_packets() as sp:
+        rec, _, loop_s, got = replay(app, base, "tail_projector", expect)
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    plain = runs["projector"][0]["stats"]._global.times_ns["prestage packet"].mean / 1e6
+    log(f"  PacketRing.stage_packets under cProfile, projector ring replay again: {sp['calls']} "
+        f"packets, {sp['events'] / sp['calls']:.0f} events a packet, {sp['wall_ms']:.4f} ms a "
+        f"packet profiled ({plain:.4f} unprofiled, `prestage packet` of the projector replay); "
+        f"own time a packet, us (cProfile tottime; numpy ufuncs and tensor indexing count in "
+        f"their caller): " + ", ".join(f"{name} {us:.1f} ({calls:.2f}x)"
+                                     for name, calls, us in sp["top"]) + f" {card}")
+
+    # device time, pinned H2D and busy share from the --profile-dir traces.
+    # Segmented: every host-to-device copy the trace holds runs straight
+    # into kernel 1.  Ring: the trace's copies are the packets' (at most
+    # one a staged packet), none of them a frame's.
+    rec, counters, loop_s = runs["projector --profile-dir" + seg]
     n = len(rec["events"])
-    dev_ms, h2d_ms, by_name, after = trace_device_ms(root / "trace" / "trace.json")
-    # every host-to-device copy the trace holds runs straight into kernel 1;
-    # and, profiled again, one copy a frame does
+    dev_ms, h2d_ms, by_name, after = trace_device_ms(root / "trace_seg" / "trace.json")
     fills = [k for k in by_name if is_fill(k)]
     direct = copies_into_kernel1(after)
     if direct != len(after) or fills:
-        raise AssertionError(f"profiled replay: {direct} of the trace's {len(after)} H2D copies "
-                             f"({n} frames) run straight into kernel 1 (after them: "
+        raise AssertionError(f"profiled segmented replay: {direct} of the trace's {len(after)} "
+                             f"H2D copies ({n} frames) run straight into kernel 1 (after them: "
                              f"{sorted(set(after))}); fills {fills}")
+    rec_r, _, loop_r = runs["projector --profile-dir"]
+    staged_packets = rec_r["pipe"].ring.packets_staged
+    dev_r, h2d_r, by_name_r, after_r = trace_device_ms(root / "trace" / "trace.json")
+    fills_r = [k for k in by_name_r if is_fill(k)]
+    if not 0 < len(after_r) <= staged_packets or fills_r:
+        raise AssertionError(f"profiled ring replay: {len(after_r)} H2D copies for "
+                             f"{staged_packets} staged packets; fills {fills_r}")
     # in a process of its own: this one's profiler has lost records of
     # copies after the earlier phases (PERF.md section 7)
     child = subprocess.run([sys.executable, os.path.abspath(__file__), "--staged-order", raw_path],
                            capture_output=True, text=True, timeout=600)
     order = json.loads(child.stdout.strip().splitlines()[-1]) if child.returncode == 0 else None
-    if order is None or order["frames"] != n:
+    if order is None or order["frames"] != n or order["ring_frames"] != n:
         raise AssertionError(f"chip_smoke.py --staged-order: rc {child.returncode}, "
                              f"{child.stdout[-2000:]}{child.stderr[-2000:]}")
-    wall_ms = runs["projector"][2] * 1e3 / len(runs["projector"][0]["events"])
-    log(f"  device per frame (profiled replay): {dev_ms / n:.4f} ms, of it H2D "
-        f"{h2d_ms / n * 1e3:.2f} us (one pinned copy of the 1-word batch; phase 6 lists "
-        f"process_frame's pageable copies); busy share "
-        f"{dev_ms / (loop_s * 1e3):.4f} of the profiled replay loop, {dev_ms / n / wall_ms:.4f}"
-        f" of the unprofiled one ({wall_ms:.4f} ms/frame) {card}")
-    log(f"  all {direct} H2D copies in the trace ({n} frames) run straight into kernel 1, no "
-        f"fill; process_staged of the {n} frames profiled in a process of its own: "
-        f"{order['copies']} H2D copies, one a frame, each straight into kernel 1; top device ops a "
-        f"frame: " + ", ".join(f"{k[:60]} {v / n * 1e3:.2f} us" for k, v in
-                              sorted(by_name.items(), key=lambda kv: -kv[1])[:6]))
+    for what, (d, h, rec_x, lp) in (("segmented", (dev_ms, h2d_ms, rec, loop_s)),
+                                    ("ring", (dev_r, h2d_r, rec_r, loop_r))):
+        nx = len(rec_x["events"])
+        wall_ms = runs["projector"][2] * 1e3 / len(runs["projector"][0]["events"])
+        log(f"  {what}: device per frame (profiled replay): {d / nx:.4f} ms, of it H2D "
+            f"{h / nx * 1e3:.2f} us; busy share {d / (lp * 1e3):.4f} of the profiled replay "
+            f"loop, {d / nx / wall_ms:.4f} of the unprofiled ring one ({wall_ms:.4f} ms/frame) "
+            f"{card}")
+    log(f"  segmented: all {direct} H2D copies in the trace ({n} frames) run straight into "
+        f"kernel 1, no fill; ring: {len(after_r)} H2D copies in the trace for "
+        f"{staged_packets} staged packets ({len(after_r) / n:.2f} a frame), no fill")
+    log(f"  in a process of its own: process_staged of the {n} frames profiled: "
+        f"{order['copies']} H2D copies, one a frame, each straight into kernel 1; "
+        f"process_ring of the {order['ring_frames']} frames (their packets staged before): "
+        f"{order['ring_copies']} H2D copies, {order['ring_kernel1']} kernel 1 launches; device "
+        f"events a ring frame: {order['ring_events']}")
+    log("  top device ops a segmented frame: " + ", ".join(
+        f"{k[:60]} {v / n * 1e3:.2f} us" for k, v in
+        sorted(by_name.items(), key=lambda kv: -kv[1])[:6]))
 
     # live capture: the app without --input, on the paced synthetic camera:
     # with the PNG sink (every 30th frame fetched and encoded, the others
@@ -1244,18 +1586,26 @@ def phase8_streaming(card, errs):
     live = ["--calib", yaml_path, "--capture", "synthetic", "--z-near", str(Z_NEAR),
             "--z-far", str(Z_FAR), "--device", "cuda"]
     files = ["--window", "files", "--out-dir", str(root / "live")]
-    for name, extra in (("live --window files", files),
-                        ("live --window files --low-latency", files + ["--low-latency"]),
-                        ("live --window none", ["--window", "none"])):
-        rec, counters, wall_s = live_run(app, live + extra)
+    for name, extra, prestage in (
+            ("live --window files", files, True),
+            ("live --window files --low-latency", files + ["--low-latency"], True),
+            ("live --window files --low-latency, prestage=False", files + ["--low-latency"],
+             False),
+            ("live --window none", ["--window", "none"], True)):
+        rec, counters, wall_s = live_run(app, live + extra, prestage)
         n = len(rec["events"])
         for k in ("event_disparity_scatter", "tail_projector"):
             launches[k] += n
         lit = check_replay_frames(name, rec, errs)
         lat = [(r - t) * 1e3 for t, r in zip(rec["t_trigger"], rec["t_ready"])]
+        ring = rec["pipe"].ring
+        staging = (f"ring: {rec['how'].count('ring')} frames from it, ring fallback "
+                   f"{counters.get('ring fallback', 0)}, overruns {ring.overruns}, "
+                   f"{ring.packets_staged} packets staged" if ring is not None
+                   else "segmented staging")
         log(f"  {name} (synthetic camera, paced at 60 Hz, {wall_s:.3f} s): trig ok "
             f"{counters['trig ok']}, trig fail {counters.get('trig fail', 0)}, frames dropped "
-            f"{counters.get('frames dropped', 0)}, frames computed "
+            f"{counters.get('frames dropped', 0)}, {staging}; frames computed "
             f"{n} ({n / wall_s:.2f}/s; floor {rec['frame_floor']}), all bit-equal to the CPU "
             f"port (defined pixels "
             f"{min(lit):.3f}..{max(lit):.3f}); trigger -> frame ready median "
@@ -1270,20 +1620,22 @@ def phase8_streaming(card, errs):
             f"{1e3 / 60:.2f} ms in {sum(v > 1e3 / 60 for v in lag)} packets, first 8 "
             f"{[round(v, 2) for v in lag[:8]]}; host ms avg/max "
             + ", ".join(f"{k} {timers[k].mean / 1e6:.3f}/{timers[k].vmax / 1e6:.3f}"
-                        for k in ("main loop", "act+pol filter", "find pauses", "stage batch",
-                                  "dispatch frame", "fetch stats", "fetch frame")
+                        for k in ("main loop", "act+pol filter", "prestage packet",
+                                  "find pauses", "stage batch", "dispatch frame", "fetch stats",
+                                  "fetch frame")
                         if k in timers))
     tmp.cleanup()
     log(f"  phase 8 total {time.perf_counter() - t_phase:.1f} s {card}")
     return launches
 
 
-def live_run(app, argv):
+def live_run(app, argv, prestage=True):
     """One live run of the app's ``main`` on the card (no ``--input``),
     stopped through the processor's ``should_close`` after LIVE_S seconds
     of stream, its stdout kept out of the log, with the launch counts reset
-    just before and read just after.  Returns (record, counters, seconds
-    from the first packet to the close)."""
+    just before and read just after; ``prestage`` is set on the pipe.
+    Returns (record, counters, seconds from the first packet to the
+    close)."""
     import torch
     from xmaps_tpu_torch.ops import _build
     from xmaps_tpu_torch.runtime.processor import DepthReprojectionProcessor as Proc
@@ -1308,7 +1660,7 @@ def live_run(app, argv):
     Proc.should_close, StatsPrinter.add_time_measure_ns = should_close, add_time
     _build.reset_launch_counts()
     try:
-        with record_pipe() as rec, contextlib.redirect_stdout(out):
+        with record_pipe(prestage) as rec, contextlib.redirect_stdout(out):
             try:
                 app.main.main(args=argv, standalone_mode=False)
             except SystemExit as e:  # the app's exit when the window closes
@@ -1341,19 +1693,21 @@ def live_frame_floor(timers, n, wall_s):
     at this run's measured host cost, if the watchdog drops no more than its
     design does.  The watchdog drops buffered events while the host is a
     projector period P behind the stream.  A computed frame costs F ms of
-    host work on top of the per-packet work p (activity filter, pause
-    search); the host then catches up q - p ms a packet (q: the stream's
+    host work on top of the per-packet work p (activity filter, packet-ring
+    prestaging, pause search); the host then catches up q - p ms a packet (q: the stream's
     packet interval), so the events of R = F / (q - p) * q / P periods are
     dropped.  Each computed frame thus takes its own period, R periods of
     drops, and at most one more lost to the frame the drops cut (and one for
     rounding R up), so at least (S - 2) / (3 + R) of the S streamed frames
     are computed (the first two lost to the trigger finder's start-up).
-    F is all main-loop time not spent on per-packet work, divided by the
-    frames computed (it holds staging, launches, the fetch and the display
-    sink).  Where the host cannot keep up with the packets alone, the floor
-    is one frame."""
+    F is all main-loop time not spent on per-packet work (the activity
+    filter, the packet-ring prestaging, the pause search), divided by the
+    frames computed (it holds launches, the fetch and the display sink, and
+    any segmented staging).  Where the host cannot keep up with the packets
+    alone, the floor is one frame."""
     packets = timers["act+pol filter"].n
-    per_packet = sum(timers[k].total for k in ("act+pol filter", "find pauses") if k in timers)
+    per_packet = sum(timers[k].total for k in ("act+pol filter", "prestage packet",
+                                                "find pauses") if k in timers)
     p = per_packet / packets / 1e6
     q = wall_s * 1e3 / packets
     if n == 0 or q <= p:
@@ -1399,6 +1753,39 @@ def phase9_bench(card, errs, kernels_ms, shapes, library_ms):
     if not (result["value"] > 0 and result["extra"]["gpu"]):
         raise AssertionError(f"apps.bench: {line}")
     log(f"  apps.bench launches {launches}; its JSON line:")
+    print(line, flush=True)
+    return launches
+
+
+def phase9_bench_stream(card):
+    """Phase 9, the streaming bench: one run of ``apps.bench_stream`` (the
+    ring and the segmented replays of its synthetic ESL-seq1-like stream in
+    real time, and the direct replay alone and under the profiler), whose
+    JSON line is printed.  Returns its launches."""
+    import torch
+    from xmaps_tpu_torch.apps import bench_stream
+    from xmaps_tpu_torch.ops import _build
+
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = bench_stream.main([])
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    line = out.getvalue().strip().splitlines()[-1]
+    result = json.loads(line)
+    extra = result["extra"]
+    frames = launches["event_disparity_scatter"]
+    want = {k: 0 for k in launches}
+    want.update(event_disparity_scatter=frames, tail_projector=frames)
+    if not (rc == 0 and launches == want and frames >= 6 * extra["frames_measured"] > 0
+            and result["value"] > 0 and extra["gpu"] and extra["p50_device_frame_path_ms"]
+            and extra["ring_packets_per_frame_mode"] >= 1):
+        raise AssertionError(f"apps.bench_stream rc {rc}, launches {launches}: {line}")
+    log(f"  apps.bench_stream ({time.perf_counter() - t0:.1f} s) launches {launches}; its JSON "
+        f"line {card}:")
     print(line, flush=True)
     return launches
 
@@ -1652,7 +2039,7 @@ def main() -> int:
     log("phase 3 kernel parity (card vs plain version on the card, exact):")
     staged = {}
     for name, eng in (("projector", eng_p), ("camera", eng_c)):
-        staged[name] = kernel_parity(eng, frames[0], errs)
+        staged[name] = kernel_parity(eng, frames[0], errs, frames)
     torch.cuda.synchronize()
 
     # -- 4. main path, both views --------------------------------------
@@ -1771,7 +2158,9 @@ def main() -> int:
         log(f"  kernel {k}: {km['ms']:.5f} ms device ({km['source']}), plain "
             f"{pm['ms']:.5f} ms; issue rate {km['issue_ms']:.5f} vs {pm['issue_ms']:.5f} "
             f"ms/call (demonstrator, display-packed, mean of 2x50 calls) {card}")
-    time_kernel1_staged(card, eng_p, frames[0], batch, t_bin, ekw, shapes)
+    time_kernel1_entries(card, eng_p, frames[0], batch, t_bin, ekw, shapes)
+    for eng in (eng_p, eng_c):
+        time_ring_vs_staged(card, eng, frames)
 
     # -- 7-10. the offline eval, the replay app, the benches ------------
     # launches: the engine's main path (phase 4) and the filters' (phase
@@ -1781,6 +2170,7 @@ def main() -> int:
     for part in (phase7_offline_eval(card, errs, kernels_ms, shapes, library_ms),
                  phase8_streaming(card, errs),
                  phase9_bench(card, errs, kernels_ms, shapes, library_ms),
+                 phase9_bench_stream(card),
                  phase10_store_loop(card, errs, kernels_ms, shapes, library_ms)):
         for k, v in part.items():
             launches[k] += v
@@ -1813,9 +2203,11 @@ def main() -> int:
 def staged_order_main(raw_path) -> int:
     """``python3 chip_smoke.py --staged-order RAW`` (phase 8 runs it): the
     frames the trigger finder emits on the demonstrator recording RAW
-    through ``process_staged`` of a fresh demonstrator engine, profiled.
-    Prints one JSON line; exits 1 unless each frame's one host-to-device
-    copy runs straight into kernel 1."""
+    through ``process_staged`` of a fresh demonstrator engine, profiled,
+    then through ``process_ring`` on their staged packets, profiled.
+    Prints one JSON line; exits 1 unless each segmented frame's one
+    host-to-device copy runs straight into kernel 1, and the ring frames'
+    calls hold no host-to-device copy and one kernel 1 launch a frame."""
     from xmaps_tpu_torch.models.depth_pipeline import XMapsDepthEngine
     from xmaps_tpu_torch.utils.synthetic import make_synthetic_calibration
 
@@ -1826,9 +2218,13 @@ def staged_order_main(raw_path) -> int:
                                                                "cache"))
     frames = segment_host(raw_path, 60, 640, 480)
     direct, after = staged_path_order(eng, frames)
+    ring_frames, ring_copies, ring_kernel1, ring_events = ring_path_order(eng, raw_path)
     print(json.dumps(dict(frames=len(frames), copies=len(after), direct=direct,
-                          after=sorted(set(after)))), flush=True)
-    return 0 if direct == len(after) == len(frames) else 1
+                          after=sorted(set(after)), ring_frames=ring_frames,
+                          ring_copies=ring_copies, ring_kernel1=ring_kernel1,
+                          ring_events=ring_events)), flush=True)
+    return 0 if (direct == len(after) == len(frames) == ring_frames == ring_kernel1
+                 and ring_copies == 0) else 1
 
 
 if __name__ == "__main__":

@@ -24,7 +24,7 @@ torch = pytest.importorskip("torch")
 
 from click.testing import CliRunner  # noqa: E402
 
-from chip_smoke import write_xmaps_yaml  # noqa: E402
+from xmaps_tpu_torch.apps.make_demo_data import write_xmaps_yaml  # noqa: E402
 from xmaps_tpu.io.capture import open_capture as j_open_capture  # noqa: E402
 
 import xmaps_tpu_torch.io.capture as capture  # noqa: E402

@@ -716,3 +716,156 @@ def test_filters_out_of_camera_on_card(cuda, camera_perspective):
                     _equal(getattr(got, field), getattr(ref, field))
     finally:
         eng.set_frame_filter("none")
+
+
+# -- the packet ring and kernel 1's ring entry --------------------------------
+
+def _ring_packets(ev, k, rng, layout, device, span_us):
+    """``ev`` as k arrival packets of ``span_us`` each
+    (``utils.synthetic.as_arrival_packets``), staged into a ring on
+    ``device``; the frame starts inside the first packet and ends inside
+    the last.  Returns (ring, frame, packets, meta)."""
+    from xmaps_tpu_torch.io.prefetch import PacketRing
+    from xmaps_tpu_torch.utils.synthetic import as_arrival_packets
+
+    ev, packets = as_arrival_packets(ev, k, span_us, rng)
+    ring = PacketRing(packet_capacity=len(ev), n_slots=16, device=device, layout=layout)
+    for packet in packets:
+        assert ring.stage_packets(packet)
+    gs, ge = int(rng.integers(1, 50)), len(ev) - int(rng.integers(1, 50))
+    pkts, meta = ring.frame_meta(gs, ge, int(ev["t"][gs]))
+    assert len(pkts) == k and meta[0, 0] > 0
+    return ring, ev[gs:ge], pkts, meta
+
+
+@pytest.mark.parametrize("camera_perspective", [False, True], ids=["projector", "camera"])
+def test_ring_entry_on_card(cuda, camera_perspective):
+    """Kernel 1's ring entry against its plain version (the compact ring
+    assembly, ``scale_time`` and the plain scatter, on the same card rows)
+    at k = 1, 4 and 8 packets with partial first and last packets, under,
+    at a ragged count of and over the capacity, words with bit 31 set (the
+    small rig's 7 + 7 + 18-bit layout, 200 ms packets), into memory that
+    held garbage; one launch a call."""
+    from xmaps_tpu_torch.io.prefetch import ring_time_bounds
+    from xmaps_tpu_torch.ops.cuda_events import (
+        event_disparity_scatter_ring,
+        event_disparity_scatter_ring_plain,
+    )
+
+    eng = _engine(camera_perspective)
+    cfg, plan = eng.cfg, eng.plan
+    if camera_perspective:
+        kw = dict(camera_view=True, window=(0, 0), out_shape=(cfg.camera_height, cfg.camera_width))
+    else:
+        kw = dict(camera_view=False, window=(plan.crop_row0, plan.crop_col0),
+                  out_shape=(plan.H, plan.W))
+    layout = eng.ring_layout
+    assert layout == (7, 7, 18)
+    frames = _frames()
+    events = np.concatenate(frames)
+    rng = np.random.default_rng(6)
+    for k in (1, 4, 8):
+        for span in (4000, 200_000):
+            ring, frame, pkts, meta = _ring_packets(events, k, rng, layout, cuda, span)
+            rows = tuple(p.xy for p in pkts)
+            if span > 2**17:
+                assert (ring.rows["xy"].cpu().numpy().view(np.uint32) >> 31).any()
+            for cap in (cfg.event_capacity, 1777, len(frame)):
+                count = min(len(frame), cap)
+                t_bounds = ring_time_bounds(frame, cap)
+                args = (rows, meta, count, t_bounds, layout, eng.tables)
+                junk = torch.full((kw["out_shape"][0] * kw["out_shape"][1] + 64,), -1,
+                                  dtype=torch.int32, device=cuda)
+                del junk
+                _build.reset_launch_counts()
+                got = event_disparity_scatter_ring(*args, t_px_scale=cfg.t_px_scale, **kw)
+                torch.cuda.synchronize()
+                assert _build.LAUNCHES["event_disparity_scatter"] == 1
+                ref = event_disparity_scatter_ring_plain(*args, t_px_scale=cfg.t_px_scale, **kw)
+                _equal(got.packed_map, ref.packed_map)
+                _equal(got.num_inliers, ref.num_inliers)
+                assert int(got.num_inliers) > 100
+    assert len(events) > cfg.event_capacity  # the last case runs over the capacity
+
+
+def test_ring_entry_refusals(cuda):
+    """The ring entry raises ValueError on 0 or 9 packets and on rows or
+    tables on another device than the rows."""
+    from xmaps_tpu_torch.io.prefetch import ring_time_bounds
+    from xmaps_tpu_torch.ops.cuda_events import event_disparity_scatter_ring
+
+    eng = _engine(True)
+    kw = dict(t_px_scale=eng.cfg.t_px_scale, camera_view=True, window=(0, 0), out_shape=(96, 128))
+    events = np.concatenate(_frames())
+    ring, frame, pkts, meta = _ring_packets(events, 8, np.random.default_rng(1), eng.ring_layout,
+                                            cuda, 4000)
+    rows = tuple(p.xy for p in pkts)
+    tb = ring_time_bounds(frame, 4096)
+    with pytest.raises(ValueError, match="packets"):
+        event_disparity_scatter_ring((), np.zeros((3, 0), np.int32), 1, tb, eng.ring_layout,
+                                     eng.tables, **kw)
+    nine = np.concatenate([meta, meta[:, :1]], axis=1)
+    with pytest.raises(ValueError, match="packets"):
+        event_disparity_scatter_ring(rows + rows[:1], nine, 100, tb, eng.ring_layout,
+                                     eng.tables, **kw)
+    with pytest.raises(ValueError, match="packet row"):
+        event_disparity_scatter_ring(rows[:7] + (rows[7].cpu(),), meta, 100, tb,
+                                     eng.ring_layout, eng.tables, **kw)
+    with pytest.raises(ValueError, match="cam_map_packed"):
+        event_disparity_scatter_ring(rows, meta, 100, tb, eng.ring_layout,
+                                     eng.tables.to("cpu"), **kw)
+
+
+def test_ring_host_row_guard(cuda):
+    """A pinned host row is refilled right after its copy was queued behind
+    a busy stream (its slot retired and taken again): the copy must still
+    ship the old words, because the ring waits on the CUDA event recorded
+    after the copy before it rewrites the row.  A snapshot of each device
+    row, queued on the stream right after its copy, must hold the words
+    that were staged."""
+    from xmaps_tpu_torch.io.evt_decoder import EVENT_DTYPE
+    from xmaps_tpu_torch.io.prefetch import PacketRing, RingLayout
+
+    layout = RingLayout.for_camera(640, 480)
+    ring = PacketRing(packet_capacity=4096, n_slots=16, device=cuda, layout=layout)
+    assert ring._host["xy"].is_pinned()
+    rng = np.random.default_rng(3)
+    sent, snaps = [], []
+    torch.cuda._sleep(200_000_000)  # keep the stream busy (~0.1 s)
+    for _ in range(3):
+        for _ in range(16):
+            n = int(rng.integers(1000, 4096))
+            ev = np.zeros(n, dtype=EVENT_DTYPE)
+            ev["x"], ev["y"], ev["p"] = rng.integers(0, 640, n), rng.integers(0, 480, n), 1
+            ev["t"] = 10**6 + np.sort(rng.integers(0, 8000, n))
+            assert ring.stage_packets(ev)
+            slot = ring._live[-1].slot
+            sent.append(ring._xy[slot][:n].copy())
+            snaps.append(ring.rows["xy"][slot].clone())
+        ring.retire_below(10**9)
+    torch.cuda.synchronize()
+    for words, snap in zip(sent, snaps):
+        np.testing.assert_array_equal(snap.cpu().numpy().view(np.uint32)[:len(words)], words)
+
+
+@pytest.mark.parametrize("camera_perspective", [False, True], ids=["projector", "camera"])
+def test_process_ring_on_card_matches_cpu(cuda, camera_perspective):
+    """``process_ring`` on the card (kernel 1's ring entry, with the host
+    time bounds; and the torch assembly without them) against the CPU
+    engine's on the same packets; one kernel 1 launch a frame."""
+    from xmaps_tpu_torch.io.prefetch import ring_time_bounds
+
+    eng = _engine(camera_perspective)
+    cpu = eng.to("cpu")
+    for seed, ev in enumerate(_frames()):
+        rings = {dev: _ring_packets(ev, 4, np.random.default_rng(seed), eng.ring_layout, dev,
+                                    4000) for dev in (cuda, "cpu")}
+        ref = cpu.process_ring(*rings["cpu"][2:])
+        _, frame, pkts, meta = rings[cuda]
+        for tb in (ring_time_bounds(frame, eng.cfg.event_capacity), None):
+            _build.reset_launch_counts()
+            got = eng.process_ring(pkts, meta, tb)
+            torch.cuda.synchronize()
+            assert _build.LAUNCHES["event_disparity_scatter"] == 1
+            _equal(got.frame_bgr, ref.frame_bgr)
+            _equal(got.num_inliers, ref.num_inliers)

@@ -25,7 +25,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402, F401
 from click.testing import CliRunner  # noqa: E402
 
-from chip_smoke import write_xmaps_yaml  # noqa: E402
+from xmaps_tpu_torch.apps.make_demo_data import write_xmaps_yaml  # noqa: E402
 from xmaps_tpu.apps.depth_reprojection import main as j_app  # noqa: E402
 from xmaps_tpu.config import RuntimeParams as JParams  # noqa: E402
 from xmaps_tpu.io.evt_encode import encode_evt2  # noqa: E402
@@ -224,6 +224,71 @@ def test_processor_replay_matches_jax(raw_file, calib):
     assert (shown[0] != 255).any(axis=-1).mean() > 0.1
 
 
+def test_ring_prestage_matches_segmented(raw_file, calib):
+    """The port pipe prestages through its packet ring by default: its
+    frames equal those of a ``prestage=False`` pipe (segmented staging) and
+    of the JAX pipe (which prestages), and the ring is really used (packets
+    staged, no overrun, no ``ring fallback``, every dispatched frame
+    shown)."""
+    path, _ = raw_file
+    runs = {}
+    for prestage in (True, False):
+        proc, shown = _port_processor(calib, prestage=prestage)
+        runs[prestage] = (proc, shown, _replay(proc, FileEventsIterator, path))
+    jproc, jshown = _processor(JPipe, JProc, JStats, JFakeWindow,
+                               _params(JParams, calib), _engines(False)[0])
+    jcounters = _replay(jproc, JIter, path)
+    (proc, shown, counters), (seg, seg_shown, seg_counters) = runs[True], runs[False]
+    ring = proc._pipe.ring
+    assert ring is not None and seg._pipe.ring is None
+    assert ring.packets_staged == jproc._pipe.ring.packets_staged > 0
+    assert ring.overruns == 0
+    assert counters.get("ring fallback", 0) == jcounters.get("ring fallback", 0) == 0
+    assert counters["frames dispatched"] == seg_counters["frames dispatched"] == len(shown)
+    assert len(shown) == len(seg_shown) == len(jshown) >= len(DEPTHS) - 2
+    for a, b, c in zip(shown, seg_shown, jshown):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
+
+
+def test_prestage_skipped_while_behind(raw_file, calib):
+    """While the watchdog is dropping frames, packet bytes are not
+    pre-staged (the ring numbering advances without staging); once caught
+    up, staging resumes and frames still come out -- the same frames, ring
+    fallbacks and staged packets as the JAX pipe under the same forced
+    lag."""
+    path, _ = raw_file
+
+    def run(proc, iter_cls):
+        proc.params.no_frame_dropping = False
+        wd = proc._pipe.watchdog
+        orig, calls = wd.is_processing_behind, []
+
+        def fake_behind(evs):
+            orig(evs)  # keep internal state ticking
+            calls.append(1)
+            return len(calls) <= 10
+
+        wd.is_processing_behind = fake_behind
+        counters = _replay(proc, iter_cls, path)
+        return counters, len(calls)
+
+    proc, shown = _port_processor(calib)
+    jproc, jshown = _processor(JPipe, JProc, JStats, JFakeWindow,
+                               _params(JParams, calib), _engines(False)[0])
+    (counters, n_calls), (jcounters, _) = run(proc, FileEventsIterator), run(jproc, JIter)
+    ring = proc._pipe.ring
+    # the 10 behind packets were skipped, not staged
+    assert 0 < ring.packets_staged <= n_calls - 10
+    assert ring.packets_staged == jproc._pipe.ring.packets_staged
+    # the global numbering stayed consistent: later frames still decode
+    assert len(shown) == len(jshown) >= 1
+    for a, b in zip(shown, jshown):
+        np.testing.assert_array_equal(a, b)
+    for name in ("ring fallback", "frames dispatched", "trig ok"):
+        assert counters.get(name, 0) == jcounters.get(name, 0), name
+
+
 def test_frame_wanted_gates_display_fetch(raw_file, calib):
     """A sink that wants every 2nd frame receives exactly those; the others
     are computed (stats counter) but their image is never fetched."""
@@ -252,30 +317,41 @@ def test_reset_supports_loop_replay(raw_file, calib):
         np.testing.assert_array_equal(a, b)
 
 
-def test_frame_filter_cycle_is_not_ported(raw_file, calib):
+@pytest.mark.parametrize("prestage", [True, False])
+def test_frame_filter_cycle_is_not_ported(raw_file, calib, prestage):
     """The E key cycles all five dedup filters, in the JAX package's order
     and back to "none".  With one press (first_per_yt) the processor
-    replays the file through the 2-word staging, every delivered frame
-    equal to the JAX processor's after the same key.  (The name is the one
-    the test had while the port refused the cycle; it is kept so that the
-    test's history stays one test.)"""
+    replays the file, every delivered frame equal to the JAX processor's
+    after the same key: with ``prestage`` (the pipe's default) every frame
+    from the packet ring (no ``ring fallback``, no overrun, no segmented
+    staging), without it every frame through the 2-word segmented staging.
+    (The name is the one the test had while the port refused the cycle; it
+    is kept so that the test's history stays one test.)"""
     path, _ = raw_file
     assert FILTER_NAMES == J_FILTER_NAMES
-    proc, shown = _port_processor(calib)
+    proc, shown = _port_processor(calib, prestage=prestage)
     jproc, jshown = _processor(JPipe, JProc, JStats, JFakeWindow,
                                _params(JParams, calib), _engines(False)[0])
     stage_calls = []
-    orig_stage = proc._pipe.staging.stage
-    proc._pipe.staging.stage = lambda evs: stage_calls.append(len(evs)) or orig_stage(evs)
+    staging = proc._pipe.staging
+    orig_stage, orig_compact = staging.stage, staging.stage_compact
+    staging.stage = lambda evs: stage_calls.append(len(evs)) or orig_stage(evs)
+    staging.stage_compact = lambda evs: stage_calls.append(-len(evs)) or orig_compact(evs)
     try:
         for p in (proc, jproc):
             p.keyboard_cb(ord("e"))
         assert proc._pipe.engine.cfg.frame_filter == J_FILTER_NAMES[1]
         got, want = _replay(proc, FileEventsIterator, path), _replay(jproc, JIter, path)
-        assert len(shown) == len(jshown) == len(stage_calls) >= len(DEPTHS) - 2
+        assert len(shown) == len(jshown) == got["frames dispatched"] >= len(DEPTHS) - 2
         for a, b in zip(shown, jshown):
             np.testing.assert_array_equal(a, b)
         assert got["frames dispatched"] == want["frames dispatched"]
+        if prestage:
+            assert stage_calls == []
+            assert got.get("ring fallback", 0) == 0 and proc._pipe.ring.overruns == 0
+        else:
+            assert proc._pipe.ring is None
+            assert len(stage_calls) == len(shown) and min(stage_calls) > 0
         names = [proc._pipe.select_next_frame_event_filter() for _ in J_FILTER_NAMES]
         assert names == list(J_FILTER_NAMES[2:] + J_FILTER_NAMES[:2])
     finally:
@@ -356,7 +432,7 @@ _REPLAY = """
 import sys
 from click.testing import CliRunner
 import numpy as np
-from chip_smoke import write_xmaps_yaml
+from xmaps_tpu_torch.apps.make_demo_data import write_xmaps_yaml
 from xmaps_tpu_torch.apps.depth_reprojection import main
 from xmaps_tpu_torch.io.evt_encode import encode_evt3
 from xmaps_tpu_torch.utils.synthetic import make_synthetic_calibration, simulate_sequence
@@ -383,10 +459,27 @@ from xmaps_tpu_torch.apps.bench_store_loop import main
 assert main(["--device", "cpu"]) == 0
 """
 
+_BENCH_STREAM = """
+import os
+import sys
+import torch
+from xmaps_tpu_torch.apps.bench_stream import main
+torch.set_num_threads(1)  # the demonstrator rig: keep one core beside the other test workers
+os.environ["XMAPS_BENCH_STREAM_FRAMES"] = "6"
+assert main(["--device", "cpu"]) == 0
+"""
+
+_DEMO_DATA = """
+import sys
+from xmaps_tpu_torch.apps.make_demo_data import main
+assert main(["--out-dir", "demo", "--frames", "3", "--camera-width", "96", "--camera-height",
+             "72", "--projector-width", "64", "--projector-height", "96"]) == 0
+"""
+
 _LIVE = """
 import sys
 from click.testing import CliRunner
-from chip_smoke import write_xmaps_yaml
+from xmaps_tpu_torch.apps.make_demo_data import write_xmaps_yaml
 from xmaps_tpu_torch.apps.depth_reprojection import main
 from xmaps_tpu_torch.runtime.processor import DepthReprojectionProcessor
 from xmaps_tpu_torch.utils.synthetic import make_synthetic_calibration
@@ -401,14 +494,18 @@ assert "frames shown" in res.output, res.output
 """
 
 
-@pytest.mark.parametrize("entry", ["replay", "bench", "store_loop", "live"])
+@pytest.mark.parametrize("entry", ["replay", "bench", "store_loop", "live", "bench_stream",
+                                   "make_demo_data"])
 def test_entry_points_in_subprocess_never_load_jax(entry, tmp_path):
-    """The replay app, the bench, the store-loop bench and the live path
-    (``io.capture``) on the CPU, in a fresh interpreter: they run, the
-    benches print one parseable JSON line, and no module of JAX or of the
-    JAX package is ever imported."""
+    """The replay app, the bench, the store-loop bench, the live path
+    (``io.capture``), the streaming bench (``XMAPS_BENCH_STREAM_FRAMES=6``,
+    its fixed demonstrator rig) and the demo-data generator on the CPU, in a fresh
+    interpreter: they run, the benches print one parseable JSON line with
+    their keys, and no module of JAX or of the JAX package is ever
+    imported."""
     code = {"replay": _REPLAY, "bench": _BENCH, "store_loop": _STORE_LOOP,
-            "live": _LIVE}[entry] + """
+            "live": _LIVE, "bench_stream": _BENCH_STREAM,
+            "make_demo_data": _DEMO_DATA}[entry] + """
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "xmaps_tpu"))
 assert not loaded, loaded
 print("no-jax-ok")
@@ -431,3 +528,21 @@ print("no-jax-ok")
         assert result["device"] == "cpu" and result["gpu"] is None
         assert result["events"] == 28 * 1024 and result["library_equal"] is True
         assert min(result[f"{k}_ns_per_store"] for k in ("kernel", "plain", "library")) > 0
+    if entry == "bench_stream":
+        result = json.loads(lines[-2])
+        assert result["metric"] == "stream_p50_latency_ms" and result["unit"] == "ms"
+        assert result["value"] > 0 and result["vs_baseline"] > 0
+        extra = result["extra"]
+        for key in ("p95_ms", "p50_segmented_staging_ms", "p50_host_framework_work_ms",
+                    "p50_host_handover_to_dispatch_ms", "frame_path_fallback_frames",
+                    "ring_packets_per_frame_mode", "ring_staged_bytes_per_frame",
+                    "display_fetch_ms", "frames_measured", "events_per_frame", "setup_s"):
+            assert extra[key] is not None and extra[key] >= 0, key
+        assert extra["device"] == "cpu" and extra["gpu"] is None
+        assert extra["p50_device_frame_path_ms"] is None
+        assert extra["frames_measured"] >= 1 and extra["events_per_frame"] > 1000
+        assert extra["ring_packets_per_frame_mode"] >= 1
+        assert not {"tunnel_rtt_p50_ms", "p50_ms_rtt_adjusted"} & set(extra)
+    if entry == "make_demo_data":
+        assert {p.name for p in (tmp_path / "demo").iterdir()} == {"calibration.yaml",
+                                                                   "events.raw"}

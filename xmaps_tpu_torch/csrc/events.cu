@@ -37,11 +37,20 @@
 // and the barrier.  (cudaMemsetAsync of both before a plain launch measured
 // slower on the H100; PERF.md section 6.)
 //
-// Two entries share the per-lane device function: the array entry (x, y,
-// time bin, valid, optional priority and lane outputs) and the staged entry,
+// Three entries share the per-lane device function: the array entry (x, y,
+// time bin, valid, optional priority and lane outputs); the staged entry,
 // which reads the streaming path's one 32-bit word an event (x | y << bx |
 // t_bin << (bx + by), io/prefetch.py CompactLayout) and a host count, and
-// decodes the lane in registers (4 B an event in place of 13).
+// decodes the lane in registers (4 B an event in place of 13); and the ring
+// entry, which reads the frame straight from the k <= 8 device rows of the
+// packet ring (io/prefetch.py PacketRing, RingLayout: x | y << bx | t_rel <<
+// (bx + by), t_rel relative to the packet's first event).  Its placement
+// (each packet's row, start lane, cumulative offset and time offset), the
+// count and the frame's time bounds are kernel arguments, so nothing crosses
+// the link at dispatch.  Each lane finds its packet with a compare over the
+// cumulative offsets, in registers, and bins its time t_rel + t_off exactly
+// as ops/disparity.py _scale_time_int does (int32, floor division, round
+// half to even) from the host's masked min/max.
 #include <cooperative_groups.h>
 
 #include <algorithm>
@@ -102,6 +111,54 @@ struct StagedLanes {
     return Lane{static_cast<int>(w & mx), static_cast<int>((w >> bits_x) & my),
                 static_cast<int>((w >> (bits_x + bits_y)) & mt), true,
                 static_cast<uint32_t>(i)};
+  }
+  __device__ __forceinline__ void store(int, int, int, int) const {}
+};
+
+// The frame as k <= RING_MAX_PACKETS packets of the device ring: packet j
+// holds lanes [cum0[j], cum0[j + 1]) of the frame, at lanes [start[j], ...)
+// of its row.  Lanes below the host count are valid and only they are read.
+constexpr int RING_MAX_PACKETS = 8;
+
+struct RingLanes {
+  const uint32_t* row[RING_MAX_PACKETS];
+  int start[RING_MAX_PACKETS];
+  int cum0[RING_MAX_PACKETS];
+  int t_off[RING_MAX_PACKETS];
+  int k;
+  int n;  // the host count, min(frame events, capacity)
+  int bits_x, bits_y;
+  int t_min, t_max, t_px_scale;
+
+  __device__ __forceinline__ Lane load(int i) const {
+    // the lane's packet: the last one whose cumulative offset is <= i,
+    // selected with compile-time indices (registers, no local array)
+    const uint32_t* r = row[0];
+    int lane = i - cum0[0] + start[0];
+    int off = t_off[0];
+#pragma unroll
+    for (int j = 1; j < RING_MAX_PACKETS; ++j) {
+      if (j < k && i >= cum0[j]) {
+        r = row[j];
+        lane = i - cum0[j] + start[j];
+        off = t_off[j];
+      }
+    }
+    const uint32_t w = __ldg(r + lane);
+    const int shift = bits_x + bits_y;
+    const int x = static_cast<int>(w & ((1u << bits_x) - 1u));
+    const int y = static_cast<int>((w >> bits_x) & ((1u << bits_y) - 1u));
+    // logical shift: bit 31 is set at 640 x 480 (10 + 9 + 13 bits)
+    const int t = static_cast<int>(w >> shift) + off;
+    // _scale_time_int: round half to even of (t - min) * scale / range
+    const int rng = max(t_max - t_min, 1);
+    const int num = (t - t_min) * t_px_scale;
+    int q = num / rng;
+    if (num % rng != 0 && num < 0) --q;  // floor division (rng >= 1)
+    const int rem = num - q * rng;
+    const int twice = 2 * rem;
+    const bool up = twice > rng || (twice == rng && (q & 1));
+    return Lane{x, y, q + static_cast<int>(up), true, static_cast<uint32_t>(i)};
   }
   __device__ __forceinline__ void store(int, int, int, int) const {}
 };
@@ -267,6 +324,38 @@ extern "C" int event_disparity_scatter_staged(
     int32_t* packed_map, int32_t* inlier_count, cudaStream_t stream) {
   const StagedLanes src{reinterpret_cast<const uint32_t*>(word), count, bits_x, bits_y,
                         bits_t};
+  return launch(src, target(cam_lut, cam_h, cam_w, x_map, xmap_h, xmap_w, camera_view,
+                            oy, ox, out_h, out_w, packed_map, inlier_count),
+                stream);
+}
+
+// rows: the k packets' device rows; pkt_start, pkt_count, pkt_t_off: host
+// arrays of k int32, each packet's start lane in its row, its lanes of the
+// frame and its time offset (io/prefetch.py PacketRing.frame_meta).  They
+// are copied into the kernel's arguments here, on the host.
+extern "C" int event_disparity_scatter_ring(
+    const int32_t* const* rows, const int32_t* pkt_start, const int32_t* pkt_count,
+    const int32_t* pkt_t_off, int k, int count, int bits_x, int bits_y, int t_min,
+    int t_max, int t_px_scale, const int32_t* cam_lut, int cam_h, int cam_w,
+    const int16_t* x_map, int xmap_h, int xmap_w, int camera_view, int oy, int ox,
+    int out_h, int out_w, int32_t* packed_map, int32_t* inlier_count, cudaStream_t stream) {
+  if (k < 1 || k > RING_MAX_PACKETS) return cudaErrorInvalidValue;
+  RingLanes src{};
+  int cum = 0;
+  for (int j = 0; j < k; ++j) {
+    src.row[j] = reinterpret_cast<const uint32_t*>(rows[j]);
+    src.start[j] = pkt_start[j];
+    src.cum0[j] = cum;
+    src.t_off[j] = pkt_t_off[j];
+    cum += pkt_count[j];
+  }
+  src.k = k;
+  src.n = count;
+  src.bits_x = bits_x;
+  src.bits_y = bits_y;
+  src.t_min = t_min;
+  src.t_max = t_max;
+  src.t_px_scale = t_px_scale;
   return launch(src, target(cam_lut, cam_h, cam_w, x_map, xmap_h, xmap_w, camera_view,
                             oy, ox, out_h, out_w, packed_map, inlier_count),
                 stream);

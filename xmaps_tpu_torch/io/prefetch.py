@@ -22,7 +22,21 @@ per-packet hot path never allocates; here:
 
 On CPU the slots are plain host tensors and the "copy" is a clone.  The
 host target presort (``presort_fn``) is not ported: the JAX pipe passes
-``None``.  The ``PacketRing`` prestaging is not ported yet (ROADMAP.md).
+``None``.
+
+The packet-ring prestaging (``PacketRing``, ``RingLayout``,
+``assemble_ring_frame[_compact]``) is the port of the JAX package's
+default streaming path: every filtered packet is staged as it arrives, so
+a frame's events are already on the device when the trigger fires.  Its
+bookkeeping (global numbering, slot free list, the 13-bit ``t_rel`` span
+split) is the JAX package's line for line.  In place of one
+``jax.device_put`` of the whole slot, each staged chunk is ONE
+``non_blocking`` copy of its valid words from a pinned host row into its
+row of one preallocated device tensor, guarded by a CUDA event as above.
+The assembly takes the host ``(3, k)`` placement array and builds the
+batch with torch ops; kernel 1's ring entry
+(``ops.cuda_events.event_disparity_scatter_ring``) reads the device rows
+itself instead.
 """
 
 from __future__ import annotations
@@ -41,6 +55,13 @@ __all__ = [
     "CompactLayout",
     "CompactStagedBatch",
     "unpack_staged_compact",
+    "PacketRing",
+    "RingPacket",
+    "RingLayout",
+    "RING_SLOTS_PER_FRAME",
+    "assemble_ring_frame",
+    "assemble_ring_frame_compact",
+    "ring_time_bounds",
 ]
 
 #: polarity rides in bit 30 of the int32 tp word; frame-relative
@@ -275,3 +296,366 @@ class HostStagingPool:
         out = CompactStagedBatch(word=self._ship(slot, "word"), count=n)
         self._copied(slot)
         return out
+
+
+# ---------------------------------------------------------------------------
+# Packet-ring pre-staging: move the bytes while the frame is still arriving
+# ---------------------------------------------------------------------------
+#
+# The staging above ships a frame's events AFTER the trigger finder has
+# segmented it, so the host packing and the H2D copy sit on the critical
+# path of the frame's latency.  But the events exist long before the
+# trigger fires: packets arrive 4x per frame (delta_t = T/4,
+# apps/depth_reprojection.py).  The PacketRing stages every filtered packet
+# to the device the moment it arrives; when the trigger finder later emits
+# a frame as a GLOBAL event index range [gs, ge), the frame is read from
+# the already-resident packet rows, placed by a host (3, k) array.
+
+#: max packets assembled into one frame (4/frame nominal + trigger slack;
+#: packets longer than the slot capacity are split at staging)
+RING_SLOTS_PER_FRAME = 8
+
+
+class RingLayout(NamedTuple):
+    """ONE-word-per-event ring staging: ``x | y << bits_x |
+    t_rel << (bits_x + bits_y)``.
+
+    Valid when (a) the polarity filter runs upstream of staging (the pipe's
+    fused polarity+activity filter guarantees every staged event has
+    p == 1, so polarity needs no bit) and (b) the camera dims leave >= 13
+    bits for the packet-relative time (arrival packets span delta_t ~4.2
+    ms < 8.2 ms; longer spans are split at stage time).  640x480 sensors
+    fit exactly (10 + 9 + 13 = 32, so bit 31 is set for t_rel >= 4096);
+    larger sensors use 2-word staging."""
+
+    bits_x: int
+    bits_y: int
+    bits_t: int
+
+    @staticmethod
+    def for_camera(width: int, height: int) -> Optional["RingLayout"]:
+        bx = max(int(np.ceil(np.log2(max(width, 2)))), 1)
+        by = max(int(np.ceil(np.log2(max(height, 2)))), 1)
+        bt = 32 - bx - by
+        if bt < 13:
+            return None
+        return RingLayout(bx, by, bt)
+
+
+class RingPacket(NamedTuple):
+    """One staged packet: its device rows + host-side placement metadata."""
+
+    xy: torch.Tensor  # (packet_capacity,) int32 device row: the uint32
+    #   x | y << 16, or the single packed word when the ring uses a
+    #   RingLayout; lanes [0, count) are this packet's
+    tp: Optional[torch.Tensor]  # (packet_capacity,) int32: t_rel | p << 30;
+    #   None in compact (RingLayout) mode
+    gbase: int  # global index of this packet's first event
+    count: int  # valid events in the slot
+    t_base: int  # absolute microsecond timestamp of the first event
+    slot: int  # host slot index (ring bookkeeping)
+
+
+def _ring_segments(rows, meta: np.ndarray, capacity: int) -> list:
+    """Each packet's lanes of the frame, in arrival order, as views of its
+    device row: ``row[start : start + count]``, the total cut at
+    ``capacity`` (a larger frame keeps its first ``capacity`` events, as
+    ``EventBatch.from_structured`` does)."""
+    segs, left = [], capacity
+    for row, start, count in zip(rows, meta[0], meta[1]):
+        n = min(int(count), left)
+        segs.append(row[int(start):int(start) + n])
+        left -= n
+    return segs
+
+
+def _ring_batch(x, y, t, p, capacity: int) -> EventBatch:
+    """The batch of the frame's lanes ``x, y, t, p`` (one tensor each),
+    zero-padded to ``capacity`` as the segmented staging pads."""
+    n = x.shape[0]
+    valid, count = _lanes_valid(capacity, n, x.device)
+
+    def pad(a):
+        return torch.nn.functional.pad(a, (0, capacity - n))
+
+    return EventBatch(x=pad(x), y=pad(y), t=pad(t), p=pad(p), valid=valid, count=count)
+
+
+def assemble_ring_frame(xys, tps, meta: np.ndarray, capacity: int) -> EventBatch:
+    """Frame assembly from k resident packet rows (2-word ring).
+
+    ``meta`` is the host (3, k) int32 array of ``PacketRing.frame_meta``:
+    row 0 = per-packet start lane, row 1 = per-packet event count, row 2 =
+    per-packet time offset (packet t_base minus the frame's first event
+    time).  Packet k's events land contiguously after those of the packets
+    before it, giving the same contiguous, arrival-ordered,
+    capacity-padded batch (and bit-identical timestamps) as
+    ``EventBatch.from_structured`` of the segmented frame.  Torch ops on
+    the rows' device, from the host counts: no host -> device copy.
+    """
+    sx = _ring_segments(xys, meta, capacity)
+    st = _ring_segments(tps, meta, capacity)
+    xy = torch.cat(sx)
+    tp = torch.cat(st)
+    t = torch.cat([(s & _T_MASK) + int(off) for s, off in zip(st, meta[2])])
+    return _ring_batch(xy & 0xFFFF, (xy >> 16) & 0xFFFF, t, tp >> _P_SHIFT, capacity)
+
+
+def assemble_ring_frame_compact(
+    ws, meta: np.ndarray, capacity: int, layout: RingLayout
+) -> EventBatch:
+    """:func:`assemble_ring_frame` for compact (one-word) ring packets.
+
+    Same placement, one segment stream instead of two, and p
+    reconstructed as the constant 1 the upstream polarity filter
+    guarantees.  Bit-identical to ``EventBatch.from_structured`` of the
+    segmented slice.  This is also the first step of the plain version of
+    kernel 1's ring entry, which decodes the rows in registers on the
+    card."""
+    bx, by = layout.bits_x, layout.bits_y
+    shift = bx + by
+    segs = _ring_segments(ws, meta, capacity)
+    word = torch.cat(segs)
+    # logical shift: the word is packed unsigned (u32 reinterpreted)
+    t_mask = (1 << (32 - shift)) - 1
+    t = torch.cat([((s >> shift) & t_mask) + int(off) for s, off in zip(segs, meta[2])])
+    x = word & ((1 << bx) - 1)
+    return _ring_batch(x, (word >> bx) & ((1 << by) - 1), t, torch.ones_like(x), capacity)
+
+
+def ring_time_bounds(evs: np.ndarray, capacity: int) -> tuple[int, int]:
+    """(min, max) of a non-empty frame's first ``min(len, capacity)``
+    timestamps, relative to its first event: the masked min and max of the
+    int32 times the assembled batch holds (``t_rel + t_off == t -
+    t[0]``).  Kernel 1's ring entry bins time from them, as the 1-word
+    staged path bins on the host."""
+    t = evs["t"][:capacity]
+    t0 = int(evs["t"][0])
+    return int(t.min()) - t0, int(t.max()) - t0
+
+
+class PacketRing:
+    """Preallocated pinned host rows + one device tensor of packet rows.
+
+    Slots are reused oldest-first once their packet has been retired
+    (every event below the trigger finder's buffer base is final: frames
+    are emitted in order and push-back never reaches behind it).  Slot
+    count defaults to 4 frames of packets so a slot is never rewritten
+    while a frame referencing it is still being dispatched.
+
+    On CUDA each staged chunk is one ``non_blocking`` copy of its ``n``
+    valid words from its pinned host row into its device row
+    (``rows[name][slot]``), on the current stream.  Two guards:
+
+    - a pinned host row must not be rewritten while its copy is in flight:
+      a CUDA event is recorded after each row's copy and waited on before
+      the row is refilled;
+    - a retired device row is refilled while frame kernels that read it
+      may still be queued: this is safe only because the copy and every
+      frame kernel that reads the row run on ONE stream, in order.  The
+      ring and the engine must use the same (current) stream.
+
+    On CPU the device rows are plain tensors and the copy is synchronous.
+    """
+
+    def __init__(
+        self,
+        packet_capacity: int,
+        n_slots: int = 16,
+        device="cpu",
+        layout: Optional[RingLayout] = None,
+    ):
+        if n_slots < 2 * RING_SLOTS_PER_FRAME:
+            raise ValueError(f"n_slots {n_slots} < 2 * {RING_SLOTS_PER_FRAME}")
+        self.packet_capacity = packet_capacity
+        self.device = torch.device(device)
+        self.layout = layout
+        pinned = self.device.type == "cuda"
+        names = ("xy",) if layout is not None else ("xy", "tp")
+        shape = (n_slots, packet_capacity)
+        self._host = {k: torch.zeros(shape, dtype=torch.int32, pin_memory=pinned)
+                      for k in names}
+        #: the device ring: one int32 row a slot (two tensors for 2 words)
+        self.rows = {k: torch.zeros(shape, dtype=torch.int32, device=self.device)
+                     for k in names}
+        # uint32 / int32 NumPy views of the host rows
+        self._xy = self._host["xy"].numpy().view(np.uint32)
+        self._tp = self._host["tp"].numpy() if layout is None else None
+        self._copied: list[Optional[torch.cuda.Event]] = [None] * n_slots
+        self._free = list(range(n_slots))
+        self._live: list[RingPacket] = []  # sorted by gbase
+        self._next_global = 0
+        self.packets_staged = 0
+        self.overruns = 0
+
+    def reset(self):
+        self._free = list(range(len(self._copied)))
+        self._live.clear()
+        self._next_global = 0
+
+    def _take(self, slot: int) -> None:
+        """Wait until the slot's last copy out of its host row is done."""
+        if self._copied[slot] is not None:
+            self._copied[slot].synchronize()
+            self._copied[slot] = None
+
+    def _ship(self, slot: int, n: int) -> None:
+        """Copy the slot's ``n`` valid words of each host row to its device
+        row, then record the event that guards the host row."""
+        cuda = self.device.type == "cuda"
+        for name, host in self._host.items():
+            self.rows[name][slot, :n].copy_(host[slot, :n], non_blocking=cuda)
+        if cuda:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(self.device))
+            self._copied[slot] = ev
+
+    def stage_packets(self, evs: np.ndarray) -> bool:
+        """Stage one arrival packet (split into slot-capacity chunks).
+
+        Numbering MUST mirror the trigger finder's: both see the same
+        post-filter packet stream.  Returns False (and stages nothing
+        more) on ring overrun -- frames touching unstaged ranges fall
+        back to segmented staging.
+        """
+        P = self.packet_capacity
+        off = 0
+        while off < len(evs):
+            end = min(off + P, len(evs))
+            if self.layout is not None:
+                # bound the chunk's span to the layout's t_rel field
+                # (arrival packets are delta_t ~4.2 ms < 2^13 us, so
+                # this split only fires on abnormal streams)
+                tmax = int(evs["t"][off]) + (1 << self.layout.bits_t) - 1
+                if int(evs["t"][end - 1]) > tmax:
+                    end = off + int(
+                        np.searchsorted(evs["t"][off:end], tmax, "right")
+                    )
+            chunk = evs[off:end]
+            if not self._free:
+                self.overruns += 1
+                self._next_global += len(evs) - off
+                return False
+            slot_id = self._free.pop(0)
+            self._take(slot_id)
+            n = len(chunk)
+            t64 = chunk["t"].astype(np.int64, copy=False)
+            t_base = int(t64[0])
+
+            if self.layout is not None:
+                # ONE packed word/event: x | y << bx | t_rel << (bx+by).
+                # Polarity carries no bit -- the upstream polarity filter
+                # already dropped p == 0 (RingLayout contract).
+                bx, by = self.layout.bits_x, self.layout.bits_y
+                w = self._xy[slot_id]
+                np.subtract(t64, t_base, out=w[:n], casting="unsafe")
+                np.left_shift(w[:n], bx + by, out=w[:n])
+                np.bitwise_or(w[:n], chunk["x"].astype(np.uint32), out=w[:n])
+                np.bitwise_or(
+                    w[:n],
+                    chunk["y"].astype(np.uint32) << np.uint32(bx),
+                    out=w[:n],
+                )
+            else:
+                xy = self._xy[slot_id]
+                np.left_shift(
+                    chunk["y"].astype(np.uint32), 16,
+                    out=xy[:n], casting="unsafe",
+                )
+                np.bitwise_or(xy[:n], chunk["x"].astype(np.uint32), out=xy[:n])
+
+                tp = self._tp[slot_id]
+                np.subtract(t64, t_base, out=tp[:n], casting="unsafe")
+                np.bitwise_or(
+                    tp[:n],
+                    (chunk["p"].astype(np.int32) & 1) << _P_SHIFT,
+                    out=tp[:n],
+                )
+            # stale lanes beyond n are never addressed (per-packet counts
+            # bound every read), so only [:n] crosses to the device
+            self._ship(slot_id, n)
+
+            self._live.append(
+                RingPacket(
+                    xy=self.rows["xy"][slot_id],
+                    tp=self.rows["tp"][slot_id] if self.layout is None else None,
+                    gbase=self._next_global,
+                    count=n,
+                    t_base=t_base,
+                    slot=slot_id,
+                )
+            )
+            self._next_global += n
+            self.packets_staged += 1
+            off = end
+        return True
+
+    def skip_events(self, num_events: int):
+        """Advance the global EVENT numbering past ``num_events`` events
+        WITHOUT staging them (used while the watchdog is dropping frames:
+        bytes of a doomed frame should never cross the host->device link).
+        Frames that later turn out to span a skipped range simply miss
+        residency and take the segmented-staging fallback."""
+        if num_events < 0:
+            raise ValueError(f"skip_events({num_events})")
+        self._next_global += num_events
+
+    def retire_below(self, gmin: int):
+        """Free slots whose packets end at or before global index gmin."""
+        keep = []
+        for pkt in self._live:
+            if pkt.gbase + pkt.count <= gmin:
+                self._free.append(pkt.slot)
+            else:
+                keep.append(pkt)
+        self._live = keep
+
+    def frame_meta(
+        self, gs: int, ge: int, frame_t0: int
+    ) -> Optional[tuple[list, np.ndarray]]:
+        """Packets + (3, K) meta covering global range [gs, ge), or None
+        if the range is not fully resident (overrun/reset) or spans more
+        than RING_SLOTS_PER_FRAME packets."""
+        K = RING_SLOTS_PER_FRAME
+        pkts, starts, counts, t_offs = [], [], [], []
+        covered = gs
+        for pkt in self._live:
+            if pkt.gbase + pkt.count <= gs or pkt.gbase >= ge:
+                continue
+            if pkt.gbase > covered:
+                return None  # hole (events were never staged)
+            s = max(gs - pkt.gbase, 0)
+            e = min(ge - pkt.gbase, pkt.count)
+            pkts.append(pkt)
+            starts.append(s)
+            counts.append(e - s)
+            t_offs.append(pkt.t_base - frame_t0)
+            covered = pkt.gbase + e
+        if covered < ge or not pkts:
+            return None
+        if len(pkts) > K:
+            return None
+        # meta is (3, len(pkts)): the frame's actual packet count
+        meta = np.stack(
+            [
+                np.asarray(starts, np.int32),
+                np.asarray(counts, np.int32),
+                np.asarray(t_offs, np.int32),
+            ]
+        )
+        return pkts, meta
+
+    def frame(
+        self, gstart: int, evs: np.ndarray, capacity: int
+    ) -> Optional[tuple[list, np.ndarray, tuple[int, int]]]:
+        """The arguments of ``XMapsDepthEngine.process_ring`` for the frame
+        ``evs`` the trigger finder emitted at global index ``gstart``:
+        (packets, (3, k) meta, ``ring_time_bounds`` at ``capacity``), or
+        None if the frame is empty or :meth:`frame_meta` finds it not
+        (all) resident."""
+        if not len(evs):
+            return None
+        out = self.frame_meta(gstart, gstart + len(evs), int(evs["t"][0]))
+        if out is None:
+            return None
+        return (*out, ring_time_bounds(evs, capacity))

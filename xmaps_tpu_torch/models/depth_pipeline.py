@@ -18,7 +18,15 @@ import torch
 
 from xmaps_tpu_torch.calib.maps import CalibrationParams, CamProjMaps
 from xmaps_tpu_torch.config import PipelineConfig, RuntimeParams
-from xmaps_tpu_torch.io.prefetch import CompactLayout, CompactStagedBatch, unpack_staged
+from xmaps_tpu_torch.io.prefetch import (
+    RING_SLOTS_PER_FRAME,
+    CompactLayout,
+    CompactStagedBatch,
+    RingLayout,
+    assemble_ring_frame,
+    assemble_ring_frame_compact,
+    unpack_staged,
+)
 from xmaps_tpu_torch.ops.cuda_tail import (
     CamTailPlan,
     TailPlan,
@@ -31,6 +39,7 @@ from xmaps_tpu_torch.ops.frame_pipeline import (
     DeviceTables,
     FrameResult,
     depth_frame,
+    ring_depth_frame,
     staged_depth_frame,
 )
 from xmaps_tpu_torch.ops.scatter import MAX_CAPACITY
@@ -283,6 +292,78 @@ class XMapsDepthEngine:
                 )
             return staged_depth_frame(staged, layout, self.tables, self.cfg, self.plan, **kw)
         return depth_frame(unpack_staged(staged), self.tables, self.cfg, self.plan, **kw)
+
+    @property
+    def ring_layout(self) -> Optional[RingLayout]:
+        """The 1-word packet-ring layout, or None where the camera leaves
+        fewer than 13 bits for the packet-relative time (2-word ring)."""
+        return RingLayout.for_camera(self.cfg.camera_width, self.cfg.camera_height)
+
+    def process_ring(
+        self, packets, meta: np.ndarray, t_bounds: Optional[tuple[int, int]] = None
+    ) -> FrameResult:
+        """Run the frame on device-resident ring packets
+        (``io.prefetch.PacketRing`` pre-staging), display-only with the
+        packed-BGR plane: ``packets`` is the list of RingPackets covering
+        the frame, ``meta`` the host (3, k) placement array from
+        ``PacketRing.frame_meta``.
+
+        With ``t_bounds`` (``io.prefetch.ring_time_bounds`` of the frame, as
+        the pipe passes them), a 1-word ring and no dedup filter, kernel 1's
+        ring entry reads the packet rows itself: nothing crosses the link
+        at dispatch and nothing runs on the card before kernel 1.  Any
+        other frame -- a 2-word ring (``ring_layout`` is None), a dedup
+        filter, or no ``t_bounds`` (the JAX package's signature) -- is a
+        layout that entry does not cover: it is assembled by torch ops
+        (``assemble_ring_frame[_compact]``) and runs ``depth_frame``, the
+        filter and its priority included."""
+        k = len(packets)
+        if not (0 < k <= RING_SLOTS_PER_FRAME and meta.shape == (3, k)):
+            raise ValueError(f"process_ring: {k} packets, meta {meta.shape}")
+        kw = dict(display_only=True, display_packed=True)
+        cap = self.cfg.event_capacity
+        rows = tuple(p.xy for p in packets)
+        if packets[0].tp is None:
+            # compact one-word packets (PacketRing built with RingLayout)
+            layout = self.ring_layout
+            if layout is None:
+                raise ValueError("1-word ring packets need the engine's ring_layout")
+            if t_bounds is not None and self.cfg.frame_filter == "none":
+                return ring_depth_frame(rows, meta, t_bounds, layout, self.tables, self.cfg,
+                                        self.plan, **kw)
+            batch = assemble_ring_frame_compact(rows, meta, cap, layout)
+        else:
+            batch = assemble_ring_frame(rows, tuple(p.tp for p in packets), meta, cap)
+        return depth_frame(batch, self.tables, self.cfg, self.plan, **kw)
+
+    def dump_frame_csv(self, events: np.ndarray, csv_path: str) -> int:
+        """Write one frame's per-event debug CSV: raw coords, rectified
+        coords and disparity for every inlier (the reference's debug dump,
+        depth_reprojection_pipe.py:19-34).  Returns the inlier count.
+
+        Runs the per-event stage only (``ops.disparity``'s plain
+        ``compute_event_disparity``; no scatter or tail) and fetches to the
+        host; for offline inspection, not the hot path."""
+        import csv
+
+        from xmaps_tpu_torch.ops.disparity import compute_event_disparity
+
+        batch = self.make_batch(events)
+        res = compute_event_disparity(
+            batch,
+            self.tables.cam_mapx_i16,
+            self.tables.cam_mapy_i16,
+            self.tables.x_map,
+            t_px_scale=self.cfg.t_px_scale,
+        )
+        keep = res.inlier.cpu().numpy()
+        cols = [a.cpu().numpy()[keep] for a in
+                (batch.x, batch.y, batch.t, res.x_rect, res.y_rect, res.disp)]
+        with open(csv_path, "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["x", "y", "t", "x_r", "y_r", "disp"])
+            w.writerows(zip(*cols))
+        return int(keep.sum())
 
     def process_frames(self, frames: list, **kw) -> list:
         """Run many independent frames, one after another (one

@@ -72,6 +72,16 @@ _SIGNATURES = {
         _P, _P,  # packed map, inlier count
         _P,  # stream
     ],
+    "event_disparity_scatter_ring": [  # kernel 1 on the packet ring's rows
+        _P, _P, _P, _P,  # host: k row pointers, k start lanes, k counts, k time offsets
+        _I, _I, _I, _I,  # k, host count, bits_x, bits_y
+        _I, _I, _I,  # t_min, t_max (the frame's, host), t_px_scale
+        _P, _I, _I,  # cam LUT (packed i32), cam_h, cam_w
+        _P, _I, _I,  # x_map (i16), xmap_h, xmap_w
+        _I, _I, _I, _I, _I,  # camera_view, oy, ox, out_h, out_w
+        _P, _P,  # packed map, inlier count
+        _P,  # stream
+    ],
     "tail_projector": [  # two launches: tail_dilate, tail_remap_colorize
         _P, _I, _I, _I, _I, _I, _I,  # packed crop, H, W, row0, col0, full_h, full_w
         _P,  # (H, W) u16 scratch: the dilated crop

@@ -16,23 +16,36 @@ x, y and the time bin of each lane below the host count in registers, so
 nothing runs between the batch's host-to-device copy and the kernel.  Its
 plain version is ``unpack_staged_compact`` + the plain scatter.
 
+``event_disparity_scatter_ring`` is the same kernel on the packet ring's
+device rows (``io.prefetch.PacketRing`` with a ``RingLayout``): the k <= 8
+packets' rows and their placement go in as kernel arguments, each lane
+finds its packet, decodes its word and bins its time from the frame's host
+time bounds in registers, so nothing crosses the link at dispatch.  Its
+plain version is the compact ring assembly, ``scale_time`` and the plain
+scatter.
+
 The map and the count are zeroed inside the kernel's cooperative launch:
 both are allocated with ``torch.empty``, and no fill runs on the path.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from xmaps_tpu_torch.io.prefetch import (
+    RING_SLOTS_PER_FRAME,
     CompactLayout,
     CompactStagedBatch,
+    RingLayout,
+    assemble_ring_frame_compact,
     unpack_staged_compact,
 )
 from xmaps_tpu_torch.ops import _build
-from xmaps_tpu_torch.ops.disparity import compute_event_disparity
+from xmaps_tpu_torch.ops.disparity import compute_event_disparity, scale_time
 from xmaps_tpu_torch.ops.event_batch import EventBatch
 from xmaps_tpu_torch.ops.scatter import MAX_CAPACITY, scatter_disp_packed
 
@@ -42,6 +55,8 @@ __all__ = [
     "event_disparity_scatter_plain",
     "event_disparity_scatter_staged",
     "event_disparity_scatter_staged_plain",
+    "event_disparity_scatter_ring",
+    "event_disparity_scatter_ring_plain",
 ]
 
 
@@ -246,5 +261,112 @@ def event_disparity_scatter_staged(
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check("event_disparity_scatter_staged", err)
+    _build.LAUNCHES["event_disparity_scatter"] += 1
+    return EventScatterResult(packed, inliers)
+
+
+def event_disparity_scatter_ring_plain(
+    rows,
+    meta: np.ndarray,
+    count: int,
+    t_bounds: tuple[int, int],
+    layout: RingLayout,
+    tables,
+    *,
+    t_px_scale: int,
+    camera_view: bool,
+    window: tuple[int, int],
+    out_shape: tuple[int, int],
+) -> EventScatterResult:
+    """Plain PyTorch version of ``event_disparity_scatter_ring`` (any
+    device): the compact ring assembly of the frame's ``count`` lanes, the
+    time binning (``scale_time``, which takes the bounds from the batch
+    itself: ``t_bounds`` is what the kernel must agree with), then the
+    plain scatter.  Lanes past the count would be padding, which no result
+    depends on, so the batch holds just the ``count`` lanes."""
+    del t_bounds
+    batch = assemble_ring_frame_compact(rows, meta, count, layout)
+    t_bin = scale_time(batch.t, batch.valid, t_px_scale)
+    return event_disparity_scatter_plain(
+        batch, t_bin, tables, camera_view=camera_view, window=window, out_shape=out_shape,
+    )
+
+
+def event_disparity_scatter_ring(
+    rows,
+    meta: np.ndarray,
+    count: int,
+    t_bounds: tuple[int, int],
+    layout: RingLayout,
+    tables,
+    *,
+    t_px_scale: int,
+    camera_view: bool,
+    window: tuple[int, int],
+    out_shape: tuple[int, int],
+) -> EventScatterResult:
+    """One frame read straight from the packet ring -> packed disparity map
+    + inlier count, equal to ``event_disparity_scatter`` on the assembled
+    batch and its time bins.
+
+    ``rows``: the k packets' device rows (``RingPacket.xy``, int32 words
+    ``x | y << bits_x | t_rel << (bits_x + bits_y)``); ``meta``: the host
+    (3, k) int32 placement of ``PacketRing.frame_meta`` (start lanes,
+    counts, time offsets); ``count``: ``min(frame events, capacity)``, the
+    lanes read; ``t_bounds``: the host (min, max) of the frame's times over
+    those lanes relative to its first event (``io.prefetch.ring_time_bounds``).
+    The rows must be on the tables' device, and the copies that filled them
+    on the current stream.
+    """
+    k = len(rows)
+    if not 1 <= k <= RING_SLOTS_PER_FRAME or meta.shape != (3, k):
+        raise ValueError(f"event_disparity_scatter_ring: {k} packets (1..{RING_SLOTS_PER_FRAME})"
+                         f" with meta {meta.shape}")
+    starts, counts, t_offs = (np.ascontiguousarray(m, dtype=np.int32) for m in meta)
+    total = int(counts.sum())
+    if not 1 <= count <= min(total, MAX_CAPACITY):
+        raise ValueError(f"event_disparity_scatter_ring: count {count} outside [1, "
+                         f"min({total}, {MAX_CAPACITY})]")
+    dev = rows[0].device
+    if dev.type == "cpu":
+        return event_disparity_scatter_ring_plain(
+            rows, meta, count, t_bounds, layout, tables, t_px_scale=t_px_scale,
+            camera_view=camera_view, window=window, out_shape=out_shape,
+        )
+    if dev.type != "cuda":
+        raise ValueError(f"event_disparity_scatter_ring: unsupported device {dev}")
+    for row, s, c in zip(rows, starts, counts):
+        if (row.device != dev or row.dtype != torch.int32 or row.dim() != 1
+                or not row.is_contiguous() or s < 0 or c < 1 or s + c > row.shape[0]):
+            raise ValueError(f"event_disparity_scatter_ring: a packet row {row.dtype} "
+                             f"{tuple(row.shape)} on {row.device} (lanes [{s}, {s + c}))"
+                             f" is not a contiguous int32 row on {dev} holding them")
+    bits = (layout.bits_x, layout.bits_y, layout.bits_t)
+    if min(bits) < 1 or sum(bits) > 32:
+        raise ValueError(f"event_disparity_scatter_ring: layout widths {bits}")
+    t_min, t_max = (int(v) for v in t_bounds)
+    if t_min > t_max:
+        raise ValueError(f"event_disparity_scatter_ring: t_bounds {t_bounds}")
+    for name, a, dtype in (("cam_map_packed", tables.cam_map_packed, torch.int32),
+                           ("x_map", tables.x_map, torch.int16)):
+        if a.device != dev or a.dtype != dtype or not a.is_contiguous():
+            raise ValueError(f"event_disparity_scatter_ring: {name} must be a contiguous "
+                             f"{dtype} tensor on {dev}, got {a.dtype} on {a.device}")
+    lib = _build.load()
+    packed, inliers = _outputs(out_shape, dev)
+    cam_h, cam_w = tables.cam_map_packed.shape
+    xmap_h, xmap_w = tables.x_map.shape
+    (oy, ox), (out_h, out_w) = window, out_shape
+    ptrs = (ctypes.c_void_p * k)(*(row.data_ptr() for row in rows))
+    err = lib.event_disparity_scatter_ring(
+        ctypes.addressof(ptrs), starts.ctypes.data, counts.ctypes.data, t_offs.ctypes.data,
+        k, count, layout.bits_x, layout.bits_y, t_min, t_max, t_px_scale,
+        tables.cam_map_packed.data_ptr(), cam_h, cam_w,
+        tables.x_map.data_ptr(), xmap_h, xmap_w,
+        int(camera_view), oy, ox, out_h, out_w,
+        packed.data_ptr(), inliers.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check("event_disparity_scatter_ring", err)
     _build.LAUNCHES["event_disparity_scatter"] += 1
     return EventScatterResult(packed, inliers)

@@ -15,6 +15,11 @@ On CUDA a frame is the time binning (a few PyTorch ops) and two kernels:
 ``staged_depth_frame`` runs the 1-word staged batch of the streaming path
 (the time bins binned on the host) through the kernel's staged entry, which
 decodes the words itself: the two kernels and nothing else.
+``ring_depth_frame`` runs a frame that is already on the card as packet
+rows of the ring (``io.prefetch.PacketRing`` with a ``RingLayout``,
+unfiltered) through the kernel's ring entry, which reads the rows, decodes
+the words and bins time from the frame's host time bounds: again the two
+kernels and nothing else.
 With a dedup frame filter (``cfg.frame_filter``, ``ops.filters``) the
 events are first rectified (a gather of the camera LUT) and filtered; the
 time binning then runs on the filtered batch and kernel 1 takes the
@@ -30,9 +35,10 @@ import numpy as np
 import torch
 
 from xmaps_tpu_torch.config import PipelineConfig
-from xmaps_tpu_torch.io.prefetch import CompactLayout, CompactStagedBatch
+from xmaps_tpu_torch.io.prefetch import CompactLayout, CompactStagedBatch, RingLayout
 from xmaps_tpu_torch.ops.cuda_events import (
     event_disparity_scatter,
+    event_disparity_scatter_ring,
     event_disparity_scatter_staged,
 )
 from xmaps_tpu_torch.ops.cuda_tail import (
@@ -46,7 +52,14 @@ from xmaps_tpu_torch.ops.event_batch import EventBatch
 from xmaps_tpu_torch.ops.filters import FilteredBatch, apply_frame_filter
 from xmaps_tpu_torch.ops.image_tail import turbo_packed_lut
 
-__all__ = ["DeviceTables", "FrameResult", "depth_frame", "filter_events", "staged_depth_frame"]
+__all__ = [
+    "DeviceTables",
+    "FrameResult",
+    "depth_frame",
+    "filter_events",
+    "ring_depth_frame",
+    "staged_depth_frame",
+]
 
 
 class DeviceTables(NamedTuple):
@@ -182,6 +195,34 @@ def staged_depth_frame(
         raise ValueError("a 1-word staged batch requires frame_filter == 'none'")
     ev = event_disparity_scatter_staged(
         staged.word, staged.count, layout, tables, **_scatter_view(cfg, plan),
+    )
+    return _tail(ev, tables, cfg, plan, display_only, display_packed)
+
+
+def ring_depth_frame(
+    rows,
+    meta: np.ndarray,
+    t_bounds: tuple[int, int],
+    layout: RingLayout,
+    tables: DeviceTables,
+    cfg: PipelineConfig,
+    plan: Union[TailPlan, CamTailPlan],
+    *,
+    display_only: bool = False,
+    display_packed: bool = False,
+) -> FrameResult:
+    """``depth_frame`` of a frame held by k packet rows of the 1-word ring
+    (``rows``: the packets' device rows; ``meta``: the host (3, k)
+    placement of ``PacketRing.frame_meta``; ``t_bounds``: the frame's host
+    time bounds, ``io.prefetch.ring_time_bounds``), unfiltered: kernel 1's
+    ring entry, then the tail.  The counterpart of the JAX engine's
+    ``ring_frame_compact``."""
+    if cfg.frame_filter != "none":
+        raise ValueError("kernel 1's ring entry requires frame_filter == 'none'")
+    count = min(int(meta[1].sum()), cfg.event_capacity)
+    ev = event_disparity_scatter_ring(
+        rows, meta, count, t_bounds, layout, tables, t_px_scale=cfg.t_px_scale,
+        **_scatter_view(cfg, plan),
     )
     return _tail(ev, tables, cfg, plan, display_only, display_packed)
 

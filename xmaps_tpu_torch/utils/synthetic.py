@@ -213,3 +213,22 @@ def with_events_outside_camera(
     out["t"] = rng.integers(lo, hi + 1, 2 * n)
     merged = np.concatenate([events, out])
     return merged[np.argsort(merged["t"], kind="stable")]
+
+
+def as_arrival_packets(
+    events: np.ndarray, k: int, span_us: int, rng: np.random.Generator, t0: int = 10**6,
+) -> tuple[np.ndarray, list]:
+    """``events`` retimed over ``k`` arrival packets of ``span_us``
+    microseconds each, polarity 1 (as after the pipe's polarity filter):
+    (the retimed events in time order, the k packets as consecutive slices
+    of them).  A packet never spans ``span_us`` or more, so a 1-word ring
+    whose time field holds ``span_us`` stages each as one row, and its
+    packet-relative times reach bit 31 of the word where ``span_us`` passes
+    half that field."""
+    ev = events.copy()
+    ev["p"] = 1
+    which = np.sort(rng.integers(0, k, len(ev)))
+    ev["t"] = t0 + which * span_us + rng.integers(0, span_us, len(ev))
+    ev = ev[np.argsort(ev["t"], kind="stable")]
+    cuts = np.searchsorted(ev["t"], t0 + span_us * np.arange(k + 1))
+    return ev, [ev[a:b] for a, b in zip(cuts[:-1], cuts[1:])]
