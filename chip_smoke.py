@@ -3,7 +3,8 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-Builds the eight CUDA kernels from xmaps_tpu_torch/csrc/ with nvcc (one
+Builds the eight CUDA kernels (and the group entries of kernels 1, 2 and
+3) from xmaps_tpu_torch/csrc/ with nvcc (one
 process a source, started together), checks each against its plain PyTorch
 version on the card (kernel 3's per-engine colorize table against the plain
 epilogue of all 8192 disparities, bit for bit), and drives the port's paths:
@@ -19,6 +20,15 @@ epilogue of all 8192 disparities, bit for bit), and drives the port's paths:
   runs beside kernel 1 (it zeroes its map inside its cooperative launch),
   times the staged and ring entries, and times the engine's dispatch from
   the trigger on, ``process_ring`` against ``process_staged``, in turns;
+- ``process_frames`` as one program (phase 4b): kernel 1's group entries
+  (the group's 1-word rows and device counts, the stacked arrays with and
+  without a priority) and the tail's group entries against their plain
+  versions, then ``process_frames`` of the 12 demonstrator frames in both
+  views, of the ESL frames and of the 12 frames with a dedup filter, one
+  launch of kernel 1 and one of the tail a group, every element bit-equal
+  to ``process_frame`` on the card and to the CPU port; phase 6 times the
+  group against the per-frame loop (device and wall ms a frame, in turns)
+  and each group entry against its plain version;
 - the five dedup frame filters (phase 5b): kernel 1 with each filter's
   scatter priority against its plain version, then ``set_frame_filter``
   and the 12 demonstrator frames in both views for each of the four dedup
@@ -140,10 +150,26 @@ KERNEL_INFO = {
         "xmaps_tpu_torch/csrc/store_loop.cu",
         "eval/bench_store_loop.py:86",
     ),
+    # the group entries (process_frames: F frames in one call of each)
+    "event_disparity_scatter_group": (
+        "xmaps_tpu_torch/csrc/events.cu",
+        "xmaps_tpu/ops/pallas_events.py:508",
+    ),
+    "tail_projector_group": (
+        "xmaps_tpu_torch/csrc/tail.cu",
+        "xmaps_tpu/ops/pallas_tail.py:851",
+    ),
+    "colorize_camera_group": (
+        "xmaps_tpu_torch/csrc/tail.cu",
+        "xmaps_tpu/ops/pallas_tail.py:777",
+    ),
 }
 #: H100 SXM memory rate (NVIDIA data sheet), bytes/s: every kernel here
 #: moves far more bytes than it does operations, so its bound is bytes
 HBM_BYTES_PER_S = 3.35e12
+#: the largest share of its bound a kernel's time may show (1, and the
+#: timing's noise): a larger one means a bound that does not bound
+MAX_SHARE = 1.05
 N_FRAMES = 12
 CAPACITY = 28 * 1024
 Z_NEAR, Z_FAR = 0.2, 1.2
@@ -159,6 +185,8 @@ LIVE_S = 1.0
 #: host seconds of untimed calls on each side of a profiled window
 #: (device_events)
 PROFILE_PAD_S = 0.02
+#: bytes written between the calls of a cold timing (cold_device_ms)
+L2_FLUSH_BYTES = 256 << 20
 
 
 def log(msg: str) -> None:
@@ -487,6 +515,206 @@ def phase_filters(card, errs, engines, frames, eng_e, esl_frames):
     return launches
 
 
+def group_parity(eng, frames, errs):
+    """Phase 4b: kernel 1's group entries (the staged rows of the group's
+    one buffer, and the stacked arrays with and without a priority) and the
+    view's tail group entry against their plain versions on the card, on
+    the group the main path gives them.  Returns (the staged group, kernel
+    1's staged group result)."""
+    import torch
+    from xmaps_tpu_torch.ops.cuda_events import (
+        event_disparity_scatter_group,
+        event_disparity_scatter_group_plain,
+        event_disparity_scatter_staged_group,
+        event_disparity_scatter_staged_group_plain,
+    )
+    from xmaps_tpu_torch.ops.cuda_tail import (
+        colorize_camera_group,
+        colorize_camera_group_plain,
+        tail_projector_group,
+        tail_projector_group_plain,
+    )
+    from xmaps_tpu_torch.ops.disparity import scale_time
+    from xmaps_tpu_torch.ops.event_batch import EventBatch
+
+    kw, _, _, tail_name = view_kwargs(eng)
+    tail, tail_plain = ((colorize_camera_group, colorize_camera_group_plain)
+                        if kw["camera_view"] else (tail_projector_group, tail_projector_group_plain))
+    cap, layout, tables = eng.cfg.event_capacity, eng.compact_layout, eng.tables
+    staged = eng.stage_group(frames)
+    got = event_disparity_scatter_staged_group(staged, layout, tables, **kw)
+    ref = event_disparity_scatter_staged_group_plain(staged, layout, tables, **kw)
+    err = assert_exact("event_disparity_scatter_staged_group",
+                       [(got.packed_map, ref.packed_map), (got.num_inliers, ref.num_inliers)])
+    batch = EventBatch.stack_structured(frames, cap, device="cuda")
+    t_bin = scale_time(batch.t, batch.valid, eng.cfg.t_px_scale)
+    prio = torch.from_numpy(np.random.default_rng(17).integers(
+        0, cap, (len(frames), cap), dtype=np.int32)).cuda()
+    for p in (None, prio):
+        a = event_disparity_scatter_group(batch, t_bin, tables, priority=p, **kw)
+        b = event_disparity_scatter_group_plain(batch, t_bin, tables, priority=p, **kw)
+        err = max(err, assert_exact(
+            f"event_disparity_scatter_group (priority {p is not None})",
+            [(a.packed_map, b.packed_map), (a.num_inliers, b.num_inliers)]))
+    assert_exact("kernel 1's staged group entry vs its array group entry",
+                 [(got.packed_map, event_disparity_scatter_group(
+                     batch, t_bin, tables, **kw).packed_map)])
+    errs["event_disparity_scatter_group"] = max(
+        errs.get("event_disparity_scatter_group", 0.0), err)
+    for opts in (dict(emit_aux=True, packed_bgr=False),
+                 dict(emit_aux=False, packed_bgr=False),
+                 dict(emit_aux=False, packed_bgr=True)):
+        e = assert_exact(f"{tail_name}_group {opts}", list(zip(
+            tail(got.packed_map, tables, eng.plan, **opts),
+            tail_plain(got.packed_map, tables, eng.plan, **opts))))
+        errs[tail_name + "_group"] = max(errs.get(tail_name + "_group", 0.0), e)
+    log(f"  group entries, {len(frames)} frames {tuple(got.packed_map.shape)}: kernel 1 staged "
+        f"and array (with and without a priority), {tail_name}_group in 3 modes: exact")
+    return staged, got
+
+
+def phase4b_group(card, errs, engines, frames, eng_e, esl_frames):
+    """Phase 4b: ``process_frames`` as one program.  The group entries
+    against their plain versions (``group_parity``), then the main path:
+    ``process_frames`` of the 12 demonstrator frames in both views, of the
+    ESL frames, and of the 12 frames with a dedup filter (the array
+    layout), every element bit-equal to ``process_frame`` on the card and
+    to the CPU port; one launch of kernel 1 and one of the tail a group.
+    Returns (the main path's launches, counted from 0 just before it and
+    read just after; the staged groups and kernel 1's results by view)."""
+    import torch
+    from xmaps_tpu_torch.ops import _build
+
+    log("phase 4b process_frames as one program:")
+    groups = {view: group_parity(eng, frames, errs) for view, eng in engines.items()}
+    torch.cuda.synchronize()
+    runs = [(view, eng, frames, "none") for view, eng in engines.items()]
+    runs += [("esl_projector", eng_e, esl_frames, "none"),
+             ("projector", engines["projector"], frames, "first_per_xy")]
+    _build.reset_launch_counts()
+    outs = []
+    for _, eng, fr, name in runs:
+        eng.set_frame_filter(name)
+        outs.append(eng.process_frames(fr))
+        eng.set_frame_filter("none")
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    want = {k: 0 for k in launches}
+    want.update(event_disparity_scatter_group=len(runs), tail_projector_group=len(runs) - 1,
+                colorize_camera_group=1)
+    if launches != want:
+        raise AssertionError(f"process_frames launches {launches} != {want}")
+    for (view, eng, fr, name), got in zip(runs, outs):
+        eng.set_frame_filter(name)
+        cpu = eng.to("cpu")
+        packed = eng.process_frames(fr, display_only=True, display_packed=True)
+        for i, ev in enumerate(fr):
+            one = eng.process_frame(ev)
+            assert_exact(f"{view} {name} group frame {i} vs process_frame",
+                         frame_pairs(got[i], one))
+            assert_exact(f"{view} {name} group frame {i} vs the CPU port",
+                         frame_pairs(got[i], cpu.process_frame(ev)))
+            assert_exact(f"{view} {name} packed group frame {i} vs process_frame", [
+                (packed[i].frame_bgr, eng.process_frame(
+                    ev, display_only=True, display_packed=True).frame_bgr)])
+        eng.set_frame_filter("none")
+        log(f"  {view} ({name}): process_frames of {len(fr)} frames, each bit-equal to "
+            f"process_frame on the card and to the CPU port (display-packed too); inliers "
+            f"{[int(o.num_inliers) for o in got]}")
+    log(f"  launches {launches}: one kernel 1 and one tail a group {card}")
+    return launches, groups
+
+
+def time_group(card, engines, frames, kernels_ms, shapes, groups):
+    """Phase 6, the group: device and wall ms a frame of ``process_frames``
+    over the 12 frames against the per-frame loop (``process_frame`` each),
+    display-packed, in turns (group, loop, loop, group; device: profiler,
+    4 calls of 12 frames a turn; wall: host clock + synchronize, median of
+    10 calls a turn); then each group entry against its plain version
+    (kernels_ms) with the L2 cache flushed before each call, as its HBM
+    bound assumes (back to back, the group's maps and outputs stay in the
+    50 MB L2: that time is logged beside), and the shapes of the group
+    entries' bounds."""
+    import torch
+    from xmaps_tpu_torch.ops.cuda_events import (
+        event_disparity_scatter_staged_group,
+        event_disparity_scatter_staged_group_plain,
+    )
+    from xmaps_tpu_torch.ops.cuda_tail import (
+        colorize_camera_group,
+        colorize_camera_group_plain,
+        tail_projector_group,
+        tail_projector_group_plain,
+    )
+
+    disp = dict(display_only=True, display_packed=True)
+    f = len(frames)
+    for view, eng in engines.items():
+        calls = {"group": lambda: eng.process_frames(frames, **disp),
+                 "loop": lambda: [eng.process_frame(ev, **disp) for ev in frames]}
+        for fn in calls.values():
+            fn()
+        res = {k: [] for k in calls}
+        for k in ("group", "loop", "loop", "group"):
+            dev, by_name = profile_calls(calls[k], 4)
+            wall = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                calls[k]()
+                torch.cuda.synchronize()
+                wall.append((time.perf_counter() - t0) * 1e3)
+            res[k].append((dev / f, statistics.median(wall) / f, by_name))
+        (g1, g2), (l1, l2) = res["group"], res["loop"]
+        top = {k.replace("(anonymous namespace)::", "")[:48]: round(v * 1e3 / f, 3)
+               for k, v in sorted(g1[2].items(), key=lambda kv: -kv[1])[:5]}
+        log(f"  {view} group of {f}: device {(g1[0] + g2[0]) / 2:.5f} ms/frame (turns "
+            f"{g1[0]:.5f}, {g2[0]:.5f}) vs loop {(l1[0] + l2[0]) / 2:.5f} ({l1[0]:.5f}, "
+            f"{l2[0]:.5f}); wall {(g1[1] + g2[1]) / 2:.5f} ms/frame ({g1[1]:.5f}, {g2[1]:.5f}) "
+            f"vs loop {(l1[1] + l2[1]) / 2:.5f} ({l1[1]:.5f}, {l2[1]:.5f}) {card}")
+        log(f"      the group's device events, us/frame: {top}")
+
+    layout = engines["projector"].compact_layout
+    packed_disp = dict(emit_aux=False, packed_bgr=True)
+    eng_p, eng_c = engines["projector"], engines["camera"]
+    (staged_p, ev_p), (staged_c, ev_c) = groups["projector"], groups["camera"]
+    kw_p = view_kwargs(eng_p)[0]
+    pairs = {
+        "event_disparity_scatter_group": (
+            lambda: event_disparity_scatter_staged_group(staged_p, layout, eng_p.tables, **kw_p),
+            lambda: event_disparity_scatter_staged_group_plain(staged_p, layout, eng_p.tables,
+                                                               **kw_p)),
+        "tail_projector_group": (
+            lambda: tail_projector_group(ev_p.packed_map, eng_p.tables, eng_p.plan,
+                                         **packed_disp),
+            lambda: tail_projector_group_plain(ev_p.packed_map, eng_p.tables, eng_p.plan,
+                                               **packed_disp)),
+        "colorize_camera_group": (
+            lambda: colorize_camera_group(ev_c.packed_map, eng_c.tables, eng_c.plan,
+                                          **packed_disp),
+            lambda: colorize_camera_group_plain(ev_c.packed_map, eng_c.tables, eng_c.plan,
+                                                **packed_disp)),
+    }
+    warm_ms = {}
+    for k, (kernel_fn, plain_fn) in pairs.items():
+        kernels_ms[k] = time_pair(kernel_fn, plain_fn, cold=True)
+        warm_ms[k] = device_ms(kernel_fn)[0]
+    t = eng_p.tables
+    lut_b, xmap_b = t.cam_map_packed.numel() * 4, t.x_map.numel() * 2
+    shapes["event_disparity_scatter_group"] = (
+        staged_p.host_counts, lut_b, xmap_b, ev_p.packed_map[0].numel())
+    shapes["tail_projector_group"] = (f, ev_p.packed_map[0].numel(), t.proj_mapx_i16.numel())
+    shapes["colorize_camera_group"] = (
+        ev_c.packed_map[0].numel(), [distinct_disparities(m) for m in ev_c.packed_map])
+    for k in ("event_disparity_scatter_group", "tail_projector_group", "colorize_camera_group"):
+        km, pm = kernels_ms[k]
+        bound = kernel_bytes(k, shapes) / HBM_BYTES_PER_S * 1e3
+        log(f"  kernel {k} ({f} frames a call): {km['ms']:.5f} ms device, L2 flushed before "
+            f"each call (turns {km['turns'][0]:.5f}, {km['turns'][1]:.5f}), "
+            f"{km['ms'] / f:.6f} ms/frame; back to back {warm_ms[k]:.5f} ms; plain "
+            f"{pm['ms']:.5f} ms (flushed); bound {bound:.6f} ms (bytes, F x a frame's), share "
+            f"{bound / km['ms']:.4f} {card}")
+
+
 def filters_out_of_camera(engines, frames):
     """Phase 5b: each dedup filter on frames with events outside the camera
     (a larger sensor than the configured camera): no device-side assert,
@@ -656,15 +884,45 @@ def device_ms(fn, iters=50):
     return (dev, "profiler", ev, by_name) if dev is not None else (ev, "cuda_events", ev, {})
 
 
-def time_pair(kernel_fn, plain_fn):
+def cold_device_ms(fn, iters=50):
+    """``device_ms`` of ``fn`` with the L2 cache flushed before each call:
+    each call follows a ``bitwise_not_`` of ``L2_FLUSH_BYTES`` (5x the
+    H100's 50 MB L2, so the call reads its inputs from HBM and evicts the
+    flush's dirty lines as it writes), whose device events are left out of
+    the sum (the profiler's time only; the CUDA-event time includes them).
+    Raises if ``fn`` itself runs a kernel of the flush's name."""
+    import torch
+
+    buf = torch.zeros(L2_FLUSH_BYTES // 8, dtype=torch.int64, device="cuda")
+    _, flush = profile_calls(buf.bitwise_not_, 4)
+    _, own = profile_calls(fn, 4)
+    if not flush or set(flush) & set(own):
+        raise AssertionError(f"the L2 flush's device events {sorted(flush)} are not "
+                             f"apart from the call's {sorted(own)}")
+
+    def call():
+        buf.bitwise_not_()
+        fn()
+
+    _, source, ev, names = device_ms(call, iters)
+    if source != "profiler":
+        raise AssertionError("the profiler recorded no device event: no cold time")
+    names = {k: v for k, v in names.items() if k not in flush}
+    return sum(names.values()), "profiler, L2 flushed", ev, names
+
+
+def time_pair(kernel_fn, plain_fn, cold=False):
     """Kernel vs plain in turns (plain, kernel, kernel, plain) after a
-    warm-up of each; each entry is a mean of the two turns."""
+    warm-up of each; each entry is a mean of the two turns.  ``cold``:
+    each call finds the L2 cache flushed (``cold_device_ms``), else the
+    calls run back to back."""
     kernel_fn()
     plain_fn()
-    p1 = device_ms(plain_fn)
-    k1 = device_ms(kernel_fn)
-    k2 = device_ms(kernel_fn)
-    p2 = device_ms(plain_fn)
+    timer = cold_device_ms if cold else device_ms
+    p1 = timer(plain_fn)
+    k1 = timer(kernel_fn)
+    k2 = timer(kernel_fn)
+    p2 = timer(plain_fn)
 
     def mean(a, b):
         top = sorted(((k.replace("(anonymous namespace)::", ""), v) for k, v in b[3].items()),
@@ -1743,14 +2001,19 @@ def phase9_bench(card, errs, kernels_ms, shapes, library_ms):
         rc = bench.main([])
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
-    frames = bench.N_FRAMES + bench.SYNC_FRAMES + bench.ROUNDS * bench.N_FRAMES
+    # the loop: a warm-up pass, the synchronous frames and two timed turns;
+    # the group: a warm-up call and two timed turns
+    frames = bench.N_FRAMES + bench.SYNC_FRAMES + 2 * bench.ROUNDS * bench.N_FRAMES
+    groups = 1 + 2 * bench.ROUNDS
     want = {k: 0 for k in launches}
-    want.update(warmup_add_one=1, event_disparity_scatter=frames, tail_projector=frames)
+    want.update(warmup_add_one=1, event_disparity_scatter=frames, tail_projector=frames,
+                event_disparity_scatter_group=groups, tail_projector_group=groups)
     if rc != 0 or launches != want:
         raise AssertionError(f"apps.bench rc {rc}, launches {launches} != {want}")
     line = out.getvalue().strip().splitlines()[-1]
     result = json.loads(line)
-    if not (result["value"] > 0 and result["extra"]["gpu"]):
+    if not (result["value"] > 0 and result["extra"]["gpu"]
+            and result["extra"]["frame_ms_loop"] > 0):
         raise AssertionError(f"apps.bench: {line}")
     log(f"  apps.bench launches {launches}; its JSON line:")
     print(line, flush=True)
@@ -1935,6 +2198,19 @@ def kernel_bytes(name, shapes) -> float:
         # disparities the map holds (BGR, and depth where it is written)
         px, distinct, with_depth = s
         return 4 * px + 4 * distinct * (2 if with_depth else 1) + 4 * px
+    if name == "event_disparity_scatter_group":
+        # the staged rows: 4 B an event read, its two gathers, each map
+        # written and each count read and written (F x the staged frame's)
+        counts, lut_b, xmap_b, out_px = s
+        return sum(4 * n + min(4 * n, lut_b) + min(2 * n, xmap_b) + 4 * out_px + 8
+                   for n in counts)
+    if name == "tail_projector_group":
+        f, crop_px, proj_px = s
+        return f * kernel_bytes("tail_projector", {"tail_projector": (crop_px, proj_px)})
+    if name == "colorize_camera_group":
+        px, distinct = s
+        return sum(kernel_bytes("colorize_camera", {"colorize_camera": (px, d, False)})
+                   for d in distinct)
     if name == "colorize_table":
         # the TURBO LUT in, the BGR and depth tables out
         (n,) = s
@@ -2087,6 +2363,10 @@ def main() -> int:
         f"({[len(ev) for ev in esl_frames]} events)")
     for k, v in esl_errs.items():
         errs[k] = max(errs.get(k, 0.0), v)
+    engines = {"projector": eng_p, "camera": eng_c}
+    group_launches, groups = phase4b_group(card, errs, engines, frames, eng_e, esl_frames)
+    for k, v in group_launches.items():
+        launches[k] += v
     for k, v in phase_filters(card, errs, {"projector": eng_p, "camera": eng_c}, frames,
                               eng_e, esl_frames).items():
         launches[k] += v
@@ -2159,11 +2439,13 @@ def main() -> int:
             f"{pm['ms']:.5f} ms; issue rate {km['issue_ms']:.5f} vs {pm['issue_ms']:.5f} "
             f"ms/call (demonstrator, display-packed, mean of 2x50 calls) {card}")
     time_kernel1_entries(card, eng_p, frames[0], batch, t_bin, ekw, shapes)
+    time_group(card, engines, frames, kernels_ms, shapes, groups)
     for eng in (eng_p, eng_c):
         time_ring_vs_staged(card, eng, frames)
 
     # -- 7-10. the offline eval, the replay app, the benches ------------
-    # launches: the engine's main path (phase 4) and the filters' (phase
+    # launches: the engine's main path (phase 4), the group's (phase 4b),
+    # the filters' (phase
     # 5b) plus the eval apps' (phase 7), the replay and live app's (phase
     # 8), the bench's (phase 9) and the store-loop bench's (phase 10), each
     # counted from 0 just before its run
@@ -2174,7 +2456,7 @@ def main() -> int:
                  phase10_store_loop(card, errs, kernels_ms, shapes, library_ms)):
         for k, v in part.items():
             launches[k] += v
-    log(f"launches on the main paths (phases 4, 5b, 7, 8, 9, 10): {launches}")
+    log(f"launches on the main paths (phases 4, 4b, 5b, 7, 8, 9, 10): {launches}")
 
     kernels = []
     for k in KERNEL_INFO:
@@ -2191,6 +2473,11 @@ def main() -> int:
             f"{km['turns'][1]:.5f}{top}), "
             f"bound {bound_ms:.6f} ms (bytes), share of bound {bound_ms / kernels[-1]['ms']:.4f},"
             f" library {library_ms.get(k)} ms {card}")
+    over = {k["name"]: round(k["bound_ms"] / k["ms"], 4) for k in kernels
+            if k["bound_ms"] > MAX_SHARE * k["ms"]}
+    if over:
+        raise AssertionError(f"kernels faster than their bound (share over {MAX_SHARE}): "
+                             f"{over}: the bound or the timing is wrong")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -17,16 +17,25 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from xmaps_tpu_torch.io.prefetch import stage_compact_group  # noqa: E402
 from xmaps_tpu_torch.models.depth_pipeline import XMapsDepthEngine  # noqa: E402
 from xmaps_tpu_torch.ops import _build  # noqa: E402
 from xmaps_tpu_torch.ops.cuda_events import (  # noqa: E402
     event_disparity_scatter,
+    event_disparity_scatter_group,
+    event_disparity_scatter_group_plain,
     event_disparity_scatter_plain,
+    event_disparity_scatter_staged_group,
+    event_disparity_scatter_staged_group_plain,
 )
 from xmaps_tpu_torch.ops.cuda_tail import (  # noqa: E402
     colorize_camera,
+    colorize_camera_group,
+    colorize_camera_group_plain,
     colorize_camera_plain,
     tail_projector,
+    tail_projector_group,
+    tail_projector_group_plain,
     tail_projector_plain,
 )
 from xmaps_tpu_torch.ops.disparity import scale_time  # noqa: E402
@@ -115,12 +124,16 @@ def test_engine_on_card_matches_cpu(cuda, camera_perspective):
     outs = eng.process_frames(frames)
     torch.cuda.synchronize()
     tail = "colorize_camera" if camera_perspective else "tail_projector"
-    assert _build.LAUNCHES["event_disparity_scatter"] == len(frames)
-    assert _build.LAUNCHES[tail] == len(frames)
-    for got, ref in zip(outs, cpu.process_frames(frames)):
+    # one program for the group: kernel 1's group entry once, the tail's once
+    assert _build.LAUNCHES["event_disparity_scatter_group"] == 1
+    assert _build.LAUNCHES[tail + "_group"] == 1
+    assert _build.LAUNCHES["event_disparity_scatter"] == _build.LAUNCHES[tail] == 0
+    for ev, got, ref in zip(frames, outs, cpu.process_frames(frames)):
         assert got.frame_bgr.device.type == "cuda"
+        one = eng.process_frame(ev)
         for name in ("frame_bgr", "depth", "disp_map", "num_inliers"):
             _equal(getattr(got, name), getattr(ref, name))
+            _equal(getattr(got, name), getattr(one, name))
 
 
 def test_wrappers_check_inputs(cuda):
@@ -869,3 +882,115 @@ def test_process_ring_on_card_matches_cpu(cuda, camera_perspective):
             assert _build.LAUNCHES["event_disparity_scatter"] == 1
             _equal(got.frame_bgr, ref.frame_bgr)
             _equal(got.num_inliers, ref.num_inliers)
+
+
+# -- the group entries (process_frames as one program) -----------------------
+
+#: a camera of 50 x 37 (1850 px, not a multiple of 4) and a projector of
+#: 45 x 79 (3555 px, not a multiple of 8): ragged tails in every frame
+ODD_SIZES = dict(camera_width=50, camera_height=37, projector_width=45, projector_height=79)
+
+
+@functools.lru_cache(maxsize=None)
+def _group_rig(camera_perspective, odd):
+    """(engine, frames): capacity 1000 (not a multiple of 32: kernel 1's
+    warps straddle frames) at the odd rig, else the engine of ``_engine``;
+    seven frames, one empty and one over the capacity."""
+    sizes = ODD_SIZES if odd else SIZES
+    calib = make_synthetic_calibration(**sizes)
+    eng = (XMapsDepthEngine.from_calibration(
+        calib, device="cuda", event_capacity=1000, z_near=0.2, z_far=1.2,
+        camera_perspective=camera_perspective) if odd else _engine(camera_perspective))
+    cap = eng.cfg.event_capacity
+    rng = np.random.default_rng(13)
+    frames = []
+    for i, frac in enumerate((0.3, 0.9, 0.0, 1.4, 0.6, 0.05, 1.0)):
+        ev = simulate_plane_events(calib, depth_m=0.4 + 0.05 * i, subsample=0.5,
+                                   jitter_us=2.0, rng=rng)
+        frames.append(ev[:int(frac * cap)])
+    return eng, frames
+
+
+def _group_view(eng):
+    cfg, plan = eng.cfg, eng.plan
+    if cfg.camera_perspective:
+        return (dict(camera_view=True, window=(0, 0),
+                     out_shape=(cfg.camera_height, cfg.camera_width)),
+                colorize_camera_group, colorize_camera_group_plain)
+    return (dict(camera_view=False, window=(plan.crop_row0, plan.crop_col0),
+                 out_shape=(plan.H, plan.W)),
+            tail_projector_group, tail_projector_group_plain)
+
+
+@pytest.mark.parametrize("n_frames", [1, 7])
+@pytest.mark.parametrize("odd", [False, True], ids=["aligned", "odd"])
+@pytest.mark.parametrize("camera_perspective", [False, True], ids=["projector", "camera"])
+def test_group_entries_match_plain_on_card(cuda, camera_perspective, odd, n_frames):
+    """Kernel 1's array and staged group entries (with and without a
+    priority) and the tail's group entry against their plain versions on
+    the card, exactly, one launch each; at the odd rig with capacity 1000
+    too."""
+    eng, frames = _group_rig(camera_perspective, odd)
+    frames = frames[:n_frames] if n_frames == 1 else frames
+    kw, tail, tail_plain = _group_view(eng)
+    cap, tables = eng.cfg.event_capacity, eng.tables
+    batch = EventBatch.stack_structured(frames, cap, device=cuda)
+    t_bin = scale_time(batch.t, batch.valid, eng.cfg.t_px_scale)
+    prio = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cap, (len(frames), cap), dtype=np.int32)).to(cuda)
+    staged = stage_compact_group(frames, cap, eng.compact_layout, device=cuda)
+    _build.reset_launch_counts()
+    for p in (None, prio):
+        got = event_disparity_scatter_group(batch, t_bin, tables, priority=p, **kw)
+        ref = event_disparity_scatter_group_plain(batch, t_bin, tables, priority=p, **kw)
+        _equal(got.packed_map, ref.packed_map)
+        _equal(got.num_inliers, ref.num_inliers)
+    got = event_disparity_scatter_staged_group(staged, eng.compact_layout, tables, **kw)
+    ref = event_disparity_scatter_staged_group_plain(staged, eng.compact_layout, tables, **kw)
+    _equal(got.packed_map, ref.packed_map)
+    _equal(got.num_inliers, ref.num_inliers)
+    for variant in VARIANTS:
+        for a, b in zip(tail(got.packed_map, tables, eng.plan, **variant),
+                        tail_plain(got.packed_map, tables, eng.plan, **variant)):
+            _equal(a, b)
+    torch.cuda.synchronize()
+    tail_name = "colorize_camera_group" if camera_perspective else "tail_projector_group"
+    assert _build.LAUNCHES["event_disparity_scatter_group"] == 3
+    assert _build.LAUNCHES[tail_name] == len(VARIANTS)
+    assert _build.LAUNCHES["event_disparity_scatter"] == 0
+
+
+@pytest.mark.parametrize("camera_perspective", [False, True], ids=["projector", "camera"])
+def test_process_frames_odd_rig_on_card(cuda, camera_perspective):
+    """``process_frames`` at the odd rig (capacity 1000, ragged frames,
+    kernel 2's padded output stride) equals ``process_frame`` on the card
+    and the CPU port, in every output mode."""
+    eng, frames = _group_rig(camera_perspective, True)
+    cpu = eng.to("cpu")
+    for kw in (dict(), dict(display_only=True),
+               dict(display_only=True, display_packed=True)):
+        outs = eng.process_frames(frames, **kw)
+        for ev, got, ref in zip(frames, outs, cpu.process_frames(frames, **kw)):
+            one = eng.process_frame(ev, **kw)
+            for name in ("frame_bgr", "depth", "disp_map", "num_inliers"):
+                _equal(getattr(got, name), getattr(ref, name))
+                _equal(getattr(got, name), getattr(one, name))
+
+
+def test_group_entries_check_inputs(cuda):
+    eng, frames = _group_rig(False, False)
+    kw, _, _ = _group_view(eng)
+    cap = eng.cfg.event_capacity
+    batch = EventBatch.stack_structured(frames[:2], cap, device=cuda)
+    t_bin = scale_time(batch.t, batch.valid, eng.cfg.t_px_scale)
+    with pytest.raises(ValueError, match="t_bin"):
+        event_disparity_scatter_group(batch, t_bin.float(), eng.tables, **kw)
+    with pytest.raises(ValueError, match="priority"):
+        event_disparity_scatter_group(batch, t_bin, eng.tables, priority=t_bin[:1], **kw)
+    staged = stage_compact_group(frames[:2], cap, eng.compact_layout, device=cuda)
+    with pytest.raises(ValueError, match="counts"):
+        event_disparity_scatter_staged_group(
+            staged._replace(counts=staged.counts.long()), eng.compact_layout, eng.tables, **kw)
+    with pytest.raises(ValueError, match="packed_crops"):
+        tail_projector_group(torch.zeros((2, eng.plan.H, eng.plan.W), dtype=torch.float32,
+                                         device=cuda), eng.tables, eng.plan)

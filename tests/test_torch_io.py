@@ -258,7 +258,7 @@ def test_stage_matches_jax(sizes):
     through slot reuse, truncation and an empty frame."""
     rng = np.random.default_rng(sum(sizes))
     cap = 512
-    pool, jpool = prefetch.HostStagingPool(cap, depth=2), JPool(cap, depth=2)
+    pool, jpool = prefetch.HostStagingPool(cap, depth=2, device="cpu"), JPool(cap, depth=2)
     for i, n in enumerate(sizes):
         ev = _events(rng, n, t0=1_000_000 * (i + 1), t_span=16_000)
         got = prefetch.unpack_staged(pool.stage(ev))
@@ -275,7 +275,7 @@ def test_stage_compact_matches_jax(cam):
     layout = prefetch.CompactLayout.for_pipeline(cfg)
     assert tuple(layout) == tuple(JLayout.for_pipeline(jcfg))
     rng = np.random.default_rng(cam[0])
-    pool = prefetch.HostStagingPool(512, depth=2, layout=layout)
+    pool = prefetch.HostStagingPool(512, depth=2, device="cpu", layout=layout)
     jpool = JPool(512, depth=2, layout=JLayout.for_pipeline(jcfg))
     for i, n in enumerate((300, 700, 0, 5)):
         ev = _events(rng, n, w=cam[0], h=cam[1], t0=7_000 * i, t_span=16_000)
@@ -300,14 +300,14 @@ def test_compact_layout_none_when_oversize():
     assert prefetch.CompactLayout.for_pipeline(cfg) is None
     assert JLayout.for_pipeline(jcfg) is None
     with pytest.raises(ValueError, match="layout"):
-        prefetch.HostStagingPool(16).stage_compact(np.zeros(3, tdec.EVENT_DTYPE))
+        prefetch.HostStagingPool(16, device="cpu").stage_compact(np.zeros(3, tdec.EVENT_DTYPE))
 
 
 def test_staging_slots_reused_and_copies_independent():
     """The pool fills its preallocated slots in place; a staged batch is a
     copy, so refilling the slot later does not change it."""
     rng = np.random.default_rng(4)
-    pool = prefetch.HostStagingPool(256, depth=2)
+    pool = prefetch.HostStagingPool(256, depth=2, device="cpu")
     ids = [id(s.tensors["xy"]) for s in pool._slots]
     first = pool.stage(_events(rng, 200))
     keep = first.xy.clone()
@@ -316,7 +316,7 @@ def test_staging_slots_reused_and_copies_independent():
     assert [id(s.tensors["xy"]) for s in pool._slots] == ids
     assert torch.equal(first.xy, keep)
     with pytest.raises(ValueError, match="2 slots"):
-        prefetch.HostStagingPool(16, depth=1)
+        prefetch.HostStagingPool(16, depth=1, device="cpu")
 
 
 # -- kernel W (the bench warm-up) -------------------------------------------

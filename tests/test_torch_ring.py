@@ -83,7 +83,7 @@ def test_ring_assembly_bit_identical():
     EventBatch.from_structured of the segmented slice, bit for bit --
     including packet splitting, mid-packet frame boundaries and padding."""
     ev = _ring_events(np.random.default_rng(0), 5000)
-    ring = PacketRing(packet_capacity=800, n_slots=16)
+    ring = PacketRing(packet_capacity=800, n_slots=16, device="cpu")
     for a, b in zip(OFFS[:-1], OFFS[1:]):
         assert ring.stage_packets(ev[a:b])
     cap = 4096
@@ -106,7 +106,7 @@ def test_ring_assembly_compact_bit_identical():
     assert layout == (10, 9, 13)
     ev = _ring_events(np.random.default_rng(1), 5000)
     ev["p"] = 1
-    ring = PacketRing(packet_capacity=800, n_slots=16, layout=layout)
+    ring = PacketRing(packet_capacity=800, n_slots=16, device="cpu", layout=layout)
     for a, b in zip(OFFS[:-1], OFFS[1:]):
         assert ring.stage_packets(ev[a:b])
     assert (ring.rows["xy"].numpy().view(np.uint32) >> 31).any()
@@ -127,7 +127,7 @@ def test_ring_compact_splits_long_spans():
     n = 3000
     ev = _ring_events(rng, n, t0=1_000_000, span=20_000)  # > 2x the 8.192 ms field
     ev["p"] = 1
-    ring = PacketRing(packet_capacity=4096, n_slots=16, layout=layout)
+    ring = PacketRing(packet_capacity=4096, n_slots=16, device="cpu", layout=layout)
     assert ring.stage_packets(ev)
     assert ring.packets_staged >= 3  # split by span, not capacity
     cap = 4096
@@ -141,7 +141,7 @@ def test_ring_assembly_frame_larger_than_capacity():
     exactly like EventBatch.from_structured -- including a packet that
     straddles the capacity boundary."""
     ev = _ring_events(np.random.default_rng(3), 3000)
-    ring = PacketRing(packet_capacity=700, n_slots=16)
+    ring = PacketRing(packet_capacity=700, n_slots=16, device="cpu")
     for a in range(0, 3000, 700):
         assert ring.stage_packets(ev[a:a + 700])
     cap = 1500  # frame of 2600 events straddles packet 3 mid-slot
@@ -152,7 +152,7 @@ def test_ring_assembly_frame_larger_than_capacity():
 
 def test_ring_overrun_and_retire():
     rng = np.random.default_rng(4)
-    ring = PacketRing(packet_capacity=64, n_slots=16)
+    ring = PacketRing(packet_capacity=64, n_slots=16, device="cpu")
     ev = _ring_events(rng, 64 * 16)
     assert ring.stage_packets(ev)  # fills all 16 slots
     extra = _ring_events(rng, 10)
@@ -170,7 +170,7 @@ def test_ring_overrun_and_retire():
 
 
 def test_ring_frame_meta_rejects_too_many_packets():
-    ring = PacketRing(packet_capacity=16, n_slots=32)
+    ring = PacketRing(packet_capacity=16, n_slots=32, device="cpu")
     ev = _ring_events(np.random.default_rng(5), 16 * 9)
     assert ring.stage_packets(ev)  # 9 packets > RING_SLOTS_PER_FRAME
     assert ring.frame_meta(0, 16 * 9, int(ev["t"][0])) is None
@@ -185,7 +185,7 @@ def test_ring_frame_is_meta_and_bounds(capacity):
     ``ring_time_bounds`` at the capacity, and None for an empty frame and
     for one that is not resident."""
     rng = np.random.default_rng(6)
-    ring = PacketRing(packet_capacity=1000, n_slots=16)
+    ring = PacketRing(packet_capacity=1000, n_slots=16, device="cpu")
     ev = _ring_events(rng, 3200)
     for a, b in zip([0] + OFFS[1:5], OFFS[1:5] + [3200]):
         assert ring.stage_packets(ev[a:b])
@@ -235,7 +235,7 @@ def test_packet_ring_matches_jax(compact):
     layout = RingLayout.for_camera(640, 480) if compact else None
     jlayout = JLayout.for_camera(640, 480) if compact else None
     rng = np.random.default_rng(6 + compact)
-    ring = PacketRing(packet_capacity=1024, n_slots=16, layout=layout)
+    ring = PacketRing(packet_capacity=1024, n_slots=16, device="cpu", layout=layout)
     jring = JRing(packet_capacity=1024, n_slots=16, layout=jlayout)
     cap = 3000
     if compact:
@@ -335,7 +335,7 @@ def _ring_frame(events, k, rng, layout, long_span):
     if long_span:
         for j, (a, b) in enumerate(zip(bounds[:-1], bounds[1:])):
             ev["t"][a:b] = ev["t"][0] + 210_000 * j + np.sort(rng.integers(0, 200_000, b - a))
-    ring = PacketRing(packet_capacity=n, n_slots=16, layout=layout)
+    ring = PacketRing(packet_capacity=n, n_slots=16, device="cpu", layout=layout)
     jring = JRing(packet_capacity=n, n_slots=16, layout=JLayout(*layout))
     for a, b in zip(bounds[:-1], bounds[1:]):
         for r in (ring, jring):
@@ -447,7 +447,7 @@ def test_process_ring_matches_jax(camera_perspective, frame_filter):
         jeng.set_frame_filter(frame_filter)
         teng.set_frame_filter(frame_filter)
         for layout in (teng.ring_layout, None):
-            ring = PacketRing(packet_capacity=2048, n_slots=16, layout=layout)
+            ring = PacketRing(packet_capacity=2048, n_slots=16, device="cpu", layout=layout)
             jring = JRing(packet_capacity=2048, n_slots=16,
                           layout=jeng.ring_layout if layout else None)
             base = 0
@@ -478,7 +478,7 @@ def test_process_ring_checks_packets():
     """``process_ring`` refuses 0 or more than RING_SLOTS_PER_FRAME packets
     and a meta of another shape (the JAX engine's assertions)."""
     teng = _engines(False)[1]
-    ring = PacketRing(packet_capacity=64, n_slots=32, layout=teng.ring_layout)
+    ring = PacketRing(packet_capacity=64, n_slots=32, device="cpu", layout=teng.ring_layout)
     ev = _engine_frames()[0][:64 * 9]
     assert ring.stage_packets(ev)
     pkts = ring._live

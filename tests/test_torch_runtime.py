@@ -523,6 +523,9 @@ print("no-jax-ok")
         extra = result["extra"]
         assert extra["device"] == "cpu" and extra["gpu"] is None
         assert extra["p50_ms_sync"] > 0 and extra["events_per_frame"] > 100
+        # the group regime (value) beside the per-frame loop, in one line
+        assert extra["frame_ms_pipelined"] > 0 and extra["frame_ms_loop"] > 0
+        assert extra["frames_per_group"] == 12
     if entry == "store_loop":
         result = json.loads(lines[-2])
         assert result["device"] == "cpu" and result["gpu"] is None

@@ -9,14 +9,19 @@ prints ONE JSON line:
     {"metric": "Mevents/s/chip", "value": ..., "unit": "Mevents/s",
      "vs_baseline": ..., "extra": {...}}
 
-``value`` is events per frame over the back-to-back frame time (12
-pre-staged frames run ``ROUNDS`` times between two CUDA events);
+``value`` is events per frame over the back-to-back frame time of the
+group regime, as the JAX bench's ``run_group``: the 12 frames pre-staged
+as one group (``XMapsDepthEngine.stage_group``) and dispatched as ONE
+program (``ops.frame_pipeline.group_depth_frames``: kernel 1 once, the
+tail once), ``ROUNDS`` dispatches between two CUDA events;
 ``vs_baseline`` is the reference's published 2.67 ms/frame CPU figure
 (paper Table 2, BASELINE.md) over that frame time.  ``extra`` holds the
-synchronous per-frame latency (host clock around one frame +
-``torch.cuda.synchronize()``, p50/p95 of 60), the engine setup (cold, then
-warm from the disk cache), the warm-up and the card's name and power
-limit.  Before anything is timed, the device warm-up launches kernel W
+same frames' time dispatched one ``depth_frame`` a frame
+(``frame_ms_loop``; the two are timed in turns: group, loop, loop,
+group), the synchronous per-frame latency (host clock around one
+pre-staged frame + ``torch.cuda.synchronize()``, p50/p95 of 60), the
+engine setup (cold, then warm from the disk cache), the warm-up and the
+card's name and power limit.  Before anything is timed, the device warm-up launches kernel W
 (``warmup_add_one``, the port of the JAX bench's ``_noop``).
 
     python -m xmaps_tpu_torch.apps.bench              # on the card
@@ -40,7 +45,7 @@ import numpy as np
 import torch
 
 from xmaps_tpu_torch.models.depth_pipeline import XMapsDepthEngine, resolve_device
-from xmaps_tpu_torch.ops.frame_pipeline import depth_frame
+from xmaps_tpu_torch.ops.frame_pipeline import depth_frame, group_depth_frames
 from xmaps_tpu_torch.ops.warmup import WARMUP_SHAPE, warmup_add_one
 from xmaps_tpu_torch.utils.synthetic import (
     make_synthetic_calibration,
@@ -109,14 +114,25 @@ def main(argv=None) -> int:
         for i in range(N_FRAMES)
     ]
     batches = [engine.make_batch(ev) for ev in frames]
+    group = engine.stage_group(frames)
     n_events = float(np.mean([min(len(ev), CAPACITY) for ev in frames]))
 
     def run(batch):
         return depth_frame(batch, engine.tables, engine.cfg, engine.plan,
                            display_only=True, display_packed=True)
 
-    for b in batches:  # warm-up
-        run(b)
+    def run_loop():
+        for b in batches:
+            out = run(b)
+        return out.num_inliers
+
+    def run_group():
+        return group_depth_frames(group, engine.tables, engine.cfg, engine.plan,
+                                  layout=engine.compact_layout, display_only=True,
+                                  display_packed=True).num_inliers[-1]
+
+    run_loop()  # warm-up
+    run_group()
     sync()
 
     lat = []
@@ -127,23 +143,29 @@ def main(argv=None) -> int:
         sync()
         lat.append((time.perf_counter() - t0) * 1e3)
 
-    if cuda:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-    t0 = time.perf_counter()
-    for _ in range(ROUNDS):
-        for b in batches:
-            out = run(b)
-    if cuda:
-        end.record()
-        end.synchronize()
-        total_ms = start.elapsed_time(end)
-    else:
-        total_ms = (time.perf_counter() - t0) * 1e3
-    if int(out.num_inliers) <= 0:
-        raise AssertionError("pipeline produced no inliers")
-    frame_ms = total_ms / (ROUNDS * N_FRAMES)
+    def frame_ms_of(fn):
+        """ms a frame of ``ROUNDS`` back-to-back calls of ``fn`` (one
+        call: the N_FRAMES frames), between two CUDA events."""
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        t0 = time.perf_counter()
+        for _ in range(ROUNDS):
+            inliers = fn()
+        if cuda:
+            end.record()
+            end.synchronize()
+            total_ms = start.elapsed_time(end)
+        else:
+            total_ms = (time.perf_counter() - t0) * 1e3
+        if int(inliers) <= 0:
+            raise AssertionError("pipeline produced no inliers")
+        return total_ms / (ROUNDS * N_FRAMES)
+
+    turns = [frame_ms_of(fn) for fn in (run_group, run_loop, run_loop, run_group)]
+    frame_ms = (turns[0] + turns[3]) / 2
+    loop_ms = (turns[1] + turns[2]) / 2
 
     gpu, power = card_name_and_power_limit() if cuda else (None, None)
     result = {
@@ -155,6 +177,9 @@ def main(argv=None) -> int:
             "device": torch.cuda.get_device_name(dev) if cuda else "cpu",
             "events_per_frame": n_events,
             "frame_ms_pipelined": frame_ms,
+            "frame_ms_loop": loop_ms,
+            "frames_per_group": N_FRAMES,
+            "turns_ms_group_loop_loop_group": turns,
             "p50_ms_sync": float(np.percentile(lat, 50)),
             "p95_ms_sync": float(np.percentile(lat, 95)),
             "setup_s": min(setups),

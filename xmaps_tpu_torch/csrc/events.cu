@@ -26,8 +26,8 @@
 // read from an optional per-lane int32 array (< capacity).  The key is
 // unsigned 32-bit, as in the JAX package, so capacities up to 524286 lanes
 // fit (the offline eval's whole-image batch is 307200); the map is handed
-// over as int32 words.  The inlier count is summed per warp before one
-// atomicAdd.
+// over as int32 words.  The inlier count is summed per warp and frame
+// before one atomicAdd (count_frames).
 //
 // The map and the count are zeroed inside the launch: a cooperative grid,
 // sized to be co-resident, loads and gathers its first lane a thread
@@ -51,6 +51,20 @@
 // cumulative offsets, in registers, and bins its time t_rel + t_off exactly
 // as ops/disparity.py _scale_time_int does (int32, floor division, round
 // half to even) from the host's masked min/max.
+//
+// The group entries run F independent frames in ONE cooperative launch (the
+// counterpart of the JAX engine's process_frames program): the array and
+// the staged lane sources over (F, capacity) rows, wrapped by FrameLanes,
+// which maps group lane i to frame f = i / capacity and lane j = i %
+// capacity.  Phase A zeroes the F maps (contiguous, (F, out_h, out_w)) and
+// the F counts before the one grid barrier.  A lane scatters into map f
+// with the key of its lane within the frame, (j + 1) * PACK + disp, so each
+// map equals its frame's single-frame launch bit for bit (and the key fits
+// 32 bits at any F).  A staged frame's lanes at or past its count, read
+// from the (F,) device counts, are not loaded.  A warp may hold lanes of
+// two or more frames (a capacity that is not a multiple of 32, or the
+// grid-stride step), so every entry sums the inliers per frame with one
+// __match_any_sync a step (one frame's entries: one frame a step).
 #include <cooperative_groups.h>
 
 #include <algorithm>
@@ -71,6 +85,20 @@ struct Lane {
   uint32_t prio;
 };
 
+// Where lane i of the launch's walk lies: its frame f (0 in a one-frame
+// launch), its lane j within the frame, and whether it is read at all.
+struct Slot {
+  int f, j;
+  bool live;
+};
+
+// Each lane source loads flat lane i of its arrays with the priority of
+// lane j of its frame; in a one-frame source lane i is lane i of frame 0.
+template <class Src>
+__device__ __forceinline__ Slot slot_of(const Src&, int i) {
+  return Slot{0, i, true};
+}
+
 // The per-lane inputs of the array entry.
 struct ArrayLanes {
   const int32_t* __restrict__ x;
@@ -83,9 +111,9 @@ struct ArrayLanes {
   int32_t* __restrict__ xproj_out;
   int n;
 
-  __device__ __forceinline__ Lane load(int i) const {
+  __device__ __forceinline__ Lane load(int i, int j) const {
     return Lane{x[i], y[i], t_bin[i], valid[i],
-                static_cast<uint32_t>(prio ? prio[i] : i)};
+                static_cast<uint32_t>(prio ? prio[i] : j)};
   }
   __device__ __forceinline__ void store(int i, int xr, int yr, int xp) const {
     if (xr_out) {
@@ -103,14 +131,14 @@ struct StagedLanes {
   int n;  // the host count
   int bits_x, bits_y, bits_t;
 
-  __device__ __forceinline__ Lane load(int i) const {
+  __device__ __forceinline__ Lane load(int i, int j) const {
     const uint32_t w = __ldg(word + i);
     const uint32_t mx = (1u << bits_x) - 1u;
     const uint32_t my = (1u << bits_y) - 1u;
     const uint32_t mt = (1u << bits_t) - 1u;
     return Lane{static_cast<int>(w & mx), static_cast<int>((w >> bits_x) & my),
                 static_cast<int>((w >> (bits_x + bits_y)) & mt), true,
-                static_cast<uint32_t>(i)};
+                static_cast<uint32_t>(j)};
   }
   __device__ __forceinline__ void store(int, int, int, int) const {}
 };
@@ -130,7 +158,7 @@ struct RingLanes {
   int bits_x, bits_y;
   int t_min, t_max, t_px_scale;
 
-  __device__ __forceinline__ Lane load(int i) const {
+  __device__ __forceinline__ Lane load(int i, int) const {
     // the lane's packet: the last one whose cumulative offset is <= i,
     // selected with compile-time indices (registers, no local array)
     const uint32_t* r = row[0];
@@ -163,29 +191,59 @@ struct RingLanes {
   __device__ __forceinline__ void store(int, int, int, int) const {}
 };
 
+// F frames of `cap` lanes each, as (F, cap) rows of an array or staged
+// source: group lane i is lane j = i % cap of frame f = i / cap.  With
+// `counts` (the staged rows' (F,) device counts) only a frame's lanes below
+// its count are read.
+template <class Inner>
+struct FrameLanes {
+  Inner inner;
+  int cap;
+  int n;  // F * cap
+  const int32_t* __restrict__ counts;  // nullable: every lane is read
+
+  __device__ __forceinline__ Lane load(int i, int j) const { return inner.load(i, j); }
+  __device__ __forceinline__ void store(int i, int xr, int yr, int xp) const {
+    inner.store(i, xr, yr, xp);
+  }
+};
+
+template <class Inner>
+__device__ __forceinline__ Slot slot_of(const FrameLanes<Inner>& src, int i) {
+  const int f = i / src.cap;
+  const int j = i - f * src.cap;
+  return Slot{f, j, src.counts == nullptr || j < __ldg(src.counts + f)};
+}
+
 struct Target {
   const int32_t* __restrict__ cam_lut;
   int cam_h, cam_w;
   const int16_t* __restrict__ x_map;
   int xmap_h, xmap_w;
   int camera_view, oy, ox, out_h, out_w;
+  int frames;  // F maps of out_h * out_w words and F counts, contiguous
   uint32_t* __restrict__ packed_map;
   int32_t* __restrict__ inlier_count;
 };
 
-// One lane's scatter, prepared: its inlier bit, and the map word and packed
-// key of its atomicMax (word -1: no store).
+// One lane's scatter, prepared: its inlier bit, the map word and packed key
+// of its atomicMax (word -1: no store), and its frame (-1: no lane).
 struct Scatter {
   bool inlier;
   long word;
   uint32_t key;
+  int f;
 };
+
+__device__ __forceinline__ Scatter no_lane() { return Scatter{false, -1L, 0u, -1}; }
 
 // One lane: rectify, X-map gather, disparity, inlier mask, the packed key
 // and its target word; nothing of it touches the map.
 template <class Src>
 __device__ __forceinline__ Scatter prepare_lane(const Src& src, const Target& g, int i) {
-  const Lane e = src.load(i);
+  const Slot at = slot_of(src, i);
+  if (!at.live) return Scatter{false, -1L, 0u, at.f};
+  const Lane e = src.load(i, at.j);
   // 1-2. clip the raw coordinates, gather from the packed camera LUT
   //      (mapy << 16 | mapx & 0xffff) and sign-extend both i16 halves
   const int yc = min(max(e.y, 0), g.cam_h - 1);
@@ -208,12 +266,23 @@ __device__ __forceinline__ Scatter prepare_lane(const Src& src, const Target& g,
   const int tx = (g.camera_view ? e.x : xr + disp) - g.ox;
   const bool keep = inlier && ty >= 0 && ty < g.out_h && tx >= 0 && tx < g.out_w &&
                     disp < static_cast<int>(xmaps::PACK);
-  return Scatter{inlier, keep ? static_cast<long>(ty) * g.out_w + tx : -1L,
-                 (e.prio + 1u) * xmaps::PACK + static_cast<uint32_t>(disp)};
+  const long frame0 = static_cast<long>(at.f) * g.out_h * g.out_w;
+  return Scatter{inlier, keep ? frame0 + static_cast<long>(ty) * g.out_w + tx : -1L,
+                 (e.prio + 1u) * xmaps::PACK + static_cast<uint32_t>(disp), at.f};
 }
 
 __device__ __forceinline__ void commit(const Target& g, const Scatter& s) {
   if (s.word >= 0) atomicMax(g.packed_map + s.word, s.key);
+}
+
+// A step's inliers, one atomicAdd for each frame the warp's lanes hold (one
+// frame in a one-frame launch); every lane of the warp calls it.
+__device__ __forceinline__ void count_frames(const Target& g, const Scatter& s) {
+  const unsigned peers = __match_any_sync(0xffffffffu, s.f);
+  const unsigned ones = __ballot_sync(0xffffffffu, s.inlier) & peers;
+  if (ones != 0u && static_cast<int>(threadIdx.x & 31) == __ffs(peers) - 1) {
+    atomicAdd(g.inlier_count + s.f, __popc(ones));
+  }
 }
 
 template <class Src>
@@ -222,31 +291,27 @@ __global__ void __launch_bounds__(THREADS)
   // the thread's first lane, loaded and gathered before the zeroing
   const int stride = gridDim.x * blockDim.x;
   const int first = blockIdx.x * blockDim.x + threadIdx.x;
-  const Scatter s0 = first < src.n ? prepare_lane(src, g, first) : Scatter{false, -1L, 0u};
-  // phase A: 16-byte zeros over the map (torch allocations are 16-byte
-  // aligned), a scalar ragged tail, the count; then one grid barrier
-  const long words = static_cast<long>(g.out_h) * g.out_w;
+  const Scatter s0 = first < src.n ? prepare_lane(src, g, first) : no_lane();
+  // phase A: 16-byte zeros over the maps (torch allocations are 16-byte
+  // aligned), a scalar ragged tail, the counts; then one grid barrier
+  const long words = static_cast<long>(g.frames) * g.out_h * g.out_w;
   int4* v = reinterpret_cast<int4*>(g.packed_map);
   const long nv = words / 4;
   for (long k = first; k < nv; k += stride) v[k] = make_int4(0, 0, 0, 0);
   for (long k = 4 * nv + first; k < words; k += stride) g.packed_map[k] = 0u;
-  if (first == 0) *g.inlier_count = 0;
+  for (int k = first; k < g.frames; k += stride) g.inlier_count[k] = 0;
   cg::this_grid().sync();
   // phase B: the first lane's atomic, then the other lanes grid-stride (none
   // where the grid covers the events); the loop bound is uniform over a
-  // block, so every lane of a warp meets the warp sum
+  // block, so every lane of a warp meets each step's count
   commit(g, s0);
-  int inliers = s0.inlier;
+  count_frames(g, s0);
   for (int base = blockIdx.x * blockDim.x + stride; base < src.n; base += stride) {
     const int i = base + threadIdx.x;
-    if (i < src.n) {
-      const Scatter s = prepare_lane(src, g, i);
-      commit(g, s);
-      inliers += s.inlier;
-    }
+    const Scatter s = i < src.n ? prepare_lane(src, g, i) : no_lane();
+    commit(g, s);
+    count_frames(g, s);
   }
-  inliers = __reduce_add_sync(0xffffffffu, inliers);
-  if ((threadIdx.x & 31) == 0 && inliers != 0) atomicAdd(g.inlier_count, inliers);
 }
 
 // The co-resident grid of a cooperative launch on the current device,
@@ -273,8 +338,9 @@ int resident_blocks(const void* kernel, int* cached, int* out) {
 }
 
 // One cooperative launch, at most the co-resident grid; one block at least,
-// so an empty frame still zeroes (and counts) its map.  A refused launch
-// returns its error.
+// so an empty frame still zeroes (and counts) its map.  The grid is sized by
+// the larger of the lanes and the zeroing of all the launch's maps.  A
+// refused launch returns its error.
 template <class Src>
 int launch(const Src& src, const Target& g, cudaStream_t stream) {
   static int cached[64] = {};
@@ -282,7 +348,7 @@ int launch(const Src& src, const Target& g, cudaStream_t stream) {
   int resident = 0;
   const int err = resident_blocks(kernel, cached, &resident);
   if (err != cudaSuccess) return err;
-  const long vecs = (static_cast<long>(g.out_h) * g.out_w + 3) / 4;
+  const long vecs = (static_cast<long>(g.frames) * g.out_h * g.out_w + 3) / 4;
   const long work = std::max(static_cast<long>(src.n),
                              (vecs + ZERO_VECS_PER_THREAD - 1) / ZERO_VECS_PER_THREAD);
   const long want = std::max(1L, (work + THREADS - 1) / THREADS);
@@ -298,9 +364,10 @@ int launch(const Src& src, const Target& g, cudaStream_t stream) {
 
 Target target(const int32_t* cam_lut, int cam_h, int cam_w, const int16_t* x_map,
               int xmap_h, int xmap_w, int camera_view, int oy, int ox, int out_h,
-              int out_w, int32_t* packed_map, int32_t* inlier_count) {
+              int out_w, int32_t* packed_map, int32_t* inlier_count, int frames = 1) {
   return Target{cam_lut, cam_h, cam_w, x_map, xmap_h, xmap_w, camera_view, oy, ox,
-                out_h, out_w, reinterpret_cast<uint32_t*>(packed_map), inlier_count};
+                out_h, out_w, frames, reinterpret_cast<uint32_t*>(packed_map),
+                inlier_count};
 }
 
 }  // namespace
@@ -358,5 +425,37 @@ extern "C" int event_disparity_scatter_ring(
   src.t_px_scale = t_px_scale;
   return launch(src, target(cam_lut, cam_h, cam_w, x_map, xmap_h, xmap_w, camera_view,
                             oy, ox, out_h, out_w, packed_map, inlier_count),
+                stream);
+}
+
+// The group entries: F frames of `cap` lanes, (F, cap) rows, into F
+// contiguous (out_h, out_w) maps and F counts, in one launch.  The array
+// group's lane outputs are not written (no xr/yr/x_proj rows).
+extern "C" int event_disparity_scatter_group(
+    const int32_t* x, const int32_t* y, const int32_t* t_bin, const bool* valid,
+    const int32_t* prio, int frames, int cap, const int32_t* cam_lut, int cam_h, int cam_w,
+    const int16_t* x_map, int xmap_h, int xmap_w, int camera_view, int oy, int ox,
+    int out_h, int out_w, int32_t* packed_maps, int32_t* inlier_counts, cudaStream_t stream) {
+  if (frames < 1 || cap < 1) return cudaErrorInvalidValue;
+  const ArrayLanes rows{x, y, t_bin, valid, prio, nullptr, nullptr, nullptr, cap};
+  const FrameLanes<ArrayLanes> src{rows, cap, frames * cap, nullptr};
+  return launch(src, target(cam_lut, cam_h, cam_w, x_map, xmap_h, xmap_w, camera_view,
+                            oy, ox, out_h, out_w, packed_maps, inlier_counts, frames),
+                stream);
+}
+
+// counts: the (F,) device counts of the staged rows (the group buffer's
+// tail, io/prefetch.py stage_compact_group).
+extern "C" int event_disparity_scatter_staged_group(
+    const int32_t* word, const int32_t* counts, int frames, int cap, int bits_x, int bits_y,
+    int bits_t, const int32_t* cam_lut, int cam_h, int cam_w, const int16_t* x_map,
+    int xmap_h, int xmap_w, int camera_view, int oy, int ox, int out_h, int out_w,
+    int32_t* packed_maps, int32_t* inlier_counts, cudaStream_t stream) {
+  if (frames < 1 || cap < 1) return cudaErrorInvalidValue;
+  const StagedLanes rows{reinterpret_cast<const uint32_t*>(word), cap, bits_x, bits_y,
+                         bits_t};
+  const FrameLanes<StagedLanes> src{rows, cap, frames * cap, counts};
+  return launch(src, target(cam_lut, cam_h, cam_w, x_map, xmap_h, xmap_w, camera_view,
+                            oy, ox, out_h, out_w, packed_maps, inlier_counts, frames),
                 stream);
 }

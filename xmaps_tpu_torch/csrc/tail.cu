@@ -35,6 +35,13 @@
 //   epilogue's two IEEE divisions a pixel.
 // Both halo-tile and block sizes were chosen by timing variants on the
 // H100 at the demonstrator's shapes.
+// The group entry (tail_projector_group) runs F frames' crops through the
+// same two launches: the dilate takes the frame from blockIdx.z (crop f of
+// contiguous (F, H, W) maps into scratch f), the remap from blockIdx.y,
+// writing frame f at f * out_stride pixels of each output.  The caller
+// keeps out_stride a multiple of 8 pixels, so every frame's 16-byte (and
+// 3-byte BGR's 8-byte) stores stay aligned; each frame's ragged tail of
+// Hp * Wp % 8 pixels takes the scalar path.
 //
 // colorize_camera moves 8 B a camera pixel (2.5 MB at 640 x 480, 0.74 us
 // at 3.35 TB/s).  One pixel a thread in 256-thread blocks left one
@@ -67,6 +74,9 @@ constexpr int kHaloLoads = (kHaloH * kHaloW + kDilThreads - 1) / kDilThreads;
 __global__ void __launch_bounds__(kDilThreads)
 tail_dilate_kernel(const int32_t* __restrict__ packed, int H, int W,
                    uint16_t* __restrict__ dil) {
+  const long frame0 = static_cast<long>(blockIdx.z) * H * W;
+  packed += frame0;
+  dil += frame0;
   __shared__ int tile[kHaloH][kHaloW];
   __shared__ int hmax[kHaloH][kDilTileW];
   const int tx = threadIdx.x;  // column in the tile
@@ -134,10 +144,17 @@ constexpr int kRemapThreads = 128;
 __global__ void tail_remap_colorize_kernel(
     const uint16_t* __restrict__ dil, int H, int W, int row0, int col0,
     int full_h, int full_w, const int16_t* __restrict__ proj_mapx,
-    const int16_t* __restrict__ proj_mapy, long n_out,
+    const int16_t* __restrict__ proj_mapy, long n_out, long out_stride,
     const int32_t* __restrict__ lut, float p03, float z_near, float z_far,
     int32_t* __restrict__ bgr_packed, uint8_t* __restrict__ bgr3,
     float* __restrict__ depth_out, float* __restrict__ disp_out) {
+  // frame blockIdx.y: its dilated crop, and its pixels of each output
+  const long f = blockIdx.y;
+  dil += f * H * W;
+  if (bgr_packed) bgr_packed += f * out_stride;
+  if (bgr3) bgr3 += 3 * f * out_stride;
+  if (depth_out) depth_out += f * out_stride;
+  if (disp_out) disp_out += f * out_stride;
   const long base =
       kPx * (static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x);
   if (base + kPx > n_out) {
@@ -287,18 +304,22 @@ __global__ void __launch_bounds__(kCamThreads) colorize_camera_kernel(
 
 }  // namespace
 
-// Two launches on one stream: the dilate into the caller's (H, W) uint16
-// scratch, then the remap + colorize.  Returns the first launch error.
-extern "C" int tail_projector(
-    const int32_t* packed, int H, int W, int row0, int col0, int full_h,
-    int full_w, uint16_t* dil, const int16_t* proj_mapx,
-    const int16_t* proj_mapy, int Hp, int Wp, const int32_t* lut, float p03,
-    float z_near, float z_far, int32_t* bgr_packed, uint8_t* bgr3,
-    float* depth_out, float* disp_out, cudaStream_t stream) {
+// F frames, two launches on one stream: the dilate into the caller's
+// (F, H, W) uint16 scratch, then the remap + colorize.  Returns the first
+// launch error.  One frame (ops/cuda_tail.py tail_projector) is F = 1 with
+// out_stride Hp * Wp.
+extern "C" int tail_projector_group(
+    const int32_t* packed, int frames, int H, int W, int row0, int col0,
+    int full_h, int full_w, uint16_t* dil, const int16_t* proj_mapx,
+    const int16_t* proj_mapy, int Hp, int Wp, long out_stride,
+    const int32_t* lut, float p03, float z_near, float z_far,
+    int32_t* bgr_packed, uint8_t* bgr3, float* depth_out, float* disp_out,
+    cudaStream_t stream) {
+  if (frames < 1 || frames > 65535) return cudaErrorInvalidValue;
   if (H > 0 && W > 0) {
     const dim3 block(kDilTileW, kDilThreadsY);
     const dim3 grid((W + kDilTileW - 1) / kDilTileW,
-                    (H + kDilTileH - 1) / kDilTileH);
+                    (H + kDilTileH - 1) / kDilTileH, frames);
     tail_dilate_kernel<<<grid, block, 0, stream>>>(packed, H, W, dil);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -306,11 +327,13 @@ extern "C" int tail_projector(
   const long n_out = static_cast<long>(Hp) * Wp;
   if (n_out > 0) {
     const long groups = (n_out + kPx - 1) / kPx;
-    tail_remap_colorize_kernel<<<
+    const dim3 grid(
         static_cast<unsigned>((groups + kRemapThreads - 1) / kRemapThreads),
-        kRemapThreads, 0, stream>>>(
+        frames);
+    tail_remap_colorize_kernel<<<grid, kRemapThreads, 0, stream>>>(
         dil, H, W, row0, col0, full_h, full_w, proj_mapx, proj_mapy, n_out,
-        lut, p03, z_near, z_far, bgr_packed, bgr3, depth_out, disp_out);
+        out_stride, lut, p03, z_near, z_far, bgr_packed, bgr3, depth_out,
+        disp_out);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -325,7 +348,11 @@ extern "C" int colorize_table(const int32_t* lut, float p03, float z_near,
 }
 
 // The packed map and the outputs must be 16-byte aligned (the wrapper
-// checks the map; it allocates the outputs).
+// checks the map; it allocates the outputs).  Kernel 3 is a pure pass over
+// pixels through the table, so its group entry (ops/cuda_tail.py
+// colorize_camera_group) is this launch with n = F * H * W over contiguous
+// (F, H, W) maps and outputs: a thread's 4 pixels may straddle two frames,
+// which changes nothing, and only the last n % 4 pixels are ragged.
 extern "C" int colorize_camera(
     const int32_t* packed, int n, const int32_t* bgr_table,
     const float* depth_table, int32_t* bgr_packed, uint8_t* bgr3,

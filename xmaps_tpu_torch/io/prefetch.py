@@ -24,6 +24,10 @@ On CPU the slots are plain host tensors and the "copy" is a clone.  The
 host target presort (``presort_fn``) is not ported: the JAX pipe passes
 ``None``.
 
+``stage_compact_group`` stages F whole frames for ``process_frames`` (one
+program over the group): ``stage_compact``'s words for each frame as a
+row, then the F counts, in ONE host buffer and ONE copy.
+
 The packet-ring prestaging (``PacketRing``, ``RingLayout``,
 ``assemble_ring_frame[_compact]``) is the port of the JAX package's
 default streaming path: every filtered packet is staged as it arrives, so
@@ -54,6 +58,9 @@ __all__ = [
     "unpack_staged",
     "CompactLayout",
     "CompactStagedBatch",
+    "CompactStagedGroup",
+    "stage_compact_group",
+    "fits_layout",
     "unpack_staged_compact",
     "PacketRing",
     "RingPacket",
@@ -191,13 +198,15 @@ class _Slot:
 
 
 class HostStagingPool:
-    """Rotating preallocated host slots for packed EventBatch staging."""
+    """Rotating preallocated host slots for packed EventBatch staging, for
+    ``device`` (required, as every entry of the port: no default)."""
 
     def __init__(
         self,
         capacity: int,
         depth: int = 2,
-        device="cpu",
+        *,
+        device,
         layout: Optional[CompactLayout] = None,
     ):
         if depth < 2:
@@ -276,26 +285,72 @@ class HostStagingPool:
         if lay is None:
             raise ValueError("HostStagingPool built without a layout")
         slot, n = self._take_slot(len(evs))
-        word = slot.word
-        if n:
-            ts = _scale_time_int_host(evs["t"][:n], lay.t_px_scale)
-            np.left_shift(
-                ts.astype(np.uint32),
-                lay.bits_x + lay.bits_y,
-                out=word[:n],
-                casting="unsafe",
-            )
-            np.bitwise_or(
-                word[:n],
-                evs["y"][:n].astype(np.uint32) << lay.bits_x,
-                out=word[:n],
-            )
-            np.bitwise_or(word[:n], evs["x"][:n].astype(np.uint32), out=word[:n])
-        word[n:] = 0
-
+        _pack_compact(evs, n, lay, slot.word)
         out = CompactStagedBatch(word=self._ship(slot, "word"), count=n)
         self._copied(slot)
         return out
+
+
+def _pack_compact(evs: np.ndarray, n: int, lay: CompactLayout, word: np.ndarray) -> None:
+    """Pack the first ``n`` events of one frame into the uint32 row
+    ``word`` at one word an event (host-binned time), zeroing the rest."""
+    if n:
+        ts = _scale_time_int_host(evs["t"][:n], lay.t_px_scale)
+        np.left_shift(
+            ts.astype(np.uint32),
+            lay.bits_x + lay.bits_y,
+            out=word[:n],
+            casting="unsafe",
+        )
+        np.bitwise_or(
+            word[:n],
+            evs["y"][:n].astype(np.uint32) << lay.bits_x,
+            out=word[:n],
+        )
+        np.bitwise_or(word[:n], evs["x"][:n].astype(np.uint32), out=word[:n])
+    word[n:] = 0
+
+
+def fits_layout(evs: np.ndarray, layout: CompactLayout) -> bool:
+    """Whether every event's x and y fit ``layout``'s widths, as a camera's
+    own events do: then a word decodes to the event's own pixel (an event
+    outside them would wrap to another)."""
+    for name, bits in (("x", layout.bits_x), ("y", layout.bits_y)):
+        a = evs[name]
+        if len(a) and (int(a.min()) < 0 or int(a.max()) >> bits):
+            return False
+    return True
+
+
+class CompactStagedGroup(NamedTuple):
+    """F staged frames at one uint32 word an event, in one device buffer."""
+
+    word: torch.Tensor  # (F, capacity) int32 rows, as CompactStagedBatch.word
+    counts: torch.Tensor  # (F,) int32 valid lanes of each row, on the device
+    host_counts: tuple  # the same F counts on the host
+
+
+def stage_compact_group(
+    frames: list, capacity: int, layout: CompactLayout, *, device
+) -> CompactStagedGroup:
+    """Stage F complete frames as ``stage_compact`` stages one (the same
+    host binning and words, truncation at ``capacity``), into ONE host
+    buffer of F rows followed by the F counts, and ONE copy of it to
+    ``device`` (pinned and ``non_blocking`` for a CUDA device; PyTorch's
+    pinned allocator keeps the buffer until its copy has run)."""
+    dev = torch.device(device)
+    f = len(frames)
+    buf = torch.empty(f * capacity + f, dtype=torch.int32, pin_memory=dev.type == "cuda")
+    host = buf.numpy().view(np.uint32)
+    counts = [min(len(evs), capacity) for evs in frames]
+    for i, (evs, n) in enumerate(zip(frames, counts)):
+        _pack_compact(evs, n, layout, host[i * capacity:(i + 1) * capacity])
+    host[f * capacity:] = counts
+    out = buf.to(dev, non_blocking=True) if dev.type == "cuda" else buf
+    return CompactStagedGroup(
+        word=out[:f * capacity].view(f, capacity), counts=out[f * capacity:],
+        host_counts=tuple(counts),
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -462,7 +517,8 @@ class PacketRing:
         self,
         packet_capacity: int,
         n_slots: int = 16,
-        device="cpu",
+        *,
+        device,
         layout: Optional[RingLayout] = None,
     ):
         if n_slots < 2 * RING_SLOTS_PER_FRAME:

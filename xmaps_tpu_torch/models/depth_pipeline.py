@@ -22,9 +22,12 @@ from xmaps_tpu_torch.io.prefetch import (
     RING_SLOTS_PER_FRAME,
     CompactLayout,
     CompactStagedBatch,
+    CompactStagedGroup,
     RingLayout,
     assemble_ring_frame,
     assemble_ring_frame_compact,
+    fits_layout,
+    stage_compact_group,
     unpack_staged,
 )
 from xmaps_tpu_torch.ops.cuda_tail import (
@@ -39,6 +42,7 @@ from xmaps_tpu_torch.ops.frame_pipeline import (
     DeviceTables,
     FrameResult,
     depth_frame,
+    group_depth_frames,
     ring_depth_frame,
     staged_depth_frame,
 )
@@ -365,10 +369,45 @@ class XMapsDepthEngine:
             w.writerows(zip(*cols))
         return int(keep.sum())
 
-    def process_frames(self, frames: list, **kw) -> list:
-        """Run many independent frames, one after another (one
-        ``process_frame`` each; keyword arguments are passed on)."""
-        return [self.process_frame(ev, **kw) for ev in frames]
+    def stage_group(self, frames: list) -> Union[EventBatch, CompactStagedGroup]:
+        """F frames staged for ``group_depth_frames`` in one host buffer
+        and one copy a field: at one word an event
+        (``io.prefetch.stage_compact_group``) where the pipeline is
+        unfiltered, the 1-word layout exists, every timestamp is an integer
+        and every pixel fits the layout (``fits_layout``); else as an
+        ``EventBatch`` with a leading frame axis (the JAX engine's unsorted
+        group staging)."""
+        layout = self.compact_layout
+        if (layout is not None and self.cfg.frame_filter == "none"
+                and all(np.issubdtype(ev.dtype["t"].type, np.integer)
+                        and fits_layout(ev, layout) for ev in frames)):
+            return stage_compact_group(frames, self.cfg.event_capacity, layout,
+                                       device=self.device)
+        return EventBatch.stack_structured(frames, self.cfg.event_capacity, device=self.device)
+
+    def process_frames(
+        self,
+        frames: list,
+        *,
+        display_only: bool = False,
+        display_packed: bool = False,
+    ) -> list:
+        """Run many independent frames as ONE program: kernel 1 once and
+        the tail once for the group (``ops.frame_pipeline.group_depth_frames``;
+        the multi-camera / offline-batch regime of the JAX engine's
+        ``process_frames``).  Returns one ``FrameResult`` a frame, views
+        into the group's outputs, each bit-equal to ``process_frame`` of
+        that frame.  The frames' timestamps are all integer or all float
+        (a ``ValueError`` otherwise)."""
+        if not frames:
+            return []
+        staged = self.stage_group(frames)
+        res = group_depth_frames(
+            staged, self.tables, self.cfg, self.plan, layout=self.compact_layout,
+            display_only=display_only, display_packed=display_packed,
+        )
+        fields = [[None] * len(frames) if a is None else a.unbind(0) for a in res]
+        return [FrameResult(*parts) for parts in zip(*fields)]
 
     def set_frame_filter(self, name: str):
         """Select the frame dedup filter, one of ``ops.filters.FILTER_NAMES``

@@ -8,8 +8,9 @@ The library lands in ``build/xmaps_tpu_torch/`` beside the package
 and flags, so an edited source rebuilds and an unchanged one loads at once.
 There is no fallback: a missing ``nvcc`` or a failed build raises.
 
-Each kernel wrapper counts its launches in ``LAUNCHES`` (by kernel name),
-so a run can show that its main path went through the kernels.
+Each kernel wrapper counts its launches in ``LAUNCHES`` (by kernel name,
+a group entry over F frames apart from its one-frame entries, one count a
+group), so a run can show that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -41,6 +42,9 @@ LAUNCHES = {
     "event_disparity_scatter": 0,
     "tail_projector": 0,
     "colorize_camera": 0,
+    "event_disparity_scatter_group": 0,
+    "tail_projector_group": 0,
+    "colorize_camera_group": 0,
     "colorize_table": 0,
     "esl_disparity_search": 0,
     "remap_gather": 0,
@@ -82,10 +86,28 @@ _SIGNATURES = {
         _P, _P,  # packed map, inlier count
         _P,  # stream
     ],
-    "tail_projector": [  # two launches: tail_dilate, tail_remap_colorize
-        _P, _I, _I, _I, _I, _I, _I,  # packed crop, H, W, row0, col0, full_h, full_w
-        _P,  # (H, W) u16 scratch: the dilated crop
-        _P, _P, _I, _I,  # proj_mapx, proj_mapy (i16, 16-byte aligned), Hp, Wp
+    "event_disparity_scatter_group": [  # kernel 1 over F frames' (F, cap) rows
+        _P, _P, _P, _P, _P,  # x, y, t_bin, valid, priority (nullable)
+        _I, _I,  # F, cap (lanes a frame)
+        _P, _I, _I,  # cam LUT (packed i32), cam_h, cam_w
+        _P, _I, _I,  # x_map (i16), xmap_h, xmap_w
+        _I, _I, _I, _I, _I,  # camera_view, oy, ox, out_h, out_w
+        _P, _P,  # (F, out_h, out_w) packed maps, (F,) inlier counts
+        _P,  # stream
+    ],
+    "event_disparity_scatter_staged_group": [  # kernel 1 over F staged rows
+        _P, _P, _I, _I,  # (F, cap) words (i32), (F,) device counts, F, cap
+        _I, _I, _I,  # bits_x, bits_y, bits_t
+        _P, _I, _I,  # cam LUT (packed i32), cam_h, cam_w
+        _P, _I, _I,  # x_map (i16), xmap_h, xmap_w
+        _I, _I, _I, _I, _I,  # camera_view, oy, ox, out_h, out_w
+        _P, _P,  # (F, out_h, out_w) packed maps, (F,) inlier counts
+        _P,  # stream
+    ],
+    "tail_projector_group": [  # kernel 2 over F crops, the same two launches
+        _P, _I, _I, _I, _I, _I, _I, _I,  # crops, F, H, W, row0, col0, full_h, full_w
+        _P,  # (F, H, W) u16 scratch
+        _P, _P, _I, _I, _L,  # proj_mapx, proj_mapy, Hp, Wp, a frame's output stride (px)
         _P, _F, _F, _F,  # lut, p03, z_near, z_far
         _P, _P, _P, _P,  # bgr_packed, bgr3, depth, disp (nullable)
         _P,  # stream

@@ -24,6 +24,14 @@ time bounds in registers, so nothing crosses the link at dispatch.  Its
 plain version is the compact ring assembly, ``scale_time`` and the plain
 scatter.
 
+``event_disparity_scatter_group`` and ``event_disparity_scatter_staged_group``
+run F independent frames in one launch (``process_frames``): the array
+entry over an ``EventBatch`` with a leading frame axis, the staged entry
+over ``io.prefetch.stage_compact_group``'s rows and device counts.  They
+return (F, out_h, out_w) maps and (F,) counts, each frame equal to its
+one-frame entry's; their plain versions run the one-frame plain version on
+each frame and stack the results.
+
 The map and the count are zeroed inside the kernel's cooperative launch:
 both are allocated with ``torch.empty``, and no fill runs on the path.
 """
@@ -40,6 +48,7 @@ from xmaps_tpu_torch.io.prefetch import (
     RING_SLOTS_PER_FRAME,
     CompactLayout,
     CompactStagedBatch,
+    CompactStagedGroup,
     RingLayout,
     assemble_ring_frame_compact,
     unpack_staged_compact,
@@ -57,7 +66,14 @@ __all__ = [
     "event_disparity_scatter_staged_plain",
     "event_disparity_scatter_ring",
     "event_disparity_scatter_ring_plain",
+    "event_disparity_scatter_group",
+    "event_disparity_scatter_group_plain",
+    "event_disparity_scatter_staged_group",
+    "event_disparity_scatter_staged_group_plain",
 ]
+
+#: a group's lanes (F x capacity) stay well inside the kernel's int walk
+MAX_GROUP_LANES = 1 << 30
 
 
 class EventScatterResult(NamedTuple):
@@ -181,12 +197,38 @@ def event_disparity_scatter(
     return EventScatterResult(packed, count, lanes)
 
 
-def _outputs(out_shape: tuple[int, int], dev) -> tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's packed map and inlier count, left unzeroed: the launch
-    zeroes both.  (``torch.empty`` is 16-byte aligned, as the kernel's
-    vector zeroing needs.)"""
-    return (torch.empty(out_shape, dtype=torch.int32, device=dev),
-            torch.empty((), dtype=torch.int32, device=dev))
+def _outputs(out_shape: tuple[int, int], dev, frames: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's packed map and inlier count (with ``frames``, F maps
+    and F counts), left unzeroed: the launch zeroes them.  (``torch.empty``
+    is 16-byte aligned, as the kernel's vector zeroing needs.)"""
+    lead = (frames,) if frames else ()
+    return (torch.empty((*lead, *out_shape), dtype=torch.int32, device=dev),
+            torch.empty(lead, dtype=torch.int32, device=dev))
+
+
+def _check_tables(kernel: str, tables, dev) -> None:
+    for name, a, dtype in (("cam_map_packed", tables.cam_map_packed, torch.int32),
+                           ("x_map", tables.x_map, torch.int16)):
+        if a.device != dev or a.dtype != dtype or not a.is_contiguous():
+            raise ValueError(f"{kernel}: {name} must be a contiguous {dtype} tensor on {dev}, "
+                             f"got {a.dtype} on {a.device}")
+
+
+def _group_shape(kernel: str, rows: torch.Tensor) -> tuple[int, int]:
+    """(F, capacity) of a group's (F, capacity) lane rows, checked."""
+    if rows.dim() != 2 or rows.shape[0] < 1:
+        raise ValueError(f"{kernel}: lanes must be (F, capacity) rows with F >= 1, "
+                         f"got {tuple(rows.shape)}")
+    f, cap = rows.shape
+    if not 1 <= cap <= MAX_CAPACITY or f * cap > MAX_GROUP_LANES:
+        raise ValueError(f"{kernel}: {f} x {cap} lanes (capacity 1..{MAX_CAPACITY}, at most "
+                         f"{MAX_GROUP_LANES} in all)")
+    return f, cap
+
+
+def _stack(results) -> EventScatterResult:
+    return EventScatterResult(torch.stack([r.packed_map for r in results]),
+                              torch.stack([r.num_inliers for r in results]))
 
 
 def event_disparity_scatter_staged_plain(
@@ -242,11 +284,7 @@ def event_disparity_scatter_staged(
     bits = (layout.bits_x, layout.bits_y, layout.bits_t)
     if min(bits) < 1 or sum(bits) > 32:
         raise ValueError(f"event_disparity_scatter_staged: layout widths {bits}")
-    for name, a, dtype in (("cam_map_packed", tables.cam_map_packed, torch.int32),
-                           ("x_map", tables.x_map, torch.int16)):
-        if a.device != dev or a.dtype != dtype or not a.is_contiguous():
-            raise ValueError(f"event_disparity_scatter_staged: {name} must be a contiguous "
-                             f"{dtype} tensor on {dev}, got {a.dtype} on {a.device}")
+    _check_tables("event_disparity_scatter_staged", tables, dev)
     lib = _build.load()
     packed, inliers = _outputs(out_shape, dev)
     cam_h, cam_w = tables.cam_map_packed.shape
@@ -347,11 +385,7 @@ def event_disparity_scatter_ring(
     t_min, t_max = (int(v) for v in t_bounds)
     if t_min > t_max:
         raise ValueError(f"event_disparity_scatter_ring: t_bounds {t_bounds}")
-    for name, a, dtype in (("cam_map_packed", tables.cam_map_packed, torch.int32),
-                           ("x_map", tables.x_map, torch.int16)):
-        if a.device != dev or a.dtype != dtype or not a.is_contiguous():
-            raise ValueError(f"event_disparity_scatter_ring: {name} must be a contiguous "
-                             f"{dtype} tensor on {dev}, got {a.dtype} on {a.device}")
+    _check_tables("event_disparity_scatter_ring", tables, dev)
     lib = _build.load()
     packed, inliers = _outputs(out_shape, dev)
     cam_h, cam_w = tables.cam_map_packed.shape
@@ -370,3 +404,159 @@ def event_disparity_scatter_ring(
     _build.check("event_disparity_scatter_ring", err)
     _build.LAUNCHES["event_disparity_scatter"] += 1
     return EventScatterResult(packed, inliers)
+
+
+def event_disparity_scatter_group_plain(
+    batch: EventBatch,
+    t_bin: torch.Tensor,
+    tables,
+    *,
+    camera_view: bool,
+    window: tuple[int, int],
+    out_shape: tuple[int, int],
+    priority: Optional[torch.Tensor] = None,
+) -> EventScatterResult:
+    """Plain PyTorch version of ``event_disparity_scatter_group`` (any
+    device): the one-frame plain version on each frame, stacked."""
+    f, _ = _group_shape("event_disparity_scatter_group", batch.x)
+    return _stack([
+        event_disparity_scatter_plain(
+            batch.frame(i), t_bin[i], tables, camera_view=camera_view, window=window,
+            out_shape=out_shape, priority=None if priority is None else priority[i],
+        )
+        for i in range(f)
+    ])
+
+
+def event_disparity_scatter_group(
+    batch: EventBatch,
+    t_bin: torch.Tensor,
+    tables,
+    *,
+    camera_view: bool,
+    window: tuple[int, int],
+    out_shape: tuple[int, int],
+    priority: Optional[torch.Tensor] = None,
+) -> EventScatterResult:
+    """F frames' events -> F packed disparity maps + F inlier counts, in
+    one launch; frame f equals ``event_disparity_scatter`` of frame f.
+
+    ``batch``: an ``EventBatch`` with a leading frame axis (each lane field
+    (F, capacity), ``EventBatch.stack_structured``); ``t_bin``: its (F,
+    capacity) int32 time bins; ``priority``: (F, capacity) int32, each
+    value below the capacity (None: the lane index within its frame).
+    Returns (F, out_h, out_w) maps and (F,) counts.
+    """
+    f, cap = _group_shape("event_disparity_scatter_group", batch.x)
+    dev = batch.x.device
+    if dev.type == "cpu":
+        return event_disparity_scatter_group_plain(
+            batch, t_bin, tables, camera_view=camera_view, window=window,
+            out_shape=out_shape, priority=priority,
+        )
+    if dev.type != "cuda":
+        raise ValueError(f"event_disparity_scatter_group: unsupported device {dev}")
+    checked = [("x", batch.x, torch.int32), ("y", batch.y, torch.int32),
+               ("t_bin", t_bin, torch.int32), ("valid", batch.valid, torch.bool)]
+    if priority is not None:
+        checked.append(("priority", priority, torch.int32))
+    for name, a, dtype in checked:
+        if (a.device != dev or a.dtype != dtype or not a.is_contiguous()
+                or a.shape != (f, cap)):
+            raise ValueError(
+                f"event_disparity_scatter_group: {name} must be a contiguous ({f}, {cap}) "
+                f"{dtype} tensor on {dev}, got {tuple(a.shape)} {a.dtype} on {a.device}")
+    _check_tables("event_disparity_scatter_group", tables, dev)
+    lib = _build.load()
+    packed, counts = _outputs(out_shape, dev, frames=f)
+    cam_h, cam_w = tables.cam_map_packed.shape
+    xmap_h, xmap_w = tables.x_map.shape
+    (oy, ox), (out_h, out_w) = window, out_shape
+    err = lib.event_disparity_scatter_group(
+        batch.x.data_ptr(), batch.y.data_ptr(), t_bin.data_ptr(), batch.valid.data_ptr(),
+        None if priority is None else priority.data_ptr(), f, cap,
+        tables.cam_map_packed.data_ptr(), cam_h, cam_w,
+        tables.x_map.data_ptr(), xmap_h, xmap_w,
+        int(camera_view), oy, ox, out_h, out_w,
+        packed.data_ptr(), counts.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check("event_disparity_scatter_group", err)
+    _build.LAUNCHES["event_disparity_scatter_group"] += 1
+    return EventScatterResult(packed, counts)
+
+
+def event_disparity_scatter_staged_group_plain(
+    staged: CompactStagedGroup,
+    layout: CompactLayout,
+    tables,
+    *,
+    camera_view: bool,
+    window: tuple[int, int],
+    out_shape: tuple[int, int],
+) -> EventScatterResult:
+    """Plain PyTorch version of ``event_disparity_scatter_staged_group``
+    (any device): the one-frame staged plain version on each row, with its
+    host count, stacked."""
+    _group_shape("event_disparity_scatter_staged_group", staged.word)
+    return _stack([
+        event_disparity_scatter_staged_plain(
+            row, n, layout, tables, camera_view=camera_view, window=window,
+            out_shape=out_shape,
+        )
+        for row, n in zip(staged.word, staged.host_counts)
+    ])
+
+
+def event_disparity_scatter_staged_group(
+    staged: CompactStagedGroup,
+    layout: CompactLayout,
+    tables,
+    *,
+    camera_view: bool,
+    window: tuple[int, int],
+    out_shape: tuple[int, int],
+) -> EventScatterResult:
+    """F frames' 1-word staged rows (``io.prefetch.stage_compact_group``)
+    -> F packed disparity maps + F inlier counts, in one launch; frame f
+    equals ``event_disparity_scatter_staged`` of row f and its count.  The
+    kernel reads the counts from the group's device buffer; a row's lanes
+    at or past its count are not read."""
+    f, cap = _group_shape("event_disparity_scatter_staged_group", staged.word)
+    if len(staged.host_counts) != f or not all(0 <= n <= cap for n in staged.host_counts):
+        raise ValueError(f"event_disparity_scatter_staged_group: counts {staged.host_counts} "
+                         f"for {f} rows of {cap}")
+    dev = staged.word.device
+    if dev.type == "cpu":
+        return event_disparity_scatter_staged_group_plain(
+            staged, layout, tables, camera_view=camera_view, window=window,
+            out_shape=out_shape,
+        )
+    if dev.type != "cuda":
+        raise ValueError(f"event_disparity_scatter_staged_group: unsupported device {dev}")
+    for name, a, shape in (("word", staged.word, (f, cap)), ("counts", staged.counts, (f,))):
+        if (a.device != dev or a.dtype != torch.int32 or not a.is_contiguous()
+                or a.shape != shape):
+            raise ValueError(
+                f"event_disparity_scatter_staged_group: {name} must be a contiguous {shape} "
+                f"int32 tensor on {dev}, got {tuple(a.shape)} {a.dtype} on {a.device}")
+    bits = (layout.bits_x, layout.bits_y, layout.bits_t)
+    if min(bits) < 1 or sum(bits) > 32:
+        raise ValueError(f"event_disparity_scatter_staged_group: layout widths {bits}")
+    _check_tables("event_disparity_scatter_staged_group", tables, dev)
+    lib = _build.load()
+    packed, counts = _outputs(out_shape, dev, frames=f)
+    cam_h, cam_w = tables.cam_map_packed.shape
+    xmap_h, xmap_w = tables.x_map.shape
+    (oy, ox), (out_h, out_w) = window, out_shape
+    err = lib.event_disparity_scatter_staged_group(
+        staged.word.data_ptr(), staged.counts.data_ptr(), f, cap, *bits,
+        tables.cam_map_packed.data_ptr(), cam_h, cam_w,
+        tables.x_map.data_ptr(), xmap_h, xmap_w,
+        int(camera_view), oy, ox, out_h, out_w,
+        packed.data_ptr(), counts.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check("event_disparity_scatter_staged_group", err)
+    _build.LAUNCHES["event_disparity_scatter_group"] += 1
+    return EventScatterResult(packed, counts)

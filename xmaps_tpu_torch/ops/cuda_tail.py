@@ -24,6 +24,12 @@ scalars.  The TPU plan's band tables and tile ladder are not needed.
 Each function returns (frame, depth, disp): frame is (H, W, 3) uint8, or
 with ``packed_bgr`` one (H, W) int32 packed-BGR plane (B | G<<8 | R<<16);
 depth and disp are float32 planes, or None unless ``emit_aux``.
+
+``tail_projector_group`` and ``colorize_camera_group`` take F frames' maps
+stacked as (F, H, W) and return each output with a leading frame axis, in
+one call of the kernel (kernel 2: its two launches with a frame grid axis;
+kernel 3: one launch over the F * H * W pixels).  Their plain versions run
+the one-frame plain version on each frame and stack the results.
 """
 
 from __future__ import annotations
@@ -57,7 +63,17 @@ __all__ = [
     "tail_projector_plain",
     "colorize_camera",
     "colorize_camera_plain",
+    "tail_projector_group",
+    "tail_projector_group_plain",
+    "colorize_camera_group",
+    "colorize_camera_group_plain",
 ]
+
+#: a group's frames: the tail kernels' frame grid axis (65535 at most)
+MAX_GROUP_FRAMES = 65535
+#: kernel 2's group outputs hold a frame every multiple of this many pixels,
+#: so each frame's 16-byte (and 3-byte BGR's 8-byte) stores stay aligned
+GROUP_STRIDE_PX = 8
 
 
 @dataclass(frozen=True)
@@ -155,6 +171,45 @@ def _outputs(shape, dev, emit_aux, packed_bgr):
         disp.data_ptr() if emit_aux else None,
     )
     return (frame, depth, disp), ptrs
+
+
+def _group_outputs(frames, shape, dev, emit_aux, packed_bgr):
+    """``_outputs`` with a leading frame axis, each frame at a multiple of
+    ``GROUP_STRIDE_PX`` pixels: the (F, *shape[, 3]) results are views of
+    padded rows where H * W is not such a multiple.  Returns (outputs,
+    pointers, the frame stride in pixels)."""
+    if packed_bgr and emit_aux:
+        raise ValueError("packed_bgr is display-only (emit_aux=False)")
+    n = shape[0] * shape[1]
+    stride = -(-n // GROUP_STRIDE_PX) * GROUP_STRIDE_PX
+
+    def rows(dtype, k=1):
+        a = torch.empty((frames, k * stride), dtype=dtype, device=dev)
+        return a, a[:, :k * n].unflatten(1, (*shape, 3) if k == 3 else shape)
+
+    frame = rows(torch.int32) if packed_bgr else rows(torch.uint8, 3)
+    depth = rows(torch.float32) if emit_aux else (None, None)
+    disp = rows(torch.float32) if emit_aux else (None, None)
+    ptrs = (
+        frame[0].data_ptr() if packed_bgr else None,
+        None if packed_bgr else frame[0].data_ptr(),
+        depth[0].data_ptr() if emit_aux else None,
+        disp[0].data_ptr() if emit_aux else None,
+    )
+    return (frame[1], depth[1], disp[1]), ptrs, stride
+
+
+def _stack_frames(outs):
+    """Per-frame (frame, depth, disp) triples -> one triple of stacks."""
+    return tuple(None if parts[0] is None else torch.stack(parts) for parts in zip(*outs))
+
+
+def _group_frames(kernel, maps, shape) -> int:
+    if maps.dim() != 3 or tuple(maps.shape[1:]) != tuple(shape) or not (
+            1 <= maps.shape[0] <= MAX_GROUP_FRAMES):
+        raise ValueError(f"{kernel}: maps must be (F, {shape[0]}, {shape[1]}) with 1 <= F <= "
+                         f"{MAX_GROUP_FRAMES}, got {tuple(maps.shape)}")
+    return maps.shape[0]
 
 
 def _plain_epilogue(disp, p03, z_near, z_far, emit_aux, packed_bgr):
@@ -290,10 +345,11 @@ def tail_projector(
     lib = _build.load()
     outs, ptrs = _outputs((Hp, Wp), dev, emit_aux, packed_bgr)
     dil = torch.empty((plan.H, plan.W), dtype=torch.uint16, device=dev)
-    err = lib.tail_projector(
-        packed_crop.data_ptr(), plan.H, plan.W, plan.crop_row0, plan.crop_col0,
+    # kernel 2's one C entry, at F = 1 (one frame's outputs, stride Hp * Wp)
+    err = lib.tail_projector_group(
+        packed_crop.data_ptr(), 1, plan.H, plan.W, plan.crop_row0, plan.crop_col0,
         plan.full_H, plan.full_W, dil.data_ptr(),
-        tables.proj_mapx_i16.data_ptr(), tables.proj_mapy_i16.data_ptr(), Hp, Wp,
+        tables.proj_mapx_i16.data_ptr(), tables.proj_mapy_i16.data_ptr(), Hp, Wp, Hp * Wp,
         tables.turbo_lut.data_ptr(), plan.p03, plan.z_near, plan.z_far,
         *ptrs, torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -344,4 +400,133 @@ def colorize_camera(
     )
     _build.check("colorize_camera", err)
     _build.LAUNCHES["colorize_camera"] += 1
+    return outs
+
+
+def tail_projector_group_plain(
+    packed_crops: torch.Tensor,
+    tables,
+    plan: TailPlan,
+    *,
+    emit_aux: bool = True,
+    packed_bgr: bool = False,
+):
+    """Plain PyTorch version of ``tail_projector_group`` (any device): the
+    one-frame plain version on each crop, stacked."""
+    _group_frames("tail_projector_group", packed_crops, (plan.H, plan.W))
+    return _stack_frames([
+        tail_projector_plain(crop, tables, plan, emit_aux=emit_aux, packed_bgr=packed_bgr)
+        for crop in packed_crops
+    ])
+
+
+def tail_projector_group(
+    packed_crops: torch.Tensor,
+    tables,
+    plan: TailPlan,
+    *,
+    emit_aux: bool = True,
+    packed_bgr: bool = False,
+):
+    """(F, H, W) int32 packed crop maps -> F projector-view (frame, depth,
+    disp), each output (F, Hp, Wp[, 3]), frame f equal to
+    ``tail_projector`` of crop f: one call of kernel 2 (its dilate and
+    remap launches, each over the F frames)."""
+    f = _group_frames("tail_projector_group", packed_crops, (plan.H, plan.W))
+    dev = packed_crops.device
+    if dev.type == "cpu":
+        return tail_projector_group_plain(
+            packed_crops, tables, plan, emit_aux=emit_aux, packed_bgr=packed_bgr
+        )
+    if dev.type != "cuda":
+        raise ValueError(f"tail_projector_group: unsupported device {dev}")
+    Hp, Wp = tables.proj_mapx_i16.shape
+    _check(
+        "tail_projector_group", dev,
+        packed_crops=(packed_crops, torch.int32, (f, plan.H, plan.W)),
+        proj_mapx=(tables.proj_mapx_i16, torch.int16, (Hp, Wp)),
+        proj_mapy=(tables.proj_mapy_i16, torch.int16, (Hp, Wp)),
+        lut=(tables.turbo_lut, torch.int32, (256,)),
+    )
+    for name in ("proj_mapx_i16", "proj_mapy_i16"):
+        if getattr(tables, name).data_ptr() % 16:
+            raise ValueError(
+                f"tail_projector_group: {name} must be 16-byte aligned (the kernel reads int4)")
+    lib = _build.load()
+    outs, ptrs, stride = _group_outputs(f, (Hp, Wp), dev, emit_aux, packed_bgr)
+    dil = torch.empty((f, plan.H, plan.W), dtype=torch.uint16, device=dev)
+    err = lib.tail_projector_group(
+        packed_crops.data_ptr(), f, plan.H, plan.W, plan.crop_row0, plan.crop_col0,
+        plan.full_H, plan.full_W, dil.data_ptr(),
+        tables.proj_mapx_i16.data_ptr(), tables.proj_mapy_i16.data_ptr(), Hp, Wp, stride,
+        tables.turbo_lut.data_ptr(), plan.p03, plan.z_near, plan.z_far,
+        *ptrs, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check("tail_projector_group", err)
+    _build.LAUNCHES["tail_projector_group"] += 1
+    return outs
+
+
+def colorize_camera_group_plain(
+    packed: torch.Tensor,
+    tables,
+    plan: CamTailPlan,
+    *,
+    emit_aux: bool = True,
+    packed_bgr: bool = False,
+):
+    """Plain PyTorch version of ``colorize_camera_group`` (any device): the
+    one-frame plain version on each map, stacked."""
+    _group_frames("colorize_camera_group", packed, (plan.H, plan.W))
+    return _stack_frames([
+        colorize_camera_plain(m, tables, plan, emit_aux=emit_aux, packed_bgr=packed_bgr)
+        for m in packed
+    ])
+
+
+def colorize_camera_group(
+    packed: torch.Tensor,
+    tables,
+    plan: CamTailPlan,
+    *,
+    emit_aux: bool = True,
+    packed_bgr: bool = False,
+):
+    """(F, H, W) int32 packed camera-view maps -> F (frame, depth, disp),
+    each output (F, H, W[, 3]), frame f equal to ``colorize_camera`` of map
+    f: kernel 3 is a pure pass over pixels, so the group is one launch over
+    the F * H * W pixels of the contiguous maps."""
+    f = _group_frames("colorize_camera_group", packed, (plan.H, plan.W))
+    dev = packed.device
+    if dev.type == "cpu":
+        return colorize_camera_group_plain(
+            packed, tables, plan, emit_aux=emit_aux, packed_bgr=packed_bgr
+        )
+    if dev.type != "cuda":
+        raise ValueError(f"colorize_camera_group: unsupported device {dev}")
+    if plan.table is None or plan.table[0].device != dev:
+        raise ValueError(
+            f"colorize_camera_group: the plan holds no colorize table on {dev} "
+            "(build it with with_colorize_table)")
+    bgr_table, depth_table = plan.table
+    _check(
+        "colorize_camera_group", dev,
+        packed=(packed, torch.int32, (f, plan.H, plan.W)),
+        bgr_table=(bgr_table, torch.int32, (PACK,)),
+        depth_table=(depth_table, torch.float32, (PACK,)),
+    )
+    if packed.data_ptr() % 16:
+        raise ValueError(
+            "colorize_camera_group: packed must be 16-byte aligned (the kernel reads int4)")
+    n = f * plan.H * plan.W
+    if n >= 2**31:
+        raise ValueError(f"colorize_camera_group: {n} pixels (at most 2**31 - 1)")
+    lib = _build.load()
+    outs, ptrs = _outputs((f, plan.H, plan.W), dev, emit_aux, packed_bgr)
+    err = lib.colorize_camera(
+        packed.data_ptr(), n, bgr_table.data_ptr(), depth_table.data_ptr(),
+        *ptrs, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check("colorize_camera_group", err)
+    _build.LAUNCHES["colorize_camera_group"] += 1
     return outs

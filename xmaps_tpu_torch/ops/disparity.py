@@ -62,12 +62,15 @@ def time_bounds(
     t: torch.Tensor, valid: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Masked (min, max) of event times, with identity elements for
-    invalid lanes.  ``masked_fill`` takes the identity as a kernel argument
-    (``torch.where`` with a Python scalar first fills a device tensor with
-    it)."""
+    invalid lanes: 0-dim for one frame's (N,) lanes, (F, 1) for a group's
+    (F, N) (each frame's own, broadcasting against its row).
+    ``masked_fill`` takes the identity as a kernel argument (``torch.where``
+    with a Python scalar first fills a device tensor with it)."""
     big = float("inf") if t.is_floating_point() else torch.iinfo(t.dtype).max
     invalid = ~valid
-    return t.masked_fill(invalid, big).min(), t.masked_fill(invalid, -big).max()
+    keep = t.dim() > 1
+    return (t.masked_fill(invalid, big).amin(-1, keepdim=keep),
+            t.masked_fill(invalid, -big).amax(-1, keepdim=keep))
 
 
 def _scale_time_int(
@@ -102,7 +105,9 @@ def scale_time(
     t: torch.Tensor, valid: torch.Tensor, t_px_scale: int
 ) -> torch.Tensor:
     """X-map time bin of every lane: exact integer arithmetic for integer
-    timestamps, float math for normalized float ones."""
+    timestamps, float math for normalized float ones.  ``t`` and ``valid``
+    are one frame's (N,) lanes or a group's (F, N), each row binned within
+    its own frame's bounds."""
     t_min, t_max = time_bounds(t, valid)
     if t.is_floating_point():
         return _scale_time_float(t, t_min, t_max, t_px_scale)

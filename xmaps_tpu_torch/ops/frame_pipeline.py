@@ -23,8 +23,12 @@ kernels and nothing else.
 With a dedup frame filter (``cfg.frame_filter``, ``ops.filters``) the
 events are first rectified (a gather of the camera LUT) and filtered; the
 time binning then runs on the filtered batch and kernel 1 takes the
-filter's scatter priority.  On CPU the same calls run the kernels' plain
-versions.
+filter's scatter priority.
+``group_depth_frames`` runs F independent frames as one program (the
+counterpart of the JAX engine's ``process_frames`` group and of
+``bench.py``'s ``run_group``): kernel 1's group entry once over the F
+frames, then kernel 2's or kernel 3's group entry once over the F maps.
+On CPU the same calls run the kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -35,17 +39,26 @@ import numpy as np
 import torch
 
 from xmaps_tpu_torch.config import PipelineConfig
-from xmaps_tpu_torch.io.prefetch import CompactLayout, CompactStagedBatch, RingLayout
+from xmaps_tpu_torch.io.prefetch import (
+    CompactLayout,
+    CompactStagedBatch,
+    CompactStagedGroup,
+    RingLayout,
+)
 from xmaps_tpu_torch.ops.cuda_events import (
     event_disparity_scatter,
+    event_disparity_scatter_group,
     event_disparity_scatter_ring,
     event_disparity_scatter_staged,
+    event_disparity_scatter_staged_group,
 )
 from xmaps_tpu_torch.ops.cuda_tail import (
     CamTailPlan,
     TailPlan,
     colorize_camera,
+    colorize_camera_group,
     tail_projector,
+    tail_projector_group,
 )
 from xmaps_tpu_torch.ops.disparity import rectify_events, scale_time
 from xmaps_tpu_torch.ops.event_batch import EventBatch
@@ -57,6 +70,7 @@ __all__ = [
     "FrameResult",
     "depth_frame",
     "filter_events",
+    "group_depth_frames",
     "ring_depth_frame",
     "staged_depth_frame",
 ]
@@ -163,11 +177,7 @@ def depth_frame(
     the two f32 stores); ``display_packed`` (requires display_only) returns
     frame_bgr as one packed-BGR int32 plane.
     """
-    if display_packed and not display_only:
-        raise ValueError(
-            "display_packed emits only the packed colorized plane; it "
-            "requires display_only"
-        )
+    _check_display(display_only, display_packed)
     priority = None
     if cfg.frame_filter != "none":
         batch, priority = filter_events(batch, tables, cfg)
@@ -225,6 +235,60 @@ def ring_depth_frame(
         **_scatter_view(cfg, plan),
     )
     return _tail(ev, tables, cfg, plan, display_only, display_packed)
+
+
+def group_depth_frames(
+    group: Union[EventBatch, CompactStagedGroup],
+    tables: DeviceTables,
+    cfg: PipelineConfig,
+    plan: Union[TailPlan, CamTailPlan],
+    *,
+    layout: Optional[CompactLayout] = None,
+    display_only: bool = False,
+    display_packed: bool = False,
+) -> FrameResult:
+    """F independent frames -> one ``FrameResult`` whose fields carry a
+    leading frame axis (``num_inliers`` (F,)); frame f equals
+    ``depth_frame`` of frame f bit for bit.
+
+    ``group``: the F 1-word staged rows of ``io.prefetch.stage_compact_group``
+    (with their ``layout``; unfiltered), or an ``EventBatch`` with a leading
+    frame axis (``EventBatch.stack_structured``; integer or float time,
+    any filter).  The stacked batch is binned as one (F, capacity) tensor
+    and, with a dedup filter, filtered frame by frame (torch ops), its
+    batches and priorities stacked.  Then kernel 1's group entry (one
+    launch for the F frames) and the view's tail group entry (one call)."""
+    _check_display(display_only, display_packed)
+    view = _scatter_view(cfg, plan)
+    if isinstance(group, CompactStagedGroup):
+        if layout is None or cfg.frame_filter != "none":
+            raise ValueError("1-word staged rows need their layout and frame_filter == 'none'")
+        ev = event_disparity_scatter_staged_group(group, layout, tables, **view)
+    else:
+        priority = None
+        if cfg.frame_filter != "none":
+            filtered = [filter_events(group.frame(f), tables, cfg)
+                        for f in range(group.x.shape[0])]
+            group = EventBatch(*(torch.stack(a) for a in zip(*(b for b, _ in filtered))))
+            priority = torch.stack([p for _, p in filtered])
+        t_bin = scale_time(group.t, group.valid, cfg.t_px_scale)
+        ev = event_disparity_scatter_group(group, t_bin, tables, **view, priority=priority)
+    tail = colorize_camera_group if cfg.camera_perspective else tail_projector_group
+    frame, depth, disp_map = tail(
+        ev.packed_map, tables, plan,
+        emit_aux=not display_only, packed_bgr=display_packed,
+    )
+    return FrameResult(
+        frame_bgr=frame, depth=depth, disp_map=disp_map, num_inliers=ev.num_inliers,
+    )
+
+
+def _check_display(display_only: bool, display_packed: bool) -> None:
+    if display_packed and not display_only:
+        raise ValueError(
+            "display_packed emits only the packed colorized plane; it "
+            "requires display_only"
+        )
 
 
 def _scatter_view(cfg: PipelineConfig, plan) -> dict:
