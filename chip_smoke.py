@@ -29,6 +29,19 @@ epilogue of all 8192 disparities, bit for bit), and drives the port's paths:
   to ``process_frame`` on the card and to the CPU port; phase 6 times the
   group against the per-frame loop (device and wall ms a frame, in turns)
   and each group entry against its plain version;
+- scale-out on a virtual mesh of the one card (phase 4c): ``cuda:0``
+  listed data x event times, ``parallel.make_sharded_pipeline`` of the 12
+  demonstrator frames at (data, event) = (2, 1), (4, 1), (1, 2), (1, 4),
+  (2, 2) in both views, of the ESL frames at (1, 2) and of the 12 frames
+  with ``first_per_xy`` at (2, 2), then ``process_frames_sharded`` of 12
+  and of 7 frames at data 4: one kernel 1 group launch a mesh device and
+  one tail group call a data row, every element bit-equal to
+  ``process_frame`` on the card and to the CPU port; phase 3 holds kernel
+  1's lane offset (``index_offset``) against its plain version, phase 6
+  times it against offset 0 and prints ``apps.bench_scaling --virtual 4``'s
+  line (each mesh shape's wall and device ms a frame), and phase 7 runs
+  ``apps.eval_xmaps.run_sharded`` (``-devices N``'s loop) on a virtual
+  mesh of 2, its depth ``.npy`` byte-equal to ``-devices 1``'s;
 - the five dedup frame filters (phase 5b): kernel 1 with each filter's
   scatter priority against its plain version, then ``set_frame_filter``
   and the 12 demonstrator frames in both views for each of the four dedup
@@ -172,6 +185,8 @@ HBM_BYTES_PER_S = 3.35e12
 MAX_SHARE = 1.05
 N_FRAMES = 12
 CAPACITY = 28 * 1024
+#: phase 4c: the (data, event) shapes of the virtual meshes of the one card
+MESH_SHAPES = ((2, 1), (4, 1), (1, 2), (1, 4), (2, 2))
 Z_NEAR, Z_FAR = 0.2, 1.2
 #: phase 7: camera / projector of the ESL eval apps' defaults, and the
 #: rectified disparities (p03 / z, in [5, 900)) of the simulated planes
@@ -288,6 +303,7 @@ def kernel_parity(eng, ev, errs, frames=None):
     errs["event_disparity_scatter"] = max(errs.get("event_disparity_scatter", 0.0), err)
     log(f"  event_disparity_scatter {kw['out_shape']} n={batch.capacity} "
         f"inliers={int(got.num_inliers)}: exact")
+    offset_parity(eng, ev, frames, kw, errs)
     staged_parity(eng, ev, kw, errs)
     if frames is not None:
         ring_parity(eng, frames, kw, errs)
@@ -302,6 +318,59 @@ def kernel_parity(eng, ev, errs, frames=None):
         errs[tail_name] = max(errs.get(tail_name, 0.0), err)
         log(f"  {tail_name} {opts} -> {tuple(a[0].shape)}: exact")
     return batch, t_bin, kw, ref.packed_map
+
+
+def offset_parity(eng, ev, frames, kw, errs):
+    """Phase 3: kernel 1's array entry with a lane offset (``index_offset``:
+    an event shard's first lane in its frame) against its plain version on
+    the card, exact, at offset 0 (equal to the entry without one), at the
+    (1, 2) mesh's second shard's (capacity / 2) and at the largest the
+    packing holds (keys past 2**31); with ``frames``, the array group
+    entry on the frames' second lane half, binned with the whole frames'
+    bounds, as the event axis runs it."""
+    from xmaps_tpu_torch.ops.cuda_events import (
+        event_disparity_scatter,
+        event_disparity_scatter_group,
+        event_disparity_scatter_group_plain,
+        event_disparity_scatter_plain,
+    )
+    from xmaps_tpu_torch.ops.disparity import scale_time, time_bounds
+    from xmaps_tpu_torch.ops.event_batch import EventBatch
+    from xmaps_tpu_torch.ops.scatter import MAX_CAPACITY
+
+    cap, scale = eng.cfg.event_capacity, eng.cfg.t_px_scale
+    batch = eng.make_batch(ev)
+    t_bin = scale_time(batch.t, batch.valid, scale)
+    offsets = (0, cap // 2, MAX_CAPACITY - cap)
+    err, high = 0.0, False
+    for off in offsets:
+        got = event_disparity_scatter(batch, t_bin, eng.tables, index_offset=off, **kw)
+        ref = event_disparity_scatter_plain(batch, t_bin, eng.tables, index_offset=off, **kw)
+        err = max(err, assert_exact(f"event_disparity_scatter index_offset {off}", [
+            (got.packed_map, ref.packed_map), (got.num_inliers, ref.num_inliers)]))
+        high |= bool((got.packed_map < 0).any())
+    assert_exact("event_disparity_scatter index_offset 0 vs no offset", [
+        (event_disparity_scatter(batch, t_bin, eng.tables, index_offset=0, **kw).packed_map,
+         event_disparity_scatter(batch, t_bin, eng.tables, **kw).packed_map)])
+    if not high:
+        raise AssertionError("index_offset parity: no word of 2**31 or above")
+    errs["event_disparity_scatter"] = max(errs.get("event_disparity_scatter", 0.0), err)
+    what = f"offsets {offsets}"
+    if frames is not None:
+        group = EventBatch.stack_structured(frames, cap, device="cuda")
+        bounds = time_bounds(group.t, group.valid)
+        half = slice(cap // 2, cap)
+        shard = EventBatch(*(a[:, half].contiguous() for a in group[:5]), count=group.count)
+        tb = scale_time(shard.t, shard.valid, scale, bounds=bounds)
+        got = event_disparity_scatter_group(shard, tb, eng.tables, index_offset=cap // 2, **kw)
+        ref = event_disparity_scatter_group_plain(shard, tb, eng.tables,
+                                                  index_offset=cap // 2, **kw)
+        e = assert_exact("event_disparity_scatter_group index_offset (the second lane half)",
+                         [(got.packed_map, ref.packed_map), (got.num_inliers, ref.num_inliers)])
+        errs["event_disparity_scatter_group"] = max(
+            errs.get("event_disparity_scatter_group", 0.0), e)
+        what += f"; group entry on {len(frames)} frames' lanes [{cap // 2}, {cap})"
+    log(f"  event_disparity_scatter index_offset ({what}; words past 2**31): exact")
 
 
 def table_parity(eng, errs):
@@ -625,6 +694,103 @@ def phase4b_group(card, errs, engines, frames, eng_e, esl_frames):
     return launches, groups
 
 
+def phase4c_mesh(card, errs, engines, frames, eng_e, esl_frames):
+    """Phase 4c: scale-out on a virtual mesh of the one card (``cuda:0``
+    listed data x event times: the sharded programs, their copies and
+    collectives, with the real kernels 1, 2 and 3 on every device of the
+    mesh).  ``parallel.make_sharded_pipeline`` of the 12 demonstrator
+    frames at each of ``MESH_SHAPES`` in both views, of the 3 ESL frames at
+    (1, 2), of the 12 frames with ``first_per_xy`` at (2, 2); then
+    ``process_frames_sharded`` of the 12 frames and of 7 (uneven blocks) at
+    data 4 in both views.  One launch of kernel 1's group entry a mesh
+    device and one tail group call a data row; every element bit-equal to
+    ``process_frame`` on the card and to the CPU port.  Returns the
+    launches, counted from 0 just before the runs and read just after."""
+    import torch
+    from xmaps_tpu_torch.ops import _build
+    from xmaps_tpu_torch.parallel import make_mesh, make_sharded_pipeline, shard_batches
+    from xmaps_tpu_torch.parallel.sharding import split_frames
+
+    t_phase = time.perf_counter()
+    log("phase 4c scale-out on a virtual mesh of the one card:")
+    runs = [(view, eng, frames, "none", shape)
+            for view, eng in engines.items() for shape in MESH_SHAPES]
+    runs += [("esl_projector", eng_e, esl_frames, "none", (1, 2)),
+             ("projector", engines["projector"], frames, "first_per_xy", (2, 2))]
+    engine_runs = [(view, eng, frames[:n]) for view, eng in engines.items()
+                   for n in (len(frames), 7)]
+    placed = []
+    for _, eng, fr, _, (d, e) in runs:
+        mesh = make_mesh(["cuda:0"] * (d * e), data=d, event=e)
+        placed.append((mesh, shard_batches([eng.make_batch(ev) for ev in fr], mesh, eng.cfg)))
+    mesh4 = make_mesh(["cuda:0"] * 4)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    outs = []
+    for (_, eng, _, name, _), (mesh, batch) in zip(runs, placed):
+        eng.set_frame_filter(name)
+        outs.append(make_sharded_pipeline(eng.cfg, eng.tables, mesh, eng.plan)(batch))
+        eng.set_frame_filter("none")
+    engine_outs = [eng.process_frames_sharded(fr, mesh4) for _, eng, fr in engine_runs]
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    run_s = time.perf_counter() - t_phase
+
+    def tail(eng):
+        return "colorize_camera_group" if eng.cfg.camera_perspective else "tail_projector_group"
+
+    want = {k: 0 for k in launches}
+    for _, eng, _, _, (d, e) in runs:
+        want["event_disparity_scatter_group"] += d * e
+        want[tail(eng)] += d
+    for _, eng, _ in engine_runs:
+        want["event_disparity_scatter_group"] += 4
+        want[tail(eng)] += 4
+    if launches != want:
+        raise AssertionError(f"phase 4c launches {launches} != {want}")
+    cpus = {id(eng): eng.to("cpu") for eng in (*engines.values(), eng_e)}
+    refs = {}
+
+    def expected(eng, name, i, ev):
+        """(process_frame on the card, the CPU port's) of frame i."""
+        key = (id(eng), name, i)
+        if key not in refs:
+            eng.set_frame_filter(name)
+            cpus[id(eng)].set_frame_filter(name)
+            refs[key] = (eng.process_frame(ev), cpus[id(eng)].process_frame(ev))
+            eng.set_frame_filter("none")
+            cpus[id(eng)].set_frame_filter("none")
+        return refs[key]
+
+    err = 0.0
+    for (view, eng, fr, name, (d, e)), out in zip(runs, outs):
+        for i, ev in enumerate(fr):
+            got = type(out)(*(a[i] for a in out))
+            card_ref, cpu_ref = expected(eng, name, i, ev)
+            err = max(err, assert_exact(f"{view} {name} mesh {d}x{e} frame {i} vs process_frame",
+                                        frame_pairs(got, card_ref)))
+            err = max(err, assert_exact(f"{view} {name} mesh {d}x{e} frame {i} vs the CPU port",
+                                        frame_pairs(got, cpu_ref)))
+        log(f"  {view} ({name}) mesh {d}x{e}: {len(fr)} frames bit-equal to process_frame and "
+            f"the CPU port; inliers {[int(v) for v in out.num_inliers]}")
+    for (view, eng, fr), got in zip(engine_runs, engine_outs):
+        if len(got) != len(fr):
+            raise AssertionError(f"process_frames_sharded: {len(got)} results for {len(fr)}")
+        for i, (g, ev) in enumerate(zip(got, fr)):
+            card_ref, cpu_ref = expected(eng, "none", i, ev)
+            err = max(err, assert_exact(f"{view} process_frames_sharded frame {i} of {len(fr)}",
+                                        frame_pairs(g, card_ref) + frame_pairs(g, cpu_ref)))
+        blocks = [sl.stop - sl.start for sl in split_frames(len(fr), 4)]
+        log(f"  {view}: process_frames_sharded of {len(fr)} frames at data 4 (blocks {blocks}): "
+            f"bit-equal to process_frame and the CPU port")
+    for k in ("event_disparity_scatter_group", "tail_projector_group", "colorize_camera_group"):
+        errs[k] = max(errs.get(k, 0.0), err)
+    log(f"  launches {launches}: one kernel 1 group launch a mesh device, one tail group call "
+        f"a data row; max_abs_err {err}; runs {run_s:.1f} s, phase "
+        f"{time.perf_counter() - t_phase:.1f} s {card}")
+    return launches
+
+
 def time_group(card, engines, frames, kernels_ms, shapes, groups):
     """Phase 6, the group: device and wall ms a frame of ``process_frames``
     over the 12 frames against the per-frame loop (``process_frame`` each),
@@ -811,52 +977,12 @@ def time_events(fn, iters):
 def device_events(fn, iters):
     """The device-side events (kernels, memsets, copies) of ``iters`` calls
     of ``fn`` under torch.profiler, as (name, start us, duration us) in
-    time order.  The profiler can lose device events near the start and
-    the end of a session (9 to 40 of 50 short kernels in single sessions
-    on the H100), so the ``iters`` calls sit between two marker kernels
-    (``torch.cuda._sleep``), with untimed calls of ``fn`` for at least
-    ``PROFILE_PAD_S`` seconds of host time before the first marker and
-    after the second, and only the events between the markers are
-    returned.  A session that lost a marker, or that holds a device event
-    a non-whole number of times a call (it lost events), is taken again
-    (at most twice more)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    time order: ``utils.profiling.device_events`` (the calls between two
+    marker kernels, with ``PROFILE_PAD_S`` seconds of untimed calls on each
+    side, retaken on a lost event; a ``RuntimeError`` after 3 sessions)."""
+    from xmaps_tpu_torch.utils.profiling import device_events as events
 
-    def pad():
-        t0 = time.perf_counter()
-        fn()
-        while time.perf_counter() - t0 < PROFILE_PAD_S:
-            fn()
-
-    for _ in range(3):
-        torch.cuda.synchronize()
-        # an empty session first: device records of work run outside a
-        # session that are still buffered are delivered to it
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
-            torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            pad()
-            torch.cuda._sleep(1)
-            for _ in range(iters):
-                fn()
-            torch.cuda._sleep(1)
-            pad()
-            torch.cuda.synchronize()
-        events = sorted(((e.name, e.time_range.start, e.time_range.elapsed_us())
-                         for e in prof.events() if e.device_type == DeviceType.CUDA),
-                        key=lambda e: e[1])
-        marks = [i for i, e in enumerate(events) if "spin_kernel" in e[0]]
-        if len(marks) != 2:
-            lost = f"{len(marks)} marker kernels"
-            continue
-        events = events[marks[0] + 1:marks[1]]
-        counts = collections.Counter(e[0] for e in events)
-        lost = {k[:60]: c / iters for k, c in counts.items() if c % iters}
-        if not lost:
-            return events
-    raise AssertionError(f"the profiler lost device events in 3 sessions: {lost}")
+    return events(fn, iters, pad_s=PROFILE_PAD_S)
 
 
 def profile_calls(fn, iters, counts=None):
@@ -994,6 +1120,52 @@ def time_kernel1_entries(card, eng, ev, batch, t_bin, kw, shapes):
         f"event), share {bound / rg['ms']:.4f} {card}")
 
 
+def time_offset_entry(card, eng, batch, t_bin, kw):
+    """Phase 6: kernel 1's array entry with the (1, 2) mesh's second
+    shard's lane offset (capacity / 2) against offset 0, in turns, on the
+    demonstrator's projector frame 0 (the same lanes, only the keys'
+    priorities differ)."""
+    from xmaps_tpu_torch.ops.cuda_events import event_disparity_scatter
+
+    off = eng.cfg.event_capacity // 2
+    on, zero = time_pair(
+        lambda: event_disparity_scatter(batch, t_bin, eng.tables, index_offset=off, **kw),
+        lambda: event_disparity_scatter(batch, t_bin, eng.tables, **kw))
+    log(f"  kernel 1 array entry at index_offset {off}: {on['ms']:.5f} ms (turns "
+        f"{on['turns'][0]:.5f}, {on['turns'][1]:.5f}) vs offset 0 {zero['ms']:.5f} ms "
+        f"({zero['turns'][0]:.5f}, {zero['turns'][1]:.5f}) in the same turns, "
+        f"{on['ms'] / zero['ms']:.3f}x {card}")
+
+
+def time_mesh(card):
+    """Phase 6: the mesh timings, from one run of ``apps.bench_scaling
+    --virtual 4`` (the one card listed 4 times), whose JSON line is printed:
+    each shape's wall and device ms a frame, ``make_sharded_pipeline`` on
+    placed batches and ``process_frames_sharded`` with its staging."""
+    from xmaps_tpu_torch.apps import bench_scaling
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = bench_scaling.main(["--virtual", "4"])
+    line = out.getvalue().strip().splitlines()[-1]
+    doc = json.loads(line)
+    rows = [("make_sharded_pipeline", doc["results"]),
+            ("process_frames_sharded", doc["group_live_path"]["results"])]
+    if not (rc == 0 and doc["device"] == "cuda" and doc["virtual"] and all(
+            v["device_step_ms"] for _, res in rows for v in res.values())):
+        raise AssertionError(f"apps.bench_scaling: {line}")
+    for what, res in rows:
+        for shape, v in res.items():
+            log(f"  {what} {shape} ({v['frames_per_step']} frames, {doc['frames_per_row']} a "
+                f"row): device {v['device_frame_ms']:.5f} ms/frame (eff "
+                f"{v['device_weak_scaling_eff']:.3f}), wall {v['frame_ms']:.5f} ms/frame (eff "
+                f"{v['weak_scaling_eff']:.3f}) {card}")
+            log(f"      top device events, us a step: "
+                f"{ {k: round(us, 2) for k, us in v['device_top_us'].items()} }")
+    log(f"  apps.bench_scaling --virtual 4: its JSON line {card}:")
+    print(line, flush=True)
+
+
 def time_ring_vs_staged(card, eng, frames):
     """Phase 6: the engine's dispatch of a frame from the trigger on, in
     turns: the ring (``PacketRing.frame``: ``frame_meta`` and the time
@@ -1109,6 +1281,41 @@ def run_app(main_fn, argv, launch_expect):
     if launches != want:
         raise AssertionError(f"{main_fn.__module__} launches {launches} != {want}")
     return launches, out.getvalue()
+
+
+def sharded_eval(eng, cams_raw, seq, out_dir):
+    """Phase 7: ``apps.eval_xmaps.run_sharded`` (the app's ``-devices N``
+    loop) on a virtual mesh of 2 (``cuda:0`` twice) over the scans: each
+    depth ``.npy`` byte-equal to the one ``-devices 1`` wrote in ``seq``;
+    one launch of kernel 1's and of kernel 3's group entry a scan (each
+    data row holds one).  Returns the launches, counted from 0 just before
+    and read just after."""
+    import torch
+    from xmaps_tpu_torch.apps import eval_xmaps
+    from xmaps_tpu_torch.ops import _build
+    from xmaps_tpu_torch.parallel import make_mesh
+
+    out_dir.mkdir()
+    scans = [(i, eval_xmaps.scan_image_to_events(c)) for i, c in enumerate(cams_raw)]
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        saved = eval_xmaps.run_sharded(eng, scans, make_mesh(["cuda:0"] * 2), str(out_dir))
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    groups = -(-len(scans) // 2)
+    want = {k: 0 for k in launches}
+    want.update(event_disparity_scatter_group=2 * groups, colorize_camera_group=2 * groups)
+    if saved != len(scans) or launches != want:
+        raise AssertionError(f"run_sharded saved {saved} of {len(scans)}, launches {launches} "
+                             f"!= {want}")
+    for i, _ in scans:
+        name = f"scans{i:03d}.npy"
+        if (out_dir / name).read_bytes() != (seq / "x_maps" / "depth_init" / name).read_bytes():
+            raise AssertionError(f"eval_xmaps run_sharded {name} != -devices 1's")
+    log(f"  eval_xmaps run_sharded on a virtual mesh of 2: {len(scans)} depth .npy byte-equal "
+        f"to -devices 1's; launches {dict((k, v) for k, v in launches.items() if v)}")
+    return launches
 
 
 def wall_ms(fn, iters):
@@ -1307,6 +1514,8 @@ def phase7_offline_eval(card, errs, kernels_ms, shapes, library_ms):
     log(f"  scan 0 vs the CPU port: ESL init, MC3D, X-maps ({len(events['x'])} events) "
         f"exact; refined {int(differ.sum())} of {differ.size} px differ; filtered max "
         f"|diff| {f_err:.3g} m")
+    for k, v in sharded_eval(eng, cams_raw, seqs["cuda"], root / "sharded").items():
+        launches[k] = launches.get(k, 0) + v
 
     # -- per-scan times, device (profiler) and wall
     plan = eval_esl.RefinePlan(calib, maps, 3, *ESL_PROJ)
@@ -2367,6 +2576,8 @@ def main() -> int:
     group_launches, groups = phase4b_group(card, errs, engines, frames, eng_e, esl_frames)
     for k, v in group_launches.items():
         launches[k] += v
+    for k, v in phase4c_mesh(card, errs, engines, frames, eng_e, esl_frames).items():
+        launches[k] += v
     for k, v in phase_filters(card, errs, {"projector": eng_p, "camera": eng_c}, frames,
                               eng_e, esl_frames).items():
         launches[k] += v
@@ -2439,16 +2650,18 @@ def main() -> int:
             f"{pm['ms']:.5f} ms; issue rate {km['issue_ms']:.5f} vs {pm['issue_ms']:.5f} "
             f"ms/call (demonstrator, display-packed, mean of 2x50 calls) {card}")
     time_kernel1_entries(card, eng_p, frames[0], batch, t_bin, ekw, shapes)
+    time_offset_entry(card, eng_p, batch, t_bin, ekw)
     time_group(card, engines, frames, kernels_ms, shapes, groups)
+    time_mesh(card)
     for eng in (eng_p, eng_c):
         time_ring_vs_staged(card, eng, frames)
 
     # -- 7-10. the offline eval, the replay app, the benches ------------
     # launches: the engine's main path (phase 4), the group's (phase 4b),
-    # the filters' (phase
-    # 5b) plus the eval apps' (phase 7), the replay and live app's (phase
-    # 8), the bench's (phase 9) and the store-loop bench's (phase 10), each
-    # counted from 0 just before its run
+    # the virtual meshes' (phase 4c), the filters' (phase 5b) plus the eval
+    # apps' and the sharded eval loop's (phase 7), the replay and live
+    # app's (phase 8), the bench's (phase 9) and the store-loop bench's
+    # (phase 10), each counted from 0 just before its run
     for part in (phase7_offline_eval(card, errs, kernels_ms, shapes, library_ms),
                  phase8_streaming(card, errs),
                  phase9_bench(card, errs, kernels_ms, shapes, library_ms),
@@ -2456,7 +2669,7 @@ def main() -> int:
                  phase10_store_loop(card, errs, kernels_ms, shapes, library_ms)):
         for k, v in part.items():
             launches[k] += v
-    log(f"launches on the main paths (phases 4, 4b, 5b, 7, 8, 9, 10): {launches}")
+    log(f"launches on the main paths (phases 4, 4b, 4c, 5b, 7, 8, 9, 10): {launches}")
 
     kernels = []
     for k in KERNEL_INFO:

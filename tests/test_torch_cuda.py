@@ -994,3 +994,199 @@ def test_group_entries_check_inputs(cuda):
     with pytest.raises(ValueError, match="packed_crops"):
         tail_projector_group(torch.zeros((2, eng.plan.H, eng.plan.W), dtype=torch.float32,
                                          device=cuda), eng.tables, eng.plan)
+
+
+# -- the scale-out layer (parallel.sharding) on a virtual mesh of the card -----
+
+
+@pytest.mark.parametrize("offset", [0, 777, 524286 - 4096])
+@pytest.mark.parametrize("camera_perspective", [False, True], ids=["projector", "camera"])
+def test_event_scatter_index_offset_on_card(cuda, camera_perspective, offset):
+    """Kernel 1's array and array group entries with a lane offset against
+    their plain versions (keys past 2**31 at the largest); offset 0 equals
+    the entry without one."""
+    from xmaps_tpu_torch.ops.frame_pipeline import scatter_view
+
+    eng = _engine(camera_perspective)
+    kw = scatter_view(eng.cfg, eng.plan)
+    frames = _frames()
+    batch = EventBatch.stack_structured(frames, eng.cfg.event_capacity, device="cuda")
+    t_bin = scale_time(batch.t, batch.valid, eng.cfg.t_px_scale)
+    for f in range(len(frames)):
+        one, bins = batch.frame(f), t_bin[f]
+        got = event_disparity_scatter(one, bins, eng.tables, index_offset=offset, **kw)
+        ref = event_disparity_scatter_plain(one, bins, eng.tables, index_offset=offset, **kw)
+        torch.cuda.synchronize()
+        _equal(got.packed_map, ref.packed_map)
+        _equal(got.num_inliers, ref.num_inliers)
+        if offset == 0:
+            _equal(got.packed_map, event_disparity_scatter(one, bins, eng.tables, **kw).packed_map)
+    got = event_disparity_scatter_group(batch, t_bin, eng.tables, index_offset=offset, **kw)
+    ref = event_disparity_scatter_group_plain(batch, t_bin, eng.tables, index_offset=offset, **kw)
+    torch.cuda.synchronize()
+    _equal(got.packed_map, ref.packed_map)
+    _equal(got.num_inliers, ref.num_inliers)
+    if offset > 2**18:
+        assert bool((got.packed_map < 0).any())  # unsigned words of 2**31 and above
+
+
+@pytest.mark.parametrize("shape", [(2, 1), (4, 1), (1, 2), (2, 2), (1, 4)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("camera_perspective", [False, True], ids=["projector", "camera"])
+def test_sharded_pipeline_virtual_mesh_on_card(cuda, camera_perspective, shape):
+    """``make_sharded_pipeline`` on the card listed data x event times:
+    every frame bit-equal to ``process_frame`` on the card and to the CPU
+    port; one launch of kernel 1's group entry a mesh device and one tail
+    group call a data row; ``process_frames_sharded`` at the data size."""
+    from xmaps_tpu_torch.parallel import make_mesh, make_sharded_pipeline, shard_batches
+
+    data, event = shape
+    eng = _engine(camera_perspective)
+    cpu = eng.to("cpu")
+    calib = make_synthetic_calibration(**SIZES)
+    rng = np.random.default_rng(8)
+    frames = [simulate_plane_events(calib, depth_m=0.45 + 0.04 * i, subsample=0.08,
+                                    jitter_us=2.0, rng=rng) for i in range(2 * data)]
+    mesh = make_mesh(["cuda:0"] * (data * event), data=data, event=event)
+    pipe = make_sharded_pipeline(eng.cfg, eng.tables, mesh, eng.plan)
+    placed = shard_batches([eng.make_batch(ev) for ev in frames], mesh, eng.cfg)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    out = pipe(placed)
+    torch.cuda.synchronize()
+    tail = "colorize_camera_group" if camera_perspective else "tail_projector_group"
+    assert _build.LAUNCHES["event_disparity_scatter_group"] == data * event
+    assert _build.LAUNCHES[tail] == data
+    for i, ev in enumerate(frames):
+        for ref in (eng.process_frame(ev), cpu.process_frame(ev)):
+            for a, b in zip(out, ref):
+                _equal(a[i], b)
+    if event == 1:
+        for ev, got in zip(frames, eng.process_frames_sharded(frames[:-1], mesh)):
+            for a, b in zip(got, eng.process_frame(ev)):
+                _equal(a, b)
+
+
+# -- more than one card: each launch on its tensors' card, meshes of cards ---
+
+
+@pytest.fixture(scope="module")
+def cards(cuda):
+    """The number of visible cards, where there are two or more."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two or more CUDA devices ({n} visible)")
+    return n
+
+
+@pytest.mark.parametrize("camera_perspective", [False, True], ids=["projector", "camera"])
+def test_wrappers_launch_on_their_tensors_card(cuda, cards, camera_perspective):
+    """With cuda:0 current, every kernel wrapper launches on the card its
+    tensors lie on (the last one): the engine moved there (its colorize
+    table built there), ``process_frame`` (kernel 1's array entry and the
+    tail), ``process_staged`` (the staged entry), ``process_ring`` (the
+    ring entry), ``process_frames`` (the staged group entry and the tail's
+    group entry) and with a filter (the array group entry), each bit-equal
+    to the CPU port; kernels A, B, W and S there equal to their plain
+    versions.  Without the device guard these launches go to cuda:0's
+    context with the other card's pointers and stream."""
+    from xmaps_tpu_torch.apps.bench_store_loop import make_inputs
+    from xmaps_tpu_torch.io.prefetch import HostStagingPool, ring_time_bounds
+    from xmaps_tpu_torch.ops.esl_search import esl_disparity_search, esl_search_prep
+    from xmaps_tpu_torch.ops.remap import remap_gather, remap_gather_plain
+    from xmaps_tpu_torch.ops.store_loop import tile_store_last, tile_store_last_plain
+    from xmaps_tpu_torch.ops.warmup import warmup_add_one, warmup_add_one_plain
+
+    dev = torch.device("cuda", cards - 1)
+    base = _engine(camera_perspective)
+    cpu = base.to("cpu")
+    frames = _frames()
+    packed = dict(display_only=True, display_packed=True)
+    with torch.cuda.device(0):
+        eng = base.to(dev)
+        assert eng.tables.x_map.device == dev
+        if camera_perspective:
+            assert eng.plan.table[0].device == dev
+        pool = HostStagingPool(eng.cfg.event_capacity, device=dev, layout=eng.compact_layout)
+        for seed, ev in enumerate(frames):
+            for a, b in zip(eng.process_frame(ev), cpu.process_frame(ev)):
+                _equal(a, b)
+            want = cpu.process_frame(ev, **packed)
+            got = eng.process_staged(pool.stage_compact(ev))
+            _equal(got.frame_bgr, want.frame_bgr)
+            _equal(got.num_inliers, want.num_inliers)
+            rings = {d: _ring_packets(ev, 4, np.random.default_rng(seed), eng.ring_layout, d,
+                                      4000) for d in (dev, "cpu")}
+            _, frame, pkts, meta = rings[dev]
+            got = eng.process_ring(pkts, meta, ring_time_bounds(frame, eng.cfg.event_capacity))
+            ref = cpu.process_ring(*rings["cpu"][2:])
+            _equal(got.frame_bgr, ref.frame_bgr)
+            _equal(got.num_inliers, ref.num_inliers)
+        for name in ("none", "first_per_xy"):
+            eng.set_frame_filter(name)
+            cpu.set_frame_filter(name)
+            for g, r in zip(eng.process_frames(frames), cpu.process_frames(frames)):
+                for a, b in zip(g, r):
+                    _equal(a, b)
+        eng.set_frame_filter("none")
+        cpu.set_frame_filter("none")
+        x = torch.arange(1000, dtype=torch.int32, device=dev)
+        _equal(warmup_add_one(x), warmup_add_one_plain(x))
+        rows, cols, vals = make_inputs(5000, (13, 3100), seed=3, device=dev)
+        _equal(tile_store_last(rows, cols, vals, (13, 3100)),
+               tile_store_last_plain(rows, cols, vals, (13, 3100)))
+        rng = np.random.default_rng(4)
+        src = torch.from_numpy(rng.random((37, 53)).astype(np.float32)).to(dev)
+        idx = torch.from_numpy(rng.integers(-1, src.numel(), (31, 33)).astype(np.int32)).to(dev)
+        _equal(remap_gather(src, idx), remap_gather_plain(src, idx))
+        cam, proj = _monotone_case(420, 48, 420, (11, 37, 70, 300))
+        kw = dict(min_disp=5, max_disp=200, row_range=(11, 37), col_range=(70, 300))
+        want = esl_disparity_search(torch.from_numpy(cam), torch.from_numpy(proj), **kw)
+        prep = esl_search_prep(torch.from_numpy(proj).to(dev), **kw)
+        _equal(esl_disparity_search(torch.from_numpy(cam).to(dev), None, prep=prep, **kw), want)
+        torch.cuda.synchronize(dev)
+        assert torch.cuda.current_device() == 0
+
+
+@pytest.mark.parametrize("shape", [(2, 1), (1, 2), (2, 2), (4, 1), (1, 4)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("camera_perspective", [False, True], ids=["projector", "camera"])
+def test_sharded_pipeline_across_cards(cuda, cards, camera_perspective, shape):
+    """``make_sharded_pipeline`` over distinct cards (the collectives are
+    copies between cards), with and without a filter, and
+    ``process_frames_sharded`` at the data size (uneven blocks): every
+    frame bit-equal to ``process_frame`` on cuda:0; the tables copied once
+    to each other card."""
+    from xmaps_tpu_torch.parallel import make_mesh, make_sharded_pipeline, shard_batches
+
+    data, event = shape
+    if data * event > cards:
+        pytest.skip(f"needs {data * event} cards ({cards} visible)")
+    eng = _engine(camera_perspective)
+    calib = make_synthetic_calibration(**SIZES)
+    rng = np.random.default_rng(8)
+    frames = [simulate_plane_events(calib, depth_m=0.45 + 0.04 * i, subsample=0.08,
+                                    jitter_us=2.0, rng=rng) for i in range(2 * data)]
+    mesh = make_mesh([f"cuda:{i}" for i in range(data * event)], data=data, event=event)
+    assert not mesh.virtual
+    for name in ("none", "first_per_xy"):
+        eng.set_frame_filter(name)
+        try:
+            pipe = make_sharded_pipeline(eng.cfg, eng.tables, mesh, eng.plan)
+            out = pipe(shard_batches([eng.make_batch(ev) for ev in frames], mesh, eng.cfg))
+            assert out.frame_bgr.device == torch.device("cuda", 0)
+            for i, ev in enumerate(frames):
+                for a, b in zip(out, eng.process_frame(ev)):
+                    _equal(a[i], b)
+        finally:
+            eng.set_frame_filter("none")
+    if event == 1:
+        got = eng.process_frames_sharded(frames[:-1], mesh)
+        assert [g.frame_bgr.device.index for g in got][-1] == data - 1
+        for ev, g in zip(frames, got):
+            for a, b in zip(g, eng.process_frame(ev)):
+                _equal(a, b)
+        # one copy a card, none on the engine's own
+        assert eng._replicas[torch.device("cuda", 0)][0].x_map is eng.tables.x_map
+        for i in range(1, data):
+            assert eng._replicas[torch.device("cuda", i)][0].x_map.device.index == i

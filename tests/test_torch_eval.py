@@ -374,8 +374,9 @@ def test_cli_device_rules(monkeypatch, chain):
     for main in (tesl.main, tmc3d.main, txmaps.main):
         with pytest.raises(RuntimeError, match="is_available"):
             main(_args(seqs["torch"], yaml_path) + ["-device", "cuda"])
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        txmaps.main(_args(seqs["torch"], yaml_path) + ["-device", "cpu", "-devices", "2"])
+    # -devices N > 1 takes cuda:0 .. cuda:N-1: refused where they are not there
+    with pytest.raises(ValueError, match="not there"):
+        txmaps.main(_args(seqs["torch"], yaml_path) + ["-device", "cuda", "-devices", "2"])
     with pytest.raises(SystemExit):
         tesl.main(_args(seqs["torch"], yaml_path) + ["-device", "tpu"])
 

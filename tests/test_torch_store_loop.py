@@ -116,7 +116,8 @@ def test_plain_at_bench_shape_matches_numpy_loop():
     """The benchmark's own draws (seed 0, 28672 events into 64 x 1152),
     the high bit of the values set on half of them, and events outside the
     tile (dropped)."""
-    rows, cols, vals = (t.numpy() for t in bench_store_loop.make_inputs(BENCH_EVENTS, BENCH_SHAPE))
+    rows, cols, vals = (t.numpy() for t in bench_store_loop.make_inputs(
+        BENCH_EVENTS, BENCH_SHAPE, device="cpu"))
     rows, cols, vals = rows.copy(), cols.copy(), vals.copy().view(np.uint32)
     vals[::2] |= np.uint32(1 << 31)
     rows[::97] = -1

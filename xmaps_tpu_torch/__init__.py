@@ -14,6 +14,8 @@ imports nothing of it, so it runs on a machine without JAX.
 - ``xmaps_tpu_torch.io``     -- EVT decoding (host C++), packet replay,
   stream filters, pinned staging.
 - ``xmaps_tpu_torch.runtime`` -- trigger finder, watchdog, pipe, processor.
+- ``xmaps_tpu_torch.parallel`` -- scale-out over a mesh of devices (data x
+  event), one controller; a device may repeat (a virtual device).
 - ``xmaps_tpu_torch.apps``   -- the replay app, the bench, the eval apps.
 
 There is no device auto-pick: every entry point takes an explicit

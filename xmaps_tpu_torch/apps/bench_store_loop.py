@@ -50,9 +50,10 @@ SEED = 0
 ITERS = 200
 
 
-def make_inputs(n: int, shape: tuple[int, int], seed: int = SEED, device="cpu"):
-    """(rows, cols, vals) as int32 tensors on ``device``: the JAX
-    benchmark's draws (vals are uint32 in [1, 2**30), held as int32)."""
+def make_inputs(n: int, shape: tuple[int, int], seed: int = SEED, *, device):
+    """(rows, cols, vals) as int32 tensors on ``device`` (required: no
+    default device): the JAX benchmark's draws (vals are uint32 in [1,
+    2**30), held as int32)."""
     H, W = shape
     rng = np.random.default_rng(seed)
     rows = rng.integers(0, H, n).astype(np.int32)

@@ -9,8 +9,12 @@ scan is one batch of up to cam_w * cam_h events (307200 at 640 x 480):
 kernel 1 (rectify, X-map gather, packed scatter) then kernel 3 (camera
 view colorize) on the card.
 
-Only the single-device path is ported: ``-devices N`` with N > 1 raises
-(ROADMAP: multi-GPU).
+``-devices N`` with N > 1 shards groups of N scans over a data-only mesh
+(``run_sharded``: ``parallel.make_sharded_pipeline``, one scan a device),
+as the JAX app does: ``cuda:0`` .. ``cuda:N-1`` with ``-device cuda`` (it
+raises where fewer cards are visible; 0 means every visible card), N
+virtual CPU devices with ``-device cpu``.  Each scan's depth ``.npy`` is
+byte-equal to ``-devices 1``'s; point clouds are computed single-device.
 """
 
 from __future__ import annotations
@@ -42,6 +46,49 @@ def scan_image_to_events(cam_image: np.ndarray):
     }
 
 
+def run_sharded(engine, scans, mesh, depth_dir: str) -> int:
+    """The depth maps of ``scans`` (an iterable of (scan id, events of
+    ``scan_image_to_events``)) over the ``data`` axis of ``mesh``: groups
+    of ``data`` scans through one ``make_sharded_pipeline`` call each, the
+    trailing group padded with its first scan (as the JAX app pads it;
+    the padding's outputs are dropped), each depth map saved as
+    ``scans{id:03d}.npy`` in ``depth_dir``.  Returns the scans saved."""
+    from xmaps_tpu_torch.ops.event_batch import EventBatch
+    from xmaps_tpu_torch.parallel import make_sharded_pipeline, shard_batches
+
+    n_dev = mesh.shape["data"]
+    pipeline = make_sharded_pipeline(engine.cfg, engine.tables, mesh, engine.plan)
+    group, group_ids = [], []
+    saved = 0
+
+    def flush_group():
+        nonlocal saved
+        if not group:
+            return
+        while len(group) < n_dev:  # pad the trailing group
+            group.append(group[0])
+        t0 = time.time()
+        out = pipeline(shard_batches(group, mesh, engine.cfg))
+        depths = out.depth.cpu().numpy()
+        print(f"Completed {len(group_ids)} scans on {n_dev} devices in {time.time() - t0:.3f}s")
+        for k, i in enumerate(group_ids):
+            np.save(os.path.join(depth_dir, f"scans{str(i).zfill(3)}.npy"), depths[k])
+        saved += len(group_ids)
+        group.clear()
+        group_ids.clear()
+
+    for i, events in scans:
+        group.append(EventBatch.from_arrays(
+            events["x"], events["y"], events["t"], events["p"],
+            engine.cfg.event_capacity, device="cpu",
+        ))
+        group_ids.append(i)
+        if len(group) == n_dev:
+            flush_group()
+    flush_group()
+    return saved
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(
         description="Offline X-maps depth over ESL-style scan images "
@@ -62,7 +109,8 @@ def main(argv=None):
         "-devices",
         type=int,
         default=1,
-        help="Number of devices (0 = all available); only 1 is ported",
+        help="Number of devices (0 = all visible cards): groups of N scans, one a "
+        "device (with -device cpu, N virtual CPU devices)",
     )
     parser.add_argument(
         "-device", choices=("cuda", "cpu"), default="cuda",
@@ -79,14 +127,16 @@ def main(argv=None):
     from xmaps_tpu_torch.utils.ply import write_ply
     from xmaps_tpu_torch.utils.stats import SingleTimer
 
+    from xmaps_tpu_torch.parallel import make_mesh
+
     n_dev = args.devices
     if n_dev == 0:
         n_dev = torch.cuda.device_count() if args.device == "cuda" else 1
+    mesh = None
     if n_dev > 1:
-        raise NotImplementedError(
-            f"-devices {n_dev}: scans on more than one device are not ported "
-            "(ROADMAP.md: multi-GPU, data-parallel over frames)"
-        )
+        # make_mesh raises for a cuda:i that is not there
+        names = [f"cuda:{i}" for i in range(n_dev)] if args.device == "cuda" else ["cpu"] * n_dev
+        mesh = make_mesh(names, data=n_dev, event=1)
 
     x_maps_dir = os.path.join(args.object_dir, "x_maps")
     depth_dir = os.path.join(x_maps_dir, "depth_init")
@@ -119,23 +169,36 @@ def main(argv=None):
             zero_undistort_proj_map=True,
         )
 
-    for i in range(args.start_scan, min(args.start_scan + args.num_scans, len(scan_files))):
-        cam_image = np.load(scan_files[i])
-        events = scan_image_to_events(cam_image)
-        if events is None:
-            print(f"Skip camera npy file {scan_files[i]} since it is empty")
-            continue
-        print(f"Processing frame: {i}, camera npy file {scan_files[i]}")
+    scan_ids = range(args.start_scan, min(args.start_scan + args.num_scans, len(scan_files)))
 
+    def scans(say_skips=True):
+        for i in scan_ids:
+            events = scan_image_to_events(np.load(scan_files[i]))
+            if events is None:
+                if say_skips:
+                    print(f"Skip camera npy file {scan_files[i]} since it is empty")
+                continue
+            yield i, events
+
+    if mesh is not None:
+        run_sharded(engine, scans(), mesh, depth_dir)
+        if args.no_pointcloud:
+            return 0
+        print("Note: point clouds are computed single-device; rerun with "
+              "-devices 1 (or accept the serial pass below).")
+
+    for i, events in scans(say_skips=mesh is None):
         batch = EventBatch.from_arrays(
             events["x"], events["y"], events["t"], events["p"],
             engine.cfg.event_capacity, device=engine.device,
         )
-        t0 = time.time()
-        out = engine.process_batch_device(batch)
-        depth = out.depth.cpu().numpy()
-        print(f"Completed disparity estimation: {i} in time {time.time() - t0}")
-        np.save(os.path.join(depth_dir, f"scans{str(i).zfill(3)}.npy"), depth)
+        if mesh is None:
+            print(f"Processing frame: {i}, camera npy file {scan_files[i]}")
+            t0 = time.time()
+            out = engine.process_batch_device(batch)
+            depth = out.depth.cpu().numpy()
+            print(f"Completed disparity estimation: {i} in time {time.time() - t0}")
+            np.save(os.path.join(depth_dir, f"scans{str(i).zfill(3)}.npy"), depth)
 
         if not args.no_pointcloud:
             # point cloud from rectified f32 coords of inliers

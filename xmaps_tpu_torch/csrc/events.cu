@@ -21,9 +21,10 @@
 // band plan, and any capacity works (no 1024-lane blocking).  Determinism
 // comes from the packed key (prio + 1) * PACK + disp: atomicMax keeps the
 // highest priority per pixel, which is NumPy's last-write-wins regardless
-// of the order in which threads run.  The priority is the lane index, or
-// with a dedup frame filter (ops/filters.py) the lane's dense raster rank,
-// read from an optional per-lane int32 array (< capacity).  The key is
+// of the order in which threads run.  The priority is the lane index (plus
+// the array entries' index_offset: an event shard's first lane in its
+// frame), or with a dedup frame filter (ops/filters.py) the lane's dense
+// raster rank, read from an optional per-lane int32 array (< capacity).  The key is
 // unsigned 32-bit, as in the JAX package, so capacities up to 524286 lanes
 // fit (the offline eval's whole-image batch is 307200); the map is handed
 // over as int32 words.  The inlier count is summed per warp and frame
@@ -105,15 +106,16 @@ struct ArrayLanes {
   const int32_t* __restrict__ y;
   const int32_t* __restrict__ t_bin;
   const bool* __restrict__ valid;
-  const int32_t* __restrict__ prio;  // nullable: the lane index
+  const int32_t* __restrict__ prio;  // nullable: the lane index + offset
   int32_t* __restrict__ xr_out;      // nullable, with yr_out and xproj_out
   int32_t* __restrict__ yr_out;
   int32_t* __restrict__ xproj_out;
   int n;
+  int offset;  // an event shard's first lane in its frame (0: the whole frame)
 
   __device__ __forceinline__ Lane load(int i, int j) const {
     return Lane{x[i], y[i], t_bin[i], valid[i],
-                static_cast<uint32_t>(prio ? prio[i] : j)};
+                static_cast<uint32_t>(prio ? prio[i] : j + offset)};
   }
   __device__ __forceinline__ void store(int i, int xr, int yr, int xp) const {
     if (xr_out) {
@@ -372,13 +374,18 @@ Target target(const int32_t* cam_lut, int cam_h, int cam_w, const int16_t* x_map
 
 }  // namespace
 
+// index_offset: the first lane's priority without `prio` (an event shard's
+// first lane in its frame, parallel/sharding.py; 0 for a whole frame), so
+// the shards' maps combine into the frame's with an unsigned max.  The
+// wrapper checks index_offset + n <= MAX_CAPACITY.
 extern "C" int event_disparity_scatter(
     const int32_t* x, const int32_t* y, const int32_t* t_bin, const bool* valid,
-    const int32_t* prio, int n, const int32_t* cam_lut, int cam_h, int cam_w,
-    const int16_t* x_map, int xmap_h, int xmap_w, int camera_view, int oy,
+    const int32_t* prio, int n, int index_offset, const int32_t* cam_lut, int cam_h,
+    int cam_w, const int16_t* x_map, int xmap_h, int xmap_w, int camera_view, int oy,
     int ox, int out_h, int out_w, int32_t* packed_map, int32_t* inlier_count,
     int32_t* xr_out, int32_t* yr_out, int32_t* xproj_out, cudaStream_t stream) {
-  const ArrayLanes src{x, y, t_bin, valid, prio, xr_out, yr_out, xproj_out, n};
+  if (index_offset < 0) return cudaErrorInvalidValue;
+  const ArrayLanes src{x, y, t_bin, valid, prio, xr_out, yr_out, xproj_out, n, index_offset};
   return launch(src, target(cam_lut, cam_h, cam_w, x_map, xmap_h, xmap_w, camera_view,
                             oy, ox, out_h, out_w, packed_map, inlier_count),
                 stream);
@@ -430,14 +437,16 @@ extern "C" int event_disparity_scatter_ring(
 
 // The group entries: F frames of `cap` lanes, (F, cap) rows, into F
 // contiguous (out_h, out_w) maps and F counts, in one launch.  The array
-// group's lane outputs are not written (no xr/yr/x_proj rows).
+// group's lane outputs are not written (no xr/yr/x_proj rows); its
+// index_offset shifts each frame's lane index, as the one-frame entry's.
 extern "C" int event_disparity_scatter_group(
     const int32_t* x, const int32_t* y, const int32_t* t_bin, const bool* valid,
-    const int32_t* prio, int frames, int cap, const int32_t* cam_lut, int cam_h, int cam_w,
-    const int16_t* x_map, int xmap_h, int xmap_w, int camera_view, int oy, int ox,
-    int out_h, int out_w, int32_t* packed_maps, int32_t* inlier_counts, cudaStream_t stream) {
-  if (frames < 1 || cap < 1) return cudaErrorInvalidValue;
-  const ArrayLanes rows{x, y, t_bin, valid, prio, nullptr, nullptr, nullptr, cap};
+    const int32_t* prio, int frames, int cap, int index_offset, const int32_t* cam_lut,
+    int cam_h, int cam_w, const int16_t* x_map, int xmap_h, int xmap_w, int camera_view,
+    int oy, int ox, int out_h, int out_w, int32_t* packed_maps, int32_t* inlier_counts,
+    cudaStream_t stream) {
+  if (frames < 1 || cap < 1 || index_offset < 0) return cudaErrorInvalidValue;
+  const ArrayLanes rows{x, y, t_bin, valid, prio, nullptr, nullptr, nullptr, cap, index_offset};
   const FrameLanes<ArrayLanes> src{rows, cap, frames * cap, nullptr};
   return launch(src, target(cam_lut, cam_h, cam_w, x_map, xmap_h, xmap_w, camera_view,
                             oy, ox, out_h, out_w, packed_maps, inlier_counts, frames),

@@ -10,7 +10,7 @@ at construction, so a missing ``nvcc`` fails there and not mid-stream.
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Union
 
 import numpy as np
@@ -48,6 +48,11 @@ from xmaps_tpu_torch.ops.frame_pipeline import (
 )
 from xmaps_tpu_torch.ops.scatter import MAX_CAPACITY
 from xmaps_tpu_torch.ops.xmap import build_x_map, xmap_cache_key
+from xmaps_tpu_torch.parallel.sharding import (
+    make_group_sharded_pipeline,
+    replicate,
+    shard_staged_group,
+)
 
 __all__ = ["XMapsDepthEngine", "resolve_device"]
 
@@ -86,6 +91,11 @@ class XMapsDepthEngine:
     time_map_rect: np.ndarray
     plan: Union[TailPlan, CamTailPlan]
     device: torch.device
+    #: {device: (tables, plan)} copies for ``process_frames_sharded``, one a
+    #: distinct device (``parallel.sharding.replicate``)
+    _replicas: dict = field(default_factory=dict, init=False, repr=False, compare=False)
+    #: the sharded group pipelines, by (mesh, cfg)
+    _sharded: dict = field(default_factory=dict, init=False, repr=False, compare=False)
 
     # -- construction --------------------------------------------------
 
@@ -228,10 +238,7 @@ class XMapsDepthEngine:
         """The same engine (same tables) on another device; a camera-view
         plan's colorize table is built there on CUDA, dropped on CPU."""
         dev = resolve_device(device)
-        tables = self.tables.to(dev)
-        plan = self.plan
-        if isinstance(plan, CamTailPlan):
-            plan = with_colorize_table(plan, tables)
+        tables, plan = replicate(self.tables, self.plan, dev)
         return XMapsDepthEngine(
             cfg=self.cfg,
             maps=self.maps,
@@ -369,21 +376,22 @@ class XMapsDepthEngine:
             w.writerows(zip(*cols))
         return int(keep.sum())
 
-    def stage_group(self, frames: list) -> Union[EventBatch, CompactStagedGroup]:
+    def stage_group(self, frames: list, *, device=None) -> Union[EventBatch, CompactStagedGroup]:
         """F frames staged for ``group_depth_frames`` in one host buffer
         and one copy a field: at one word an event
         (``io.prefetch.stage_compact_group``) where the pipeline is
         unfiltered, the 1-word layout exists, every timestamp is an integer
         and every pixel fits the layout (``fits_layout``); else as an
         ``EventBatch`` with a leading frame axis (the JAX engine's unsorted
-        group staging)."""
+        group staging).  ``device``: where to (default: the engine's; a
+        mesh row's in ``process_frames_sharded``)."""
+        dev = self.device if device is None else device
         layout = self.compact_layout
         if (layout is not None and self.cfg.frame_filter == "none"
                 and all(np.issubdtype(ev.dtype["t"].type, np.integer)
                         and fits_layout(ev, layout) for ev in frames)):
-            return stage_compact_group(frames, self.cfg.event_capacity, layout,
-                                       device=self.device)
-        return EventBatch.stack_structured(frames, self.cfg.event_capacity, device=self.device)
+            return stage_compact_group(frames, self.cfg.event_capacity, layout, device=dev)
+        return EventBatch.stack_structured(frames, self.cfg.event_capacity, device=dev)
 
     def process_frames(
         self,
@@ -408,6 +416,49 @@ class XMapsDepthEngine:
         )
         fields = [[None] * len(frames) if a is None else a.unbind(0) for a in res]
         return [FrameResult(*parts) for parts in zip(*fields)]
+
+    def process_frames_sharded(
+        self,
+        frames: list,
+        mesh,
+        *,
+        display_only: bool = False,
+        display_packed: bool = False,
+    ) -> list:
+        """Run many independent frames over the ``data`` axis of ``mesh``
+        (a ``parallel.sharding.Mesh`` with event == 1; required: no device
+        auto-pick), the counterpart of the JAX engine's
+        ``process_frames_sharded``: the frames split into contiguous
+        blocks, one a data row, each staged on its row's device
+        (``stage_group(device=)``) and run as the ``process_frames``
+        program there (one launch of kernel 1's group entry and one call
+        of the tail's a row).  Returns one ``FrameResult`` a frame, on its
+        row's device, bit-equal to ``process_frame``.
+
+        The tables and the plan are copied once to each distinct device of
+        the mesh and kept, so a virtual mesh of one card (a device listed
+        k times) holds one copy, not k.  The JAX engine pads the list to a
+        multiple of the data size with empty frames, since its program has
+        one shape; here a block of ``ceil(n / data)`` frames a row leaves
+        the last block short (and rows past it empty: no launch)."""
+        if not frames:
+            return []
+        if mesh.shape["event"] != 1:
+            raise ValueError("process_frames_sharded: the group program is data-parallel "
+                             "only: a mesh with event == 1")
+        key = (mesh.key(), self.cfg)
+        if key not in self._sharded:
+            self._sharded[key] = make_group_sharded_pipeline(
+                self.cfg, self.tables, mesh, self.plan, layout=self.compact_layout,
+                cache=self._replicas)
+        group = shard_staged_group(frames, mesh, self.stage_group)
+        rows = self._sharded[key](group, display_only=display_only,
+                                  display_packed=display_packed)
+        out = []
+        for res in rows:
+            fields = [[None] * len(res.num_inliers) if a is None else a.unbind(0) for a in res]
+            out.extend(FrameResult(*parts) for parts in zip(*fields))
+        return out
 
     def set_frame_filter(self, name: str):
         """Select the frame dedup filter, one of ``ops.filters.FILTER_NAMES``

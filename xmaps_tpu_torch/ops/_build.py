@@ -8,9 +8,11 @@ The library lands in ``build/xmaps_tpu_torch/`` beside the package
 and flags, so an edited source rebuilds and an unchanged one loads at once.
 There is no fallback: a missing ``nvcc`` or a failed build raises.
 
-Each kernel wrapper counts its launches in ``LAUNCHES`` (by kernel name,
-a group entry over F frames apart from its one-frame entries, one count a
-group), so a run can show that its main path went through the kernels.
+Each kernel wrapper launches through ``launch``, which runs the C entry on
+the device of the wrapper's tensors and counts the launch in ``LAUNCHES``
+(by kernel name, a group entry over F frames apart from its one-frame
+entries, one count a group), so a run can show that its main path went
+through the kernels.
 """
 
 from __future__ import annotations
@@ -23,7 +25,10 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["load", "LAUNCHES", "reset_launch_counts", "check", "NVCC_FLAGS", "build_dir"]
+import torch
+
+__all__ = ["load", "launch", "LAUNCHES", "reset_launch_counts", "check", "NVCC_FLAGS",
+           "build_dir"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("events.cu", "tail.cu", "esl.cu", "remap.cu", "warmup.cu", "store_loop.cu")
@@ -60,7 +65,7 @@ _L = ctypes.c_long
 #: C signatures (all return cudaGetLastError() as int)
 _SIGNATURES = {
     "event_disparity_scatter": [
-        _P, _P, _P, _P, _P, _I,  # x, y, t_bin, valid, priority (nullable), n
+        _P, _P, _P, _P, _P, _I, _I,  # x, y, t_bin, valid, priority (nullable), n, index_offset
         _P, _I, _I,  # cam LUT (packed i32), cam_h, cam_w
         _P, _I, _I,  # x_map (i16), xmap_h, xmap_w
         _I, _I, _I, _I, _I,  # camera_view, oy, ox, out_h, out_w
@@ -88,7 +93,7 @@ _SIGNATURES = {
     ],
     "event_disparity_scatter_group": [  # kernel 1 over F frames' (F, cap) rows
         _P, _P, _P, _P, _P,  # x, y, t_bin, valid, priority (nullable)
-        _I, _I,  # F, cap (lanes a frame)
+        _I, _I, _I,  # F, cap (lanes a frame), index_offset
         _P, _I, _I,  # cam LUT (packed i32), cam_h, cam_w
         _P, _I, _I,  # x_map (i16), xmap_h, xmap_w
         _I, _I, _I, _I, _I,  # camera_view, oy, ox, out_h, out_w
@@ -236,3 +241,25 @@ def check(name: str, err: int) -> None:
     """Raise if a kernel's C entry point reported a CUDA error."""
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed: cudaError {err}")
+
+
+def launch(dev: torch.device, kernel: str, entry: str, *args) -> None:
+    """Call the library's C entry ``entry`` with ``args`` and the current
+    stream of ``dev``, with ``dev`` the current CUDA device for the call;
+    raise on the CUDA error it returns, else count one launch of
+    ``kernel``.
+
+    ``dev`` is the device of the wrapper's tensors.  The C side launches
+    into the context of the *current* device and looks up its per-device
+    state there (kernel 1's cooperative grid is sized by
+    ``cudaGetDevice``'s occupancy), so without the guard a launch on
+    ``cuda:1`` tensors while ``cuda:0`` is current would run in the wrong
+    context on another card's pointers.  On a machine with one card every
+    tensor lies on the current device, so no run there can show that
+    fault: only a second card (or the guard) does.
+    """
+    fn = getattr(load(), entry)
+    with torch.cuda.device(dev):
+        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    check(entry, err)
+    LAUNCHES[kernel] += 1

@@ -8,7 +8,10 @@ kernels ``rectify_and_lookup`` / ``rectify_and_lookup_hbm``); on CPU tensors
 it runs the plain version, ``compute_event_disparity`` +
 ``scatter_disp_packed``.  The last-write-wins priority is the lane index,
 or a per-lane int32 ``priority`` (the dedup filters' dense raster rank,
-``ops.filters``).
+``ops.filters``).  The array entries take an ``index_offset`` that shifts
+the lane index: an event shard of a frame (``parallel.sharding``) passes
+its first lane, so its keys are the frame's and the shards' maps combine
+with an unsigned max into the frame's map.
 
 ``event_disparity_scatter_staged`` is the same kernel on the streaming
 path's 1-word staged batch (``io.prefetch.CompactStagedBatch``): it decodes
@@ -93,6 +96,7 @@ def event_disparity_scatter_plain(
     out_shape: tuple[int, int],
     want_lanes: bool = False,
     priority: Optional[torch.Tensor] = None,
+    index_offset: int = 0,
 ) -> EventScatterResult:
     """Plain PyTorch version of ``event_disparity_scatter`` (any device)."""
     res = compute_event_disparity(
@@ -111,7 +115,7 @@ def event_disparity_scatter_plain(
         ys, xs = res.y_rect, res.x_rect + res.disp.int()
     packed = scatter_disp_packed(
         ys - oy, xs - ox, res.disp, res.inlier, height=out_h, width=out_w,
-        priority=priority,
+        priority=priority, index_offset=index_offset,
     )
     lanes = (res.x_rect, res.y_rect, res.x_proj) if want_lanes else None
     return EventScatterResult(packed, res.inlier.sum().int(), lanes)
@@ -127,6 +131,7 @@ def event_disparity_scatter(
     out_shape: tuple[int, int],
     want_lanes: bool = False,
     priority: Optional[torch.Tensor] = None,
+    index_offset: int = 0,
 ) -> EventScatterResult:
     """One frame's events -> packed disparity map + inlier count.
 
@@ -135,23 +140,25 @@ def event_disparity_scatter(
     ``window``: (oy, ox) origin of the map in target coordinates;
     ``out_shape``: (out_h, out_w) of the map; targets outside are dropped.
     ``want_lanes`` also returns the per-lane (x_rect, y_rect, x_proj).
-    ``priority``: (N,) int32 last-write-wins priority, every value below
-    the capacity N (None: the lane index).
+    ``priority``: (N,) int32 last-write-wins priority, each value below
+    ``MAX_CAPACITY`` (None: the lane index plus ``index_offset``).  An
+    event shard's priorities are its frame's (a dedup filter's global
+    rank, ``parallel.sharding``), so they may exceed its own N.
+    ``index_offset``: the lane index's shift, the shard's first lane in
+    its frame (``scatter_disp_packed(index_offset=)``), with the lanes
+    ``index_offset + N <= MAX_CAPACITY``; a given priority ignores it.
     """
     dev = batch.x.device
+    n = batch.x.shape[0]
+    _check_offset("event_disparity_scatter", index_offset, n)
     if dev.type == "cpu":
         return event_disparity_scatter_plain(
             batch, t_bin, tables, camera_view=camera_view, window=window,
             out_shape=out_shape, want_lanes=want_lanes, priority=priority,
+            index_offset=index_offset,
         )
     if dev.type != "cuda":
         raise ValueError(f"event_disparity_scatter: unsupported device {dev}")
-    n = batch.x.shape[0]
-    if n > MAX_CAPACITY:
-        raise ValueError(
-            f"event_disparity_scatter: capacity {n} overflows the uint32 packing "
-            f"(at most {MAX_CAPACITY})"
-        )
     checked = [
         ("x", batch.x, torch.int32),
         ("y", batch.y, torch.int32),
@@ -171,7 +178,6 @@ def event_disparity_scatter(
     for name, a, _ in checked:
         if name not in ("cam_map_packed", "x_map") and a.shape != (n,):
             raise ValueError(f"event_disparity_scatter: {name} shape {tuple(a.shape)} != ({n},)")
-    lib = _build.load()
     out_h, out_w = out_shape
     packed, count = _outputs(out_shape, dev)
     lanes = None
@@ -183,17 +189,15 @@ def event_disparity_scatter(
     xmap_h, xmap_w = tables.x_map.shape
     oy, ox = window
     prio_ptr = None if priority is None else priority.data_ptr()
-    err = lib.event_disparity_scatter(
+    _build.launch(
+        dev, "event_disparity_scatter", "event_disparity_scatter",
         batch.x.data_ptr(), batch.y.data_ptr(), t_bin.data_ptr(),
-        batch.valid.data_ptr(), prio_ptr, n,
+        batch.valid.data_ptr(), prio_ptr, n, index_offset,
         tables.cam_map_packed.data_ptr(), cam_h, cam_w,
         tables.x_map.data_ptr(), xmap_h, xmap_w,
         int(camera_view), oy, ox, out_h, out_w,
         packed.data_ptr(), count.data_ptr(), *lane_ptrs,
-        torch.cuda.current_stream(dev).cuda_stream,
     )
-    _build.check("event_disparity_scatter", err)
-    _build.LAUNCHES["event_disparity_scatter"] += 1
     return EventScatterResult(packed, count, lanes)
 
 
@@ -204,6 +208,15 @@ def _outputs(out_shape: tuple[int, int], dev, frames: int = 0) -> tuple[torch.Te
     lead = (frames,) if frames else ()
     return (torch.empty((*lead, *out_shape), dtype=torch.int32, device=dev),
             torch.empty(lead, dtype=torch.int32, device=dev))
+
+
+def _check_offset(kernel: str, index_offset: int, n: int) -> None:
+    """The packed key's priority (lane + offset + 1) must fit the uint32
+    word: ``index_offset + n <= MAX_CAPACITY``."""
+    if index_offset < 0 or index_offset + n > MAX_CAPACITY:
+        raise ValueError(
+            f"{kernel}: lanes [{index_offset}, {index_offset + n}) overflow the uint32 "
+            f"packing (offset >= 0, offset + capacity at most {MAX_CAPACITY})")
 
 
 def _check_tables(kernel: str, tables, dev) -> None:
@@ -285,21 +298,18 @@ def event_disparity_scatter_staged(
     if min(bits) < 1 or sum(bits) > 32:
         raise ValueError(f"event_disparity_scatter_staged: layout widths {bits}")
     _check_tables("event_disparity_scatter_staged", tables, dev)
-    lib = _build.load()
     packed, inliers = _outputs(out_shape, dev)
     cam_h, cam_w = tables.cam_map_packed.shape
     xmap_h, xmap_w = tables.x_map.shape
     (oy, ox), (out_h, out_w) = window, out_shape
-    err = lib.event_disparity_scatter_staged(
+    _build.launch(
+        dev, "event_disparity_scatter", "event_disparity_scatter_staged",
         word.data_ptr(), count, *bits,
         tables.cam_map_packed.data_ptr(), cam_h, cam_w,
         tables.x_map.data_ptr(), xmap_h, xmap_w,
         int(camera_view), oy, ox, out_h, out_w,
         packed.data_ptr(), inliers.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
     )
-    _build.check("event_disparity_scatter_staged", err)
-    _build.LAUNCHES["event_disparity_scatter"] += 1
     return EventScatterResult(packed, inliers)
 
 
@@ -386,23 +396,20 @@ def event_disparity_scatter_ring(
     if t_min > t_max:
         raise ValueError(f"event_disparity_scatter_ring: t_bounds {t_bounds}")
     _check_tables("event_disparity_scatter_ring", tables, dev)
-    lib = _build.load()
     packed, inliers = _outputs(out_shape, dev)
     cam_h, cam_w = tables.cam_map_packed.shape
     xmap_h, xmap_w = tables.x_map.shape
     (oy, ox), (out_h, out_w) = window, out_shape
     ptrs = (ctypes.c_void_p * k)(*(row.data_ptr() for row in rows))
-    err = lib.event_disparity_scatter_ring(
+    _build.launch(
+        dev, "event_disparity_scatter", "event_disparity_scatter_ring",
         ctypes.addressof(ptrs), starts.ctypes.data, counts.ctypes.data, t_offs.ctypes.data,
         k, count, layout.bits_x, layout.bits_y, t_min, t_max, t_px_scale,
         tables.cam_map_packed.data_ptr(), cam_h, cam_w,
         tables.x_map.data_ptr(), xmap_h, xmap_w,
         int(camera_view), oy, ox, out_h, out_w,
         packed.data_ptr(), inliers.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
     )
-    _build.check("event_disparity_scatter_ring", err)
-    _build.LAUNCHES["event_disparity_scatter"] += 1
     return EventScatterResult(packed, inliers)
 
 
@@ -415,6 +422,7 @@ def event_disparity_scatter_group_plain(
     window: tuple[int, int],
     out_shape: tuple[int, int],
     priority: Optional[torch.Tensor] = None,
+    index_offset: int = 0,
 ) -> EventScatterResult:
     """Plain PyTorch version of ``event_disparity_scatter_group`` (any
     device): the one-frame plain version on each frame, stacked."""
@@ -423,6 +431,7 @@ def event_disparity_scatter_group_plain(
         event_disparity_scatter_plain(
             batch.frame(i), t_bin[i], tables, camera_view=camera_view, window=window,
             out_shape=out_shape, priority=None if priority is None else priority[i],
+            index_offset=index_offset,
         )
         for i in range(f)
     ])
@@ -437,6 +446,7 @@ def event_disparity_scatter_group(
     window: tuple[int, int],
     out_shape: tuple[int, int],
     priority: Optional[torch.Tensor] = None,
+    index_offset: int = 0,
 ) -> EventScatterResult:
     """F frames' events -> F packed disparity maps + F inlier counts, in
     one launch; frame f equals ``event_disparity_scatter`` of frame f.
@@ -444,15 +454,18 @@ def event_disparity_scatter_group(
     ``batch``: an ``EventBatch`` with a leading frame axis (each lane field
     (F, capacity), ``EventBatch.stack_structured``); ``t_bin``: its (F,
     capacity) int32 time bins; ``priority``: (F, capacity) int32, each
-    value below the capacity (None: the lane index within its frame).
-    Returns (F, out_h, out_w) maps and (F,) counts.
+    value below ``MAX_CAPACITY`` (None: the lane index within its frame
+    plus ``index_offset``, as in ``event_disparity_scatter``: the F
+    frames' lanes of one event shard).  Returns (F, out_h, out_w) maps and
+    (F,) counts.
     """
     f, cap = _group_shape("event_disparity_scatter_group", batch.x)
+    _check_offset("event_disparity_scatter_group", index_offset, cap)
     dev = batch.x.device
     if dev.type == "cpu":
         return event_disparity_scatter_group_plain(
             batch, t_bin, tables, camera_view=camera_view, window=window,
-            out_shape=out_shape, priority=priority,
+            out_shape=out_shape, priority=priority, index_offset=index_offset,
         )
     if dev.type != "cuda":
         raise ValueError(f"event_disparity_scatter_group: unsupported device {dev}")
@@ -467,22 +480,19 @@ def event_disparity_scatter_group(
                 f"event_disparity_scatter_group: {name} must be a contiguous ({f}, {cap}) "
                 f"{dtype} tensor on {dev}, got {tuple(a.shape)} {a.dtype} on {a.device}")
     _check_tables("event_disparity_scatter_group", tables, dev)
-    lib = _build.load()
     packed, counts = _outputs(out_shape, dev, frames=f)
     cam_h, cam_w = tables.cam_map_packed.shape
     xmap_h, xmap_w = tables.x_map.shape
     (oy, ox), (out_h, out_w) = window, out_shape
-    err = lib.event_disparity_scatter_group(
+    _build.launch(
+        dev, "event_disparity_scatter_group", "event_disparity_scatter_group",
         batch.x.data_ptr(), batch.y.data_ptr(), t_bin.data_ptr(), batch.valid.data_ptr(),
-        None if priority is None else priority.data_ptr(), f, cap,
+        None if priority is None else priority.data_ptr(), f, cap, index_offset,
         tables.cam_map_packed.data_ptr(), cam_h, cam_w,
         tables.x_map.data_ptr(), xmap_h, xmap_w,
         int(camera_view), oy, ox, out_h, out_w,
         packed.data_ptr(), counts.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
     )
-    _build.check("event_disparity_scatter_group", err)
-    _build.LAUNCHES["event_disparity_scatter_group"] += 1
     return EventScatterResult(packed, counts)
 
 
@@ -544,19 +554,16 @@ def event_disparity_scatter_staged_group(
     if min(bits) < 1 or sum(bits) > 32:
         raise ValueError(f"event_disparity_scatter_staged_group: layout widths {bits}")
     _check_tables("event_disparity_scatter_staged_group", tables, dev)
-    lib = _build.load()
     packed, counts = _outputs(out_shape, dev, frames=f)
     cam_h, cam_w = tables.cam_map_packed.shape
     xmap_h, xmap_w = tables.x_map.shape
     (oy, ox), (out_h, out_w) = window, out_shape
-    err = lib.event_disparity_scatter_staged_group(
+    _build.launch(
+        dev, "event_disparity_scatter_group", "event_disparity_scatter_staged_group",
         staged.word.data_ptr(), staged.counts.data_ptr(), f, cap, *bits,
         tables.cam_map_packed.data_ptr(), cam_h, cam_w,
         tables.x_map.data_ptr(), xmap_h, xmap_w,
         int(camera_view), oy, ox, out_h, out_w,
         packed.data_ptr(), counts.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
     )
-    _build.check("event_disparity_scatter_staged_group", err)
-    _build.LAUNCHES["event_disparity_scatter_group"] += 1
     return EventScatterResult(packed, counts)

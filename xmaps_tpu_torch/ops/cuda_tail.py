@@ -285,15 +285,13 @@ def build_colorize_table(tables, plan: CamTailPlan):
     if dev.type != "cuda":
         raise ValueError(f"colorize_table: the table is built on CUDA only, not on {dev}")
     _check("colorize_table", dev, lut=(lut, torch.int32, (256,)))
-    lib = _build.load()
     bgr = torch.empty(PACK, dtype=torch.int32, device=dev)
     depth = torch.empty(PACK, dtype=torch.float32, device=dev)
-    err = lib.colorize_table(
+    _build.launch(
+        dev, "colorize_table", "colorize_table",
         lut.data_ptr(), plan.p03, plan.z_near, plan.z_far, bgr.data_ptr(),
-        depth.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        depth.data_ptr(),
     )
-    _build.check("colorize_table", err)
-    _build.LAUNCHES["colorize_table"] += 1
     return bgr, depth
 
 
@@ -342,19 +340,17 @@ def tail_projector(
         if getattr(tables, name).data_ptr() % 16:
             raise ValueError(
                 f"tail_projector: {name} must be 16-byte aligned (the kernel reads int4)")
-    lib = _build.load()
     outs, ptrs = _outputs((Hp, Wp), dev, emit_aux, packed_bgr)
     dil = torch.empty((plan.H, plan.W), dtype=torch.uint16, device=dev)
     # kernel 2's one C entry, at F = 1 (one frame's outputs, stride Hp * Wp)
-    err = lib.tail_projector_group(
+    _build.launch(
+        dev, "tail_projector", "tail_projector_group",
         packed_crop.data_ptr(), 1, plan.H, plan.W, plan.crop_row0, plan.crop_col0,
         plan.full_H, plan.full_W, dil.data_ptr(),
         tables.proj_mapx_i16.data_ptr(), tables.proj_mapy_i16.data_ptr(), Hp, Wp, Hp * Wp,
         tables.turbo_lut.data_ptr(), plan.p03, plan.z_near, plan.z_far,
-        *ptrs, torch.cuda.current_stream(dev).cuda_stream,
+        *ptrs,
     )
-    _build.check("tail_projector", err)
-    _build.LAUNCHES["tail_projector"] += 1
     return outs
 
 
@@ -392,14 +388,12 @@ def colorize_camera(
     )
     if packed.data_ptr() % 16:
         raise ValueError("colorize_camera: packed must be 16-byte aligned (the kernel reads int4)")
-    lib = _build.load()
     outs, ptrs = _outputs((plan.H, plan.W), dev, emit_aux, packed_bgr)
-    err = lib.colorize_camera(
+    _build.launch(
+        dev, "colorize_camera", "colorize_camera",
         packed.data_ptr(), plan.H * plan.W, bgr_table.data_ptr(), depth_table.data_ptr(),
-        *ptrs, torch.cuda.current_stream(dev).cuda_stream,
+        *ptrs,
     )
-    _build.check("colorize_camera", err)
-    _build.LAUNCHES["colorize_camera"] += 1
     return outs
 
 
@@ -452,18 +446,16 @@ def tail_projector_group(
         if getattr(tables, name).data_ptr() % 16:
             raise ValueError(
                 f"tail_projector_group: {name} must be 16-byte aligned (the kernel reads int4)")
-    lib = _build.load()
     outs, ptrs, stride = _group_outputs(f, (Hp, Wp), dev, emit_aux, packed_bgr)
     dil = torch.empty((f, plan.H, plan.W), dtype=torch.uint16, device=dev)
-    err = lib.tail_projector_group(
+    _build.launch(
+        dev, "tail_projector_group", "tail_projector_group",
         packed_crops.data_ptr(), f, plan.H, plan.W, plan.crop_row0, plan.crop_col0,
         plan.full_H, plan.full_W, dil.data_ptr(),
         tables.proj_mapx_i16.data_ptr(), tables.proj_mapy_i16.data_ptr(), Hp, Wp, stride,
         tables.turbo_lut.data_ptr(), plan.p03, plan.z_near, plan.z_far,
-        *ptrs, torch.cuda.current_stream(dev).cuda_stream,
+        *ptrs,
     )
-    _build.check("tail_projector_group", err)
-    _build.LAUNCHES["tail_projector_group"] += 1
     return outs
 
 
@@ -521,12 +513,10 @@ def colorize_camera_group(
     n = f * plan.H * plan.W
     if n >= 2**31:
         raise ValueError(f"colorize_camera_group: {n} pixels (at most 2**31 - 1)")
-    lib = _build.load()
     outs, ptrs = _outputs((f, plan.H, plan.W), dev, emit_aux, packed_bgr)
-    err = lib.colorize_camera(
+    _build.launch(
+        dev, "colorize_camera_group", "colorize_camera",
         packed.data_ptr(), n, bgr_table.data_ptr(), depth_table.data_ptr(),
-        *ptrs, torch.cuda.current_stream(dev).cuda_stream,
+        *ptrs,
     )
-    _build.check("colorize_camera_group", err)
-    _build.LAUNCHES["colorize_camera_group"] += 1
     return outs

@@ -102,13 +102,22 @@ def _scale_time_float(
 
 
 def scale_time(
-    t: torch.Tensor, valid: torch.Tensor, t_px_scale: int
+    t: torch.Tensor,
+    valid: torch.Tensor,
+    t_px_scale: int,
+    bounds: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """X-map time bin of every lane: exact integer arithmetic for integer
     timestamps, float math for normalized float ones.  ``t`` and ``valid``
     are one frame's (N,) lanes or a group's (F, N), each row binned within
-    its own frame's bounds."""
-    t_min, t_max = time_bounds(t, valid)
+    its own frame's bounds.
+
+    ``bounds``: the frame's (min, max), as ``time_bounds`` gives them
+    (0-dim for one frame, (F, 1) for a group), where ``t`` holds only part
+    of the frame's lanes: an event shard bins with the min and max over
+    all its frame's shards (``parallel.sharding``, JAX's ``pmin`` /
+    ``pmax``).  None: the bounds of ``t`` itself."""
+    t_min, t_max = time_bounds(t, valid) if bounds is None else bounds
     if t.is_floating_point():
         return _scale_time_float(t, t_min, t_max, t_px_scale)
     return _scale_time_int(t, t_min, t_max, t_px_scale)

@@ -221,15 +221,12 @@ def esl_search_box(cam, tables, *, w_clip, min_disp, max_disp, steps):
                 f"esl_disparity_search: {name} must be a contiguous {dtype} tensor of "
                 f"shape {shape} on {dev}, got {a.dtype} {tuple(a.shape)} on {a.device}"
             )
-    lib = _build.load()
     out = torch.empty((Hc, Wc), dtype=torch.float32, device=dev)
-    err = lib.esl_disparity_search(
+    _build.launch(
+        dev, "esl_disparity_search", "esl_disparity_search",
         cam.data_ptr(), Hc, Wc, *(t.data_ptr() for t in tables), W_pad,
         w_clip, min_disp, max_disp, steps, out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
     )
-    _build.check("esl_disparity_search", err)
-    _build.LAUNCHES["esl_disparity_search"] += 1
     return out
 
 

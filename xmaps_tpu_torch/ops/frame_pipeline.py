@@ -71,7 +71,9 @@ __all__ = [
     "depth_frame",
     "filter_events",
     "group_depth_frames",
+    "group_tail",
     "ring_depth_frame",
+    "scatter_view",
     "staged_depth_frame",
 ]
 
@@ -183,7 +185,7 @@ def depth_frame(
         batch, priority = filter_events(batch, tables, cfg)
     t_bin = scale_time(batch.t, batch.valid, cfg.t_px_scale)
     ev = event_disparity_scatter(
-        batch, t_bin, tables, **_scatter_view(cfg, plan), priority=priority,
+        batch, t_bin, tables, **scatter_view(cfg, plan), priority=priority,
     )
     return _tail(ev, tables, cfg, plan, display_only, display_packed)
 
@@ -204,7 +206,7 @@ def staged_depth_frame(
     if cfg.frame_filter != "none":
         raise ValueError("a 1-word staged batch requires frame_filter == 'none'")
     ev = event_disparity_scatter_staged(
-        staged.word, staged.count, layout, tables, **_scatter_view(cfg, plan),
+        staged.word, staged.count, layout, tables, **scatter_view(cfg, plan),
     )
     return _tail(ev, tables, cfg, plan, display_only, display_packed)
 
@@ -232,7 +234,7 @@ def ring_depth_frame(
     count = min(int(meta[1].sum()), cfg.event_capacity)
     ev = event_disparity_scatter_ring(
         rows, meta, count, t_bounds, layout, tables, t_px_scale=cfg.t_px_scale,
-        **_scatter_view(cfg, plan),
+        **scatter_view(cfg, plan),
     )
     return _tail(ev, tables, cfg, plan, display_only, display_packed)
 
@@ -259,7 +261,7 @@ def group_depth_frames(
     batches and priorities stacked.  Then kernel 1's group entry (one
     launch for the F frames) and the view's tail group entry (one call)."""
     _check_display(display_only, display_packed)
-    view = _scatter_view(cfg, plan)
+    view = scatter_view(cfg, plan)
     if isinstance(group, CompactStagedGroup):
         if layout is None or cfg.frame_filter != "none":
             raise ValueError("1-word staged rows need their layout and frame_filter == 'none'")
@@ -273,6 +275,23 @@ def group_depth_frames(
             priority = torch.stack([p for _, p in filtered])
         t_bin = scale_time(group.t, group.valid, cfg.t_px_scale)
         ev = event_disparity_scatter_group(group, t_bin, tables, **view, priority=priority)
+    return group_tail(ev, tables, cfg, plan, display_only=display_only,
+                      display_packed=display_packed)
+
+
+def group_tail(
+    ev,
+    tables: DeviceTables,
+    cfg: PipelineConfig,
+    plan: Union[TailPlan, CamTailPlan],
+    *,
+    display_only: bool = False,
+    display_packed: bool = False,
+) -> FrameResult:
+    """The view's tail group entry (one call) on kernel 1's F maps ``ev``
+    (an ``EventScatterResult`` with a leading frame axis): the F frames'
+    ``FrameResult``."""
+    _check_display(display_only, display_packed)
     tail = colorize_camera_group if cfg.camera_perspective else tail_projector_group
     frame, depth, disp_map = tail(
         ev.packed_map, tables, plan,
@@ -291,7 +310,7 @@ def _check_display(display_only: bool, display_packed: bool) -> None:
         )
 
 
-def _scatter_view(cfg: PipelineConfig, plan) -> dict:
+def scatter_view(cfg: PipelineConfig, plan) -> dict:
     """Kernel 1's view arguments: the camera frame, or the tail's crop of
     the rectified frame."""
     if cfg.camera_perspective:

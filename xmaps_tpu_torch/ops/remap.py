@@ -119,14 +119,11 @@ def remap_gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         raise ValueError("remap_gather: idx must be 16-byte aligned (the kernel reads int4)")
     if src.numel() >= 2**31:
         raise ValueError(f"remap_gather: source {tuple(src.shape)} has >= 2**31 elements")
-    lib = _build.load()
     out = torch.empty(tuple(idx.shape), dtype=torch.float32, device=dev)
-    err = lib.remap_gather(
+    _build.launch(
+        dev, "remap_gather", "remap_gather",
         src.data_ptr(), src.numel(), idx.data_ptr(), idx.numel(), out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
     )
-    _build.check("remap_gather", err)
-    _build.LAUNCHES["remap_gather"] += 1
     return out
 
 

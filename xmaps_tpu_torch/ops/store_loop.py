@@ -69,12 +69,9 @@ def tile_store_last(
                 f"on {dev}, got {tuple(a.shape)} {a.dtype} on {a.device}"
             )
     H, W = shape
-    lib = _build.load()
     out = torch.empty((H, W), dtype=torch.int32, device=dev)
-    err = lib.tile_store_last(
+    _build.launch(
+        dev, "tile_store_last", "tile_store_last",
         rows.data_ptr(), cols.data_ptr(), vals.data_ptr(), n, H, W, out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
     )
-    _build.check("tile_store_last", err)
-    _build.LAUNCHES["tile_store_last"] += 1
     return out

@@ -34,12 +34,9 @@ def warmup_add_one(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(
             f"warmup_add_one: x must be a contiguous int32 tensor, got {x.dtype}"
         )
-    lib = _build.load()
     out = torch.empty_like(x)
-    err = lib.warmup_add_one(
+    _build.launch(
+        dev, "warmup_add_one", "warmup_add_one",
         x.data_ptr(), out.data_ptr(), x.numel(),
-        torch.cuda.current_stream(dev).cuda_stream,
     )
-    _build.check("warmup_add_one", err)
-    _build.LAUNCHES["warmup_add_one"] += 1
     return out
