@@ -84,9 +84,13 @@ epilogue of all 8192 disparities, bit for bit), and drives the port's paths:
   timers (``prestage packet`` among the per-packet ones) under a paced
   stream;
 - the engine benchmark (phase 9): kernel W (the warm-up) against its plain
-  version, then one run of ``apps.bench`` and one of ``apps.bench_stream``
-  (the streaming latency of the ring and of segmented staging), whose JSON
-  lines are printed;
+  version, then one run of ``apps.bench``, one of ``apps.bench_geometry
+  --geometry esl`` a view (the paper's Table-2 rig: 12 frames pre-staged as
+  one display-packed group a call; then the bench's group held against
+  the CPU port, a list of mixed integer and float timestamps through
+  ``process_frames``, and the group profiled) and one of
+  ``apps.bench_stream`` (the streaming latency of the ring and of
+  segmented staging), whose JSON lines are printed;
 - the scatter-store micro-benchmark (phase 10): kernel S (last-write-wins
   stores into one tile held by one 16-block thread-block cluster) against
   its plain version, on a tile several clusters share too, then one run of
@@ -2229,6 +2233,107 @@ def phase9_bench(card, errs, kernels_ms, shapes, library_ms):
     return launches
 
 
+def float_time(ev):
+    """The frame with its times as float32 in [0, 1] (the offline eval's
+    scan events): a frame of the other time kind."""
+    out = np.zeros(len(ev), dtype=[("x", "<i4"), ("y", "<i4"), ("t", "<f4"), ("p", "<i4")])
+    for k in ("x", "y", "p"):
+        out[k] = ev[k]
+    t = ev["t"].astype(np.float64)
+    out["t"] = (t - t.min()) / max(t.max() - t.min(), 1.0)
+    return out
+
+
+def phase9_bench_geometry(card, errs):
+    """Phase 9, the geometry bench at the paper's Table-2 rig: one run of
+    ``apps.bench_geometry --geometry esl`` a view (12 frames, one
+    display-packed group a call), its launches counted from 0 just before
+    it and read just after (kernel 1's group entry and the view's tail
+    group entry once a call, nothing else but the camera engine's
+    colorize table), its lines printed.  Then, in both views, the bench's
+    group (``rig`` + ``make_frames``) on the card, its first 3 frames
+    against the CPU port's ``process_frame``, and ``process_frames`` of a
+    list mixing integer and float timestamps (one group a time kind)
+    against the CPU port, all exact; and the group's device events under
+    the profiler (busy ms a frame, by name).  Returns the runs' launches."""
+    import torch
+    from xmaps_tpu_torch.apps import bench_geometry
+    from xmaps_tpu_torch.models.depth_pipeline import XMapsDepthEngine
+    from xmaps_tpu_torch.ops import _build
+    from xmaps_tpu_torch.ops.frame_pipeline import group_depth_frames
+
+    total = collections.Counter()
+    calls = 1 + bench_geometry.TRIALS * sum(bench_geometry.ROUNDS)
+    for view in (False, True):
+        tail = "colorize_camera_group" if view else "tail_projector_group"
+        out = io.StringIO()
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = bench_geometry.main(["--geometry", "esl"]
+                                     + (["--camera-perspective"] if view else []))
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        want = {k: 0 for k in launches}
+        want.update({"event_disparity_scatter_group": calls, tail: calls,
+                     "colorize_table": int(view)})
+        lines = out.getvalue().strip().splitlines()
+        doc = json.loads(lines[-1])
+        if not (rc == 0 and launches == want and doc["rect"] == [5760, 3240]
+                and doc["frame_ms"] > 0 and doc["device_ms_per_frame"] > 0
+                and 0 < doc["events_per_frame"] <= CAPACITY - 1024
+                and doc["gpu"] and doc["power_limit_w"] and doc["camera_perspective"] is view):
+            raise AssertionError(f"apps.bench_geometry rc {rc}, launches {launches} != {want}: "
+                                 f"{lines}")
+        total.update(launches)
+        log(f"  apps.bench_geometry --geometry esl{' --camera-perspective' if view else ''} "
+            f"({time.perf_counter() - t0:.1f} s) launches {launches}; its lines {card}:")
+        for line in lines:
+            print(line, flush=True)
+
+    calib = bench_geometry.rig("esl")
+    frames = bench_geometry.make_frames(calib, N_FRAMES, CAPACITY)
+    mixed = [frames[0], float_time(frames[1]), frames[2]]
+    kw = dict(display_only=True, display_packed=True)
+    err = 0.0
+    for view in (False, True):
+        eng = XMapsDepthEngine.from_calibration(
+            calib, device="cuda", event_capacity=CAPACITY, z_near=Z_NEAR, z_far=Z_FAR,
+            camera_perspective=view, xmap_cache_dir=os.path.expanduser("~/.cache/xmaps_tpu_torch"))
+        cpu = eng.to("cpu")
+        name = "camera" if view else "projector"
+        staged = eng.stage_group(frames)
+
+        def group():
+            return group_depth_frames(staged, eng.tables, eng.cfg, eng.plan,
+                                      layout=eng.compact_layout, **kw)
+
+        res = group()
+        got = eng.process_frames(mixed, **kw)
+        for i, (ev, m) in enumerate(zip(frames, mixed)):
+            ref = cpu.process_frame(ev, **kw)
+            err = max(err, assert_exact(f"ESL bench group ({name}) frame {i} vs the CPU port", [
+                (res.frame_bgr[i], ref.frame_bgr), (res.num_inliers[i], ref.num_inliers)]))
+            if m is not ev:
+                ref = cpu.process_frame(m, **kw)
+            err = max(err, assert_exact(f"ESL mixed-time process_frames ({name}) frame {i} vs "
+                                        f"the CPU port", [(got[i].frame_bgr, ref.frame_bgr),
+                                                          (got[i].num_inliers, ref.num_inliers)]))
+        log(f"  {name}: the bench's ESL group, frames 0-2, and process_frames of [int, float, "
+            f"int] times (one group a kind) bit-equal to the CPU port; inliers "
+            f"{[int(g.num_inliers) for g in got]}")
+        dev, by_name = profile_calls(group, 10)
+        top = {k.replace("(anonymous namespace)::", "")[:48]: round(v * 1e3 / len(frames), 3)
+               for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]}
+        log(f"  {name}: the bench's ESL group of {len(frames)} ({eng.plan.H}x{eng.plan.W} maps)"
+            f" profiled: {dev / len(frames):.5f} ms/frame of device events; us/frame {top} "
+            f"{card}")
+    for k in ("event_disparity_scatter_group", "tail_projector_group", "colorize_camera_group"):
+        errs[k] = max(errs.get(k, 0.0), err)
+    return dict(total)
+
+
 def phase9_bench_stream(card):
     """Phase 9, the streaming bench: one run of ``apps.bench_stream`` (the
     ring and the segmented replays of its synthetic ESL-seq1-like stream in
@@ -2660,11 +2765,12 @@ def main() -> int:
     # launches: the engine's main path (phase 4), the group's (phase 4b),
     # the virtual meshes' (phase 4c), the filters' (phase 5b) plus the eval
     # apps' and the sharded eval loop's (phase 7), the replay and live
-    # app's (phase 8), the bench's (phase 9) and the store-loop bench's
+    # app's (phase 8), the benches' (phase 9) and the store-loop bench's
     # (phase 10), each counted from 0 just before its run
     for part in (phase7_offline_eval(card, errs, kernels_ms, shapes, library_ms),
                  phase8_streaming(card, errs),
                  phase9_bench(card, errs, kernels_ms, shapes, library_ms),
+                 phase9_bench_geometry(card, errs),
                  phase9_bench_stream(card),
                  phase10_store_loop(card, errs, kernels_ms, shapes, library_ms)):
         for k, v in part.items():

@@ -1190,3 +1190,50 @@ def test_sharded_pipeline_across_cards(cuda, cards, camera_perspective, shape):
         assert eng._replicas[torch.device("cuda", 0)][0].x_map is eng.tables.x_map
         for i in range(1, data):
             assert eng._replicas[torch.device("cuda", i)][0].x_map.device.index == i
+
+
+@pytest.mark.parametrize("camera_perspective", [False, True], ids=["projector", "camera"])
+def test_bench_geometry_esl_on_card(cuda, camera_perspective, monkeypatch, tmp_path):
+    """``apps.bench_geometry --geometry esl`` with 3 frames and rounds 1 2:
+    one JSON line at the ESL rect, kernel 1's and the view's tail group
+    entries launched once a call (the first call and 5 rounds of each
+    size) and nothing else but the camera view's colorize table; the
+    bench's group's first frame bit-equal to ``process_frame``."""
+    import contextlib
+    import io
+    import json
+
+    from xmaps_tpu_torch.apps import bench_geometry
+    from xmaps_tpu_torch.ops.frame_pipeline import group_depth_frames
+
+    monkeypatch.setenv("HOME", str(tmp_path))
+    view = ["--camera-perspective"] if camera_perspective else []
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    with contextlib.redirect_stdout(out):
+        assert bench_geometry.main(["--geometry", "esl", "--frames", "3", "--rounds", "1", "2"]
+                                   + view) == 0
+    torch.cuda.synchronize()
+    calls = 1 + 5 * (1 + 2)
+    tail = "colorize_camera_group" if camera_perspective else "tail_projector_group"
+    want = {k: 0 for k in _build.LAUNCHES}
+    want.update({"event_disparity_scatter_group": calls, tail: calls,
+                 "colorize_table": int(camera_perspective)})
+    assert dict(_build.LAUNCHES) == want
+    doc = json.loads(out.getvalue().strip().splitlines()[-1])
+    assert doc["rect"] == [5760, 3240] and doc["xmap_shape"] == [5760, 1080]
+    assert doc["frame_ms"] > 0 and doc["device_ms_per_frame"] > 0
+    assert 0 < doc["events_per_frame"] <= 27648 and doc["gpu"] and doc["power_limit_w"] > 0
+    calib = bench_geometry.rig("esl")
+    eng = XMapsDepthEngine.from_calibration(
+        calib, device="cuda", event_capacity=28 * 1024, z_near=0.2, z_far=1.2,
+        camera_perspective=camera_perspective,
+        xmap_cache_dir=str(tmp_path / ".cache" / "xmaps_tpu_torch"))
+    frames = bench_geometry.make_frames(calib, 3, 28 * 1024)
+    kw = dict(display_only=True, display_packed=True)
+    res = group_depth_frames(eng.stage_group(frames), eng.tables, eng.cfg, eng.plan,
+                             layout=eng.compact_layout, **kw)
+    one = eng.process_frame(frames[0], **kw)
+    assert torch.equal(res.frame_bgr[0], one.frame_bgr)
+    assert int(res.num_inliers[0]) == int(one.num_inliers) > 0

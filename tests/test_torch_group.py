@@ -141,12 +141,57 @@ def test_process_frames_float_time(view):
         _same(g, r)
 
 
-def test_process_frames_refuses_mixed_time_kinds():
-    """Integer and float timestamps in one group: refused, not stacked."""
-    _, teng = _engines(False)
+def _mixed():
+    """Integer and float timestamps in one list: the float frame between
+    two integer ones."""
     ints, floats = list(_frames()), _float_t(_frames())
-    with pytest.raises(ValueError, match="integer and float"):
-        teng.process_frames([ints[0], floats[1], ints[3]])
+    return [ints[0], floats[1], ints[3]]
+
+
+def test_process_frames_refuses_mixed_time_kinds():
+    """Integer and float timestamps in one list, as the JAX engine runs it:
+    one group a time kind, the results in input order, each equal to JAX's
+    ``process_frames`` and to the port's ``process_frame``, in both views,
+    unfiltered and with ``first_per_xy``.  (The name is the one the test
+    had while the port refused such a list; it is kept so that the test's
+    history stays one test.)"""
+    frames = _mixed()
+    for view in sorted(VIEWS):
+        jeng, teng = _engines(VIEWS[view])
+        for name in ("none", "first_per_xy"):
+            try:
+                teng.set_frame_filter(name)
+                jeng.set_frame_filter(name)
+                got = _same_as_frames(teng, frames)
+                for g, r in zip(got, jeng.process_frames(frames), strict=True):
+                    _same(g, r)
+            finally:
+                teng.set_frame_filter("none")
+                jeng.set_frame_filter("none")
+
+
+@pytest.mark.parametrize("view", sorted(VIEWS))
+def test_process_frames_mixed_time_kinds_one_group_a_kind(view, monkeypatch):
+    """A mixed list runs one group a time kind (the integer frames in one
+    1-word group, the float frame in the array layout), display-packed
+    too; a list of one kind stays one group."""
+    _, teng = _engines(VIEWS[view])
+    frames = _mixed()
+    calls = []
+    real = teng.stage_group
+
+    def stage_group(group, **kw):
+        calls.append(len(group))
+        staged = real(group, **kw)
+        calls.append(type(staged).__name__)
+        return staged
+
+    monkeypatch.setattr(teng, "stage_group", stage_group)
+    _same_as_frames(teng, frames, display_only=True, display_packed=True)
+    assert calls == [2, "CompactStagedGroup", 1, "EventBatch"]
+    calls.clear()
+    teng.process_frames(list(_frames()))
+    assert calls == [5, "CompactStagedGroup"]
 
 
 @pytest.mark.parametrize("name", ["first_per_xy", "first_per_yt"])

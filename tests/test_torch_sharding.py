@@ -211,6 +211,52 @@ def test_process_frames_sharded_uneven_blocks_and_filter():
         teng.process_frames_sharded(frames, sharding.make_mesh(["cpu"] * 4, event=2))
 
 
+def _float_t(ev):
+    """The frame with its times normalised to float32 in [0, 1] (the
+    offline eval's scan events)."""
+    f = np.zeros(len(ev), dtype=[("x", "<i4"), ("y", "<i4"), ("t", "<f4"), ("p", "<i4")])
+    for k in ("x", "y", "p"):
+        f[k] = ev[k]
+    t = ev["t"].astype(np.float64)
+    f["t"] = (t - t.min()) / max(t.max() - t.min(), 1.0)
+    return f
+
+
+@pytest.mark.parametrize("view", sorted(VIEWS))
+def test_process_frames_sharded_mixed_time_kinds(view, monkeypatch):
+    """Integer and float timestamps in one list at data 2: the JAX engine
+    runs it (its stacking makes every time float), and so does the port,
+    one group a time kind on each row whose block holds it, each frame on
+    the row its position gives it; every element equal to JAX's and to
+    ``process_frame``, unfiltered and with ``first_per_xy``."""
+    jeng, teng = _engines(VIEWS[view])
+    fr = _frames()
+    frames = [fr[0], _float_t(fr[1]), fr[3], _float_t(fr[4]), fr[2]]
+    want = jeng.process_frames_sharded(frames, jshard.make_mesh(jax.devices()[:2], data=2))
+    mesh = sharding.make_mesh(["cpu"] * 2, data=2)
+    blocks = []
+    real = teng.stage_group
+
+    def stage_group(block, **kw):
+        blocks.append([int(ev["t"].dtype.kind == "f") for ev in block])
+        return real(block, **kw)
+
+    monkeypatch.setattr(teng, "stage_group", stage_group)
+    got = teng.process_frames_sharded(frames, mesh)
+    # rows [0, 1, 2] and [3, 4]: the integer frames (0, 2 | 4), then the float ones (1 | 3)
+    assert blocks == [[0, 0], [0], [1], [1]]
+    assert len(got) == len(want) == 5
+    for i, (g, w, ev) in enumerate(zip(got, want, frames)):
+        _same(g, [np.asarray(a) for a in w], f"frame {i} vs JAX")
+        _same(g, teng.process_frame(ev), f"frame {i} vs process_frame")
+    teng.set_frame_filter("first_per_xy")
+    try:
+        for i, (g, ev) in enumerate(zip(teng.process_frames_sharded(frames, mesh), frames)):
+            _same(g, teng.process_frame(ev), f"first_per_xy frame {i}")
+    finally:
+        teng.set_frame_filter("none")
+
+
 def test_group_pipeline_rows_stay_on_their_rows():
     """``make_group_sharded_pipeline`` returns one result a non-empty row,
     a group staged on another mesh is refused."""
@@ -512,6 +558,24 @@ def test_bench_scaling_cpu_smoke():
             assert v["device_step_ms"] is None
     assert bench_scaling.mesh_shapes(4) == [(1, 1), (2, 1), (4, 1), (1, 2), (2, 2), (1, 4)]
     assert {(8, 1), (4, 2), (2, 4), (1, 8)} <= set(bench_scaling.mesh_shapes(8))
+
+
+def test_bench_scaling_steps_and_out(tmp_path):
+    """``--steps`` sets the timed steps a shape (the JAX script's flag) and
+    ``--out`` writes the printed JSON line to a file as well."""
+    path = tmp_path / "scaling.json"
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert bench_scaling.main(["--device", "cpu", "--virtual", "2", "--camera", "64", "48",
+                                   "--projector", "90", "160", "--steps", "3",
+                                   "--out", str(path)]) == 0
+    line = out.getvalue().strip().splitlines()[-1]
+    assert path.read_text() == line + "\n"
+    doc = json.loads(line)
+    assert doc["timing"]["wall"] == "host clock + synchronize, median of 3 steps"
+    assert sorted(doc["results"]) == ["1x1", "1x2", "2x1"]
+    with pytest.raises(ValueError, match="--steps 0"):
+        bench_scaling.main(["--device", "cpu", "--steps", "0"])
 
 
 def test_parallel_imports_no_jax():

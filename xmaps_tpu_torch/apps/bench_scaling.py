@@ -21,7 +21,7 @@ equal ``process_frame``'s bit for bit.  It prints ONE JSON line with the
 keys of the JAX script's (``results``: ``frames_per_step``, ``step_ms``,
 ``frame_ms``, ``weak_scaling_eff`` a shape; ``group_live_path``), wall
 times (host clock around a step + ``torch.cuda.synchronize()``, median of
-``STEPS``) and, on the card, device times (``device_step_ms``,
+``--steps``, default 20) and, on the card, device times (``device_step_ms``,
 ``device_frame_ms``, ``device_weak_scaling_eff``: the profiler's summed
 device events a step, ``utils.profiling``; ``device_top_us``: the largest
 events, us a step by name), the devices' names, whether a
@@ -31,7 +31,8 @@ device repeats (``virtual``), and the card's name and power limit.
     python -m xmaps_tpu_torch.apps.bench_scaling --device cpu --virtual 4 \\
         --camera 64 48 --projector 90 160                         # plain versions
 
-On ``--device cpu`` the times are the host's and the device times null.
+``--out PATH`` writes the JSON line to PATH as well.  On ``--device cpu``
+the times are the host's and the device times null.
 Any failure raises (non-zero exit).
 """
 
@@ -56,8 +57,8 @@ SUBSAMPLE = 0.031
 CAPACITY = 28 * 1024
 #: frames a data row (constant work a row: weak scaling)
 FRAMES_PER_ROW = 3
-#: timed steps a shape (wall: their median) and profiled steps (device)
-STEPS = 20
+#: profiled steps a shape (device; the timed steps, whose median is the
+#: wall, are ``--steps``)
 PROFILE_STEPS = 10
 #: device events a shape reports by name (``device_top_us``)
 TOP_EVENTS = 6
@@ -79,9 +80,13 @@ def main(argv=None) -> int:
     ap.add_argument("--virtual", type=int, default=1, help="times each device is listed")
     ap.add_argument("--camera", type=int, nargs=2, default=(640, 480), metavar=("W", "H"))
     ap.add_argument("--projector", type=int, nargs=2, default=(720, 1280), metavar=("W", "H"))
+    ap.add_argument("--steps", type=int, default=20, help="timed steps a shape (wall: median)")
+    ap.add_argument("--out", default="", help="also write the JSON line to this file")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     cuda = dev.type == "cuda"
+    if args.steps < 1:
+        raise ValueError(f"--steps {args.steps}")
     if args.devices < 1 or args.virtual < 1 or (not cuda and args.devices != 1):
         raise ValueError(f"--devices {args.devices} --virtual {args.virtual} on {args.device}")
     names = [f"cuda:{i}" if cuda else "cpu" for i in range(args.devices)
@@ -115,12 +120,12 @@ def main(argv=None) -> int:
                 raise AssertionError(f"{what}: frame {i} has no inliers")
 
     def timed(step):
-        """(wall ms a step: median over STEPS; device ms a step and its
+        """(wall ms a step: median over --steps; device ms a step and its
         top device events, us a step by name: None on the CPU)."""
         step()
         sync()
         wall = []
-        for _ in range(STEPS):
+        for _ in range(args.steps):
             t0 = time.perf_counter()
             step()
             sync()
@@ -189,7 +194,7 @@ def main(argv=None) -> int:
         "mesh_devices": [str(d) for d in full.devices.flat],
         "virtual": full.virtual,
         "card": card,
-        "timing": {"wall": f"host clock + synchronize, median of {STEPS} steps",
+        "timing": {"wall": f"host clock + synchronize, median of {args.steps} steps",
                    "device": (f"torch.profiler, summed device events of {PROFILE_STEPS} steps"
                               if cuda else None)},
         "frames_per_row": FRAMES_PER_ROW,
@@ -207,7 +212,11 @@ def main(argv=None) -> int:
                        "max of the packed maps and the sum of the inlier counts on each "
                        "row's leader, over Tensor.to copies",
     }
-    print(json.dumps(doc), flush=True)
+    line = json.dumps(doc)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+    print(line, flush=True)
     return 0
 
 

@@ -93,7 +93,8 @@ class PipelineConfig:
 
     camera_perspective: bool = False
 
-    #: Only "none" in this package (the dedup filters are not ported).
+    #: One of xmaps_tpu_torch.ops.filters.FILTER_NAMES; the reference cycles
+    #: these with the E key (frame_event_filter.py:131-151).
     frame_filter: str = "none"
 
     #: X-map time axis discretization; reference uses projector_width bins

@@ -3,8 +3,8 @@
 Port of ``xmaps_tpu.io.event_iterator``; mirrors NonBufferedBiasEventsIterator
 (reference: bias_events_iterator.py:53-96): yields structured event chunks
 of ``delta_t`` microseconds each -- the reference processes 4 packets per
-projector frame (depth_reprojection.py:66-67).  Live capture is not ported
-yet (ROADMAP.md).
+projector frame (depth_reprojection.py:66-67).  Live capture has its own
+source: ``io.capture.open_capture`` + ``LiveEventsIterator``.
 """
 
 from __future__ import annotations
@@ -37,7 +37,8 @@ class FileEventsIterator:
         if not input_filename:
             raise RuntimeError(
                 "FileEventsIterator needs an input file (.raw/.dat/.npy); "
-                "live capture is not ported to xmaps_tpu_torch yet (ROADMAP.md)"
+                "for live capture use io.capture.open_capture + "
+                "LiveEventsIterator (pluggable backend registry)."
             )
         if not (os.path.exists(input_filename) and os.path.isfile(input_filename)):
             print(

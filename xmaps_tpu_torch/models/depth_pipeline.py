@@ -52,6 +52,7 @@ from xmaps_tpu_torch.parallel.sharding import (
     make_group_sharded_pipeline,
     replicate,
     shard_staged_group,
+    split_frames,
 )
 
 __all__ = ["XMapsDepthEngine", "resolve_device"]
@@ -74,6 +75,21 @@ def resolve_device(device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r} (cpu or cuda)")
     return dev
+
+
+def _time_kinds(frames: list) -> list:
+    """The frames' indices grouped by timestamp kind (integer, then
+    float), the empty kinds left out."""
+    ints = [np.issubdtype(ev.dtype["t"].type, np.integer) for ev in frames]
+    kinds = ([i for i, k in enumerate(ints) if k], [i for i, k in enumerate(ints) if not k])
+    return [idx for idx in kinds if idx]
+
+
+def _unstack(res: FrameResult) -> list:
+    """The frames of a group's ``FrameResult`` (fields with a leading
+    frame axis), as views."""
+    fields = [[None] * len(res.num_inliers) if a is None else a.unbind(0) for a in res]
+    return [FrameResult(*parts) for parts in zip(*fields)]
 
 
 @dataclass
@@ -405,17 +421,19 @@ class XMapsDepthEngine:
         the multi-camera / offline-batch regime of the JAX engine's
         ``process_frames``).  Returns one ``FrameResult`` a frame, views
         into the group's outputs, each bit-equal to ``process_frame`` of
-        that frame.  The frames' timestamps are all integer or all float
-        (a ``ValueError`` otherwise)."""
-        if not frames:
-            return []
-        staged = self.stage_group(frames)
-        res = group_depth_frames(
-            staged, self.tables, self.cfg, self.plan, layout=self.compact_layout,
-            display_only=display_only, display_packed=display_packed,
-        )
-        fields = [[None] * len(frames) if a is None else a.unbind(0) for a in res]
-        return [FrameResult(*parts) for parts in zip(*fields)]
+        that frame.  A list that mixes integer and float timestamps runs
+        as one group a time kind (a group stacks one kind), its results
+        in input order."""
+        out = [None] * len(frames)
+        for idx in _time_kinds(frames):
+            staged = self.stage_group([frames[i] for i in idx])
+            res = group_depth_frames(
+                staged, self.tables, self.cfg, self.plan, layout=self.compact_layout,
+                display_only=display_only, display_packed=display_packed,
+            )
+            for i, one in zip(idx, _unstack(res)):
+                out[i] = one
+        return out
 
     def process_frames_sharded(
         self,
@@ -440,7 +458,11 @@ class XMapsDepthEngine:
         k times) holds one copy, not k.  The JAX engine pads the list to a
         multiple of the data size with empty frames, since its program has
         one shape; here a block of ``ceil(n / data)`` frames a row leaves
-        the last block short (and rows past it empty: no launch)."""
+        the last block short (and rows past it empty: no launch).  A list
+        that mixes integer and float timestamps (which the JAX engine
+        stacks as float) runs one group program a time kind on each row
+        whose block holds that kind; each frame keeps the row its position
+        gives it."""
         if not frames:
             return []
         if mesh.shape["event"] != 1:
@@ -451,13 +473,17 @@ class XMapsDepthEngine:
             self._sharded[key] = make_group_sharded_pipeline(
                 self.cfg, self.tables, mesh, self.plan, layout=self.compact_layout,
                 cache=self._replicas)
-        group = shard_staged_group(frames, mesh, self.stage_group)
-        rows = self._sharded[key](group, display_only=display_only,
-                                  display_packed=display_packed)
-        out = []
-        for res in rows:
-            fields = [[None] * len(res.num_inliers) if a is None else a.unbind(0) for a in res]
-            out.extend(FrameResult(*parts) for parts in zip(*fields))
+        blocks = split_frames(len(frames), mesh.shape["data"])
+        out = [None] * len(frames)
+        for idx in _time_kinds(frames):
+            keep = set(idx)
+            index = [[i for i in range(b.start, b.stop) if i in keep] for b in blocks]
+            group = shard_staged_group(frames, mesh, self.stage_group, index=index)
+            rows = self._sharded[key](group, display_only=display_only,
+                                      display_packed=display_packed)
+            for ids, res in zip([ids for ids in index if ids], rows, strict=True):
+                for i, one in zip(ids, _unstack(res), strict=True):
+                    out[i] = one
         return out
 
     def set_frame_filter(self, name: str):

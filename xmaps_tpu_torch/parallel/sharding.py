@@ -290,19 +290,24 @@ class ShardedGroup(NamedTuple):
 
 
 def shard_staged_group(
-    frames: Sequence, mesh: Mesh, stage_group: Callable
+    frames: Sequence, mesh: Mesh, stage_group: Callable, *, index: Optional[Sequence] = None
 ) -> ShardedGroup:
     """The frames (structured event arrays) split into contiguous blocks
     over the mesh's ``data`` rows (``split_frames``; event == 1), each
     block staged on its row's device by ``stage_group(block, device=)``:
     one host buffer and one copy a row where the 1-word layout fits
-    (``XMapsDepthEngine.stage_group``)."""
+    (``XMapsDepthEngine.stage_group``).  ``index``: the indices of the
+    frames each row stages, in place of the blocks (a subset of each
+    block: ``XMapsDepthEngine.process_frames_sharded`` stages a list of
+    mixed time kinds once a kind)."""
     if mesh.shape["event"] != 1:
         raise ValueError("shard_staged_group: the group program is data-parallel only "
                          "(use make_sharded_pipeline for event-sharded meshes)")
+    if index is None:
+        index = [range(sl.start, sl.stop) for sl in split_frames(len(frames), mesh.shape["data"])]
     rows = []
-    for sl, dev in zip(split_frames(len(frames), mesh.shape["data"]), mesh.devices[:, 0]):
-        block = list(frames[sl])
+    for ids, dev in zip(index, mesh.devices[:, 0], strict=True):
+        block = [frames[i] for i in ids]
         rows.append(stage_group(block, device=dev) if block else None)
     return ShardedGroup(mesh, tuple(rows))
 
