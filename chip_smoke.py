@@ -6,8 +6,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Builds the eight CUDA kernels (and the group entries of kernels 1, 2 and
 3) from xmaps_tpu_torch/csrc/ with nvcc (one
 process a source, started together), checks each against its plain PyTorch
-version on the card (kernel 3's per-engine colorize table against the plain
-epilogue of all 8192 disparities, bit for bit), and drives the port's paths:
+version on the card (the per-engine colorize table that kernels 2 and 3 read
+against the plain epilogue of all 8192 disparities, bit for bit), and drives
+the port's paths:
 
 - the per-frame engine (XMapsDepthEngine.from_calibration -> process_frame)
   at the paper's demonstrator geometry in both views and at the ESL bench
@@ -28,7 +29,8 @@ epilogue of all 8192 disparities, bit for bit), and drives the port's paths:
   launch of kernel 1 and one of the tail a group, every element bit-equal
   to ``process_frame`` on the card and to the CPU port; phase 6 times the
   group against the per-frame loop (device and wall ms a frame, in turns)
-  and each group entry against its plain version;
+  and each group entry against its plain version, and kernel 2 at the ESL
+  rig (one frame and a group of 12, L2 flushed) beside the demonstrator's;
 - scale-out on a virtual mesh of the one card (phase 4c): ``cuda:0``
   listed data x event times, ``parallel.make_sharded_pipeline`` of the 12
   demonstrator frames at (data, event) = (2, 1), (4, 1), (1, 2), (1, 4),
@@ -99,8 +101,8 @@ epilogue of all 8192 disparities, bit for bit), and drives the port's paths:
   version, ``index_put_``).
 
 It times frames, scans and kernels (torch.profiler device time and wall
-time; kernel 2 ``tail_projector`` is two launches, the shared-memory dilate
-and the remap + colorize, timed together and listed apart) and prints one JSON line with every kernel's launches on the main
+time; kernel 2 ``tail_projector`` is two launches, the column-strip dilate
+and the remap through the colorize table, timed together and listed apart) and prints one JSON line with every kernel's launches on the main
 paths, error, time, plain and library time and bound, then the card's name
 and power limit, then a last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -311,8 +313,7 @@ def kernel_parity(eng, ev, errs, frames=None):
     staged_parity(eng, ev, kw, errs)
     if frames is not None:
         ring_parity(eng, frames, kw, errs)
-    if kw["camera_view"]:
-        table_parity(eng, errs)
+    table_parity(eng, errs)
     for opts in (dict(emit_aux=True, packed_bgr=False),
                  dict(emit_aux=False, packed_bgr=False),
                  dict(emit_aux=False, packed_bgr=True)):
@@ -378,8 +379,9 @@ def offset_parity(eng, ev, frames, kw, errs):
 
 
 def table_parity(eng, errs):
-    """Kernel 3's colorize table, built on the card with the engine, against
-    the plain epilogue of all PACK disparities, bit for bit."""
+    """The colorize table kernels 2 and 3 read, built on the card with the
+    engine (either view), against the plain epilogue of all PACK
+    disparities, bit for bit."""
     import torch
     from xmaps_tpu_torch.ops.cuda_tail import colorize_table_plain
 
@@ -872,7 +874,8 @@ def time_group(card, engines, frames, kernels_ms, shapes, groups):
     lut_b, xmap_b = t.cam_map_packed.numel() * 4, t.x_map.numel() * 2
     shapes["event_disparity_scatter_group"] = (
         staged_p.host_counts, lut_b, xmap_b, ev_p.packed_map[0].numel())
-    shapes["tail_projector_group"] = (f, ev_p.packed_map[0].numel(), t.proj_mapx_i16.numel())
+    shapes["tail_projector_group"] = (f, ev_p.packed_map[0].numel(), t.proj_mapx_i16.numel(),
+                                      projector_disparities(ev_p.packed_map, t, eng_p.plan))
     shapes["colorize_camera_group"] = (
         ev_c.packed_map[0].numel(), [distinct_disparities(m) for m in ev_c.packed_map])
     for k in ("event_disparity_scatter_group", "tail_projector_group", "colorize_camera_group"):
@@ -881,8 +884,52 @@ def time_group(card, engines, frames, kernels_ms, shapes, groups):
         log(f"  kernel {k} ({f} frames a call): {km['ms']:.5f} ms device, L2 flushed before "
             f"each call (turns {km['turns'][0]:.5f}, {km['turns'][1]:.5f}), "
             f"{km['ms'] / f:.6f} ms/frame; back to back {warm_ms[k]:.5f} ms; plain "
-            f"{pm['ms']:.5f} ms (flushed); bound {bound:.6f} ms (bytes, F x a frame's), share "
+            f"{pm['ms']:.5f} ms (flushed); bound {bound:.6f} ms (bytes), share "
             f"{bound / km['ms']:.4f} {card}")
+
+
+def time_kernel2_esl(card, eng, frames):
+    """Phase 6: kernel 2 at the ESL Table-2 rig (crop and projector of
+    ``eng``), beside the demonstrator's rows: one frame and the group of
+    ``frames``, each with the L2 cache flushed before each call, display-
+    packed, against its plain version in turns, with its bound (bytes,
+    ``kernel_bytes``), share and the dilate / remap split (device ms a
+    call by kernel name)."""
+    from xmaps_tpu_torch.ops.cuda_events import event_disparity_scatter_staged_group
+    from xmaps_tpu_torch.ops.cuda_tail import (
+        tail_projector,
+        tail_projector_group,
+        tail_projector_group_plain,
+        tail_projector_plain,
+    )
+
+    t, plan = eng.tables, eng.plan
+    packed = event_disparity_scatter_staged_group(
+        eng.stage_group(frames), eng.compact_layout, t, **view_kwargs(eng)[0]).packed_map
+    one = packed[0].clone()
+    disp = dict(emit_aux=False, packed_bgr=True)
+    crop_px, proj_px = one.numel(), t.proj_mapx_i16.numel()
+    rows = {
+        "tail_projector": (
+            lambda: tail_projector(one, t, plan, **disp),
+            lambda: tail_projector_plain(one, t, plan, **disp),
+            (crop_px, proj_px, projector_disparities(one, t, plan), False)),
+        "tail_projector_group": (
+            lambda: tail_projector_group(packed, t, plan, **disp),
+            lambda: tail_projector_group_plain(packed, t, plan, **disp),
+            (len(frames), crop_px, proj_px, projector_disparities(packed, t, plan))),
+    }
+    for k, (kernel_fn, plain_fn, shape) in rows.items():
+        km, pm = time_pair(kernel_fn, plain_fn, cold=True)
+        bound = kernel_bytes(k, {k: shape}) / HBM_BYTES_PER_S * 1e3
+        if bound > MAX_SHARE * km["ms"]:
+            raise AssertionError(f"ESL {k}: share {bound / km['ms']:.4f} over {MAX_SHARE}")
+        log(f"  kernel {k} at the ESL rig (crop {plan.H}x{plan.W}, projector "
+            f"{tuple(t.proj_mapx_i16.shape)}, {shape[0] if k.endswith('group') else 1} "
+            f"frame(s) a call, L2 flushed before each call): {km['ms']:.5f} ms device (turns "
+            f"{km['turns'][0]:.5f}, {km['turns'][1]:.5f}; ms a call by kernel {km['top']}), plain "
+            f"{pm['ms']:.5f} ms; bound {bound:.6f} ms (bytes), share {bound / km['ms']:.4f} "
+            f"{card}")
 
 
 def filters_out_of_camera(engines, frames):
@@ -1766,9 +1813,8 @@ def replay(app, argv, want_tail, expect_frames, keys="", prestage=True):
     if not prestage and (ring is not None or "ring" in rec["how"]):
         raise AssertionError("a prestage=False replay used the ring")
     want = {k: 0 for k in launches}
-    # a camera-view engine builds its colorize table once
-    want.update({"event_disparity_scatter": n, want_tail: n,
-                 "colorize_table": int(want_tail == "colorize_camera")})
+    # the app's engine builds its colorize table once, in either view
+    want.update({"event_disparity_scatter": n, want_tail: n, "colorize_table": 1})
     if launches != want:
         raise AssertionError(f"replay launches {launches} != {want}")
     return rec, counters, loop_s[0], launches
@@ -2153,7 +2199,8 @@ def live_run(app, argv, prestage=True):
         raise AssertionError(f"live run: {n} dispatched, floor {rec['frame_floor']}, "
                              f"{counters}\n{out.getvalue()}")
     want = {k: 0 for k in launches}
-    want.update(event_disparity_scatter=n, tail_projector=n)
+    # the app's engine builds its colorize table once
+    want.update(event_disparity_scatter=n, tail_projector=n, colorize_table=1)
     if launches != want:
         raise AssertionError(f"live launches {launches} != {want}")
     return rec, counters, t["last"] - t["first"]
@@ -2215,12 +2262,14 @@ def phase9_bench(card, errs, kernels_ms, shapes, library_ms):
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     # the loop: a warm-up pass, the synchronous frames and two timed turns;
-    # the group: a warm-up call and two timed turns
+    # the group: a warm-up call and two timed turns; the bench's two engine
+    # setups build a colorize table each
     frames = bench.N_FRAMES + bench.SYNC_FRAMES + 2 * bench.ROUNDS * bench.N_FRAMES
     groups = 1 + 2 * bench.ROUNDS
     want = {k: 0 for k in launches}
     want.update(warmup_add_one=1, event_disparity_scatter=frames, tail_projector=frames,
-                event_disparity_scatter_group=groups, tail_projector_group=groups)
+                event_disparity_scatter_group=groups, tail_projector_group=groups,
+                colorize_table=2)
     if rc != 0 or launches != want:
         raise AssertionError(f"apps.bench rc {rc}, launches {launches} != {want}")
     line = out.getvalue().strip().splitlines()[-1]
@@ -2249,8 +2298,8 @@ def phase9_bench_geometry(card, errs):
     ``apps.bench_geometry --geometry esl`` a view (12 frames, one
     display-packed group a call), its launches counted from 0 just before
     it and read just after (kernel 1's group entry and the view's tail
-    group entry once a call, nothing else but the camera engine's
-    colorize table), its lines printed.  Then, in both views, the bench's
+    group entry once a call, nothing else but the engine's colorize
+    table), its lines printed.  Then, in both views, the bench's
     group (``rig`` + ``make_frames``) on the card, its first 3 frames
     against the CPU port's ``process_frame``, and ``process_frames`` of a
     list mixing integer and float timestamps (one group a time kind)
@@ -2276,8 +2325,7 @@ def phase9_bench_geometry(card, errs):
         torch.cuda.synchronize()
         launches = dict(_build.LAUNCHES)
         want = {k: 0 for k in launches}
-        want.update({"event_disparity_scatter_group": calls, tail: calls,
-                     "colorize_table": int(view)})
+        want.update({"event_disparity_scatter_group": calls, tail: calls, "colorize_table": 1})
         lines = out.getvalue().strip().splitlines()
         doc = json.loads(lines[-1])
         if not (rc == 0 and launches == want and doc["rect"] == [5760, 3240]
@@ -2356,7 +2404,8 @@ def phase9_bench_stream(card):
     extra = result["extra"]
     frames = launches["event_disparity_scatter"]
     want = {k: 0 for k in launches}
-    want.update(event_disparity_scatter=frames, tail_projector=frames)
+    # the bench's engine builds its colorize table once
+    want.update(event_disparity_scatter=frames, tail_projector=frames, colorize_table=1)
     if not (rc == 0 and launches == want and frames >= 6 * extra["frames_measured"] > 0
             and result["value"] > 0 and extra["gpu"] and extra["p50_device_frame_path_ms"]
             and extra["ring_packets_per_frame_mode"] >= 1):
@@ -2496,6 +2545,18 @@ def distinct_disparities(packed) -> int:
     return int(torch.unique(packed & (PACK - 1)).numel())
 
 
+def projector_disparities(packed, tables, plan) -> int:
+    """How many distinct disparities kernel 2's output shows for the packed
+    crop (H, W) or crops (F, H, W): the colorize table entries it reads
+    (the plain version's disparity plane, which the card's equals)."""
+    import torch
+    from xmaps_tpu_torch.ops.cuda_tail import tail_projector_plain
+
+    crops = packed if packed.dim() == 3 else packed[None]
+    return int(torch.unique(torch.cat([
+        tail_projector_plain(c, tables, plan)[2].flatten() for c in crops])).numel())
+
+
 def kernel_bytes(name, shapes) -> float:
     """The bytes ``name`` must move on the main path's inputs of this run:
     each input read once, each output written once; for gathers, one
@@ -2505,8 +2566,11 @@ def kernel_bytes(name, shapes) -> float:
         n, inl, lut_b, xmap_b, out_px = s
         return 13 * n + min(4 * inl, lut_b) + min(2 * inl, xmap_b) + 4 * out_px + 4
     if name == "tail_projector":
-        crop_px, proj_px = s
-        return 4 * crop_px + 2 * 2 * proj_px + 4 * 256 + 4 * proj_px
+        # the crop in, the two i16 maps, packed BGR out, and the table
+        # entries of the distinct disparities the frame shows (BGR, and
+        # depth where it is written)
+        crop_px, proj_px, distinct, with_depth = s
+        return 4 * crop_px + 2 * 2 * proj_px + 4 * distinct * (2 if with_depth else 1) + 4 * proj_px
     if name == "colorize_camera":
         # the map in, packed BGR out, and the table entries of the distinct
         # disparities the map holds (BGR, and depth where it is written)
@@ -2519,8 +2583,10 @@ def kernel_bytes(name, shapes) -> float:
         return sum(4 * n + min(4 * n, lut_b) + min(2 * n, xmap_b) + 4 * out_px + 8
                    for n in counts)
     if name == "tail_projector_group":
-        f, crop_px, proj_px = s
-        return f * kernel_bytes("tail_projector", {"tail_projector": (crop_px, proj_px)})
+        # each crop in and each frame's packed BGR out; the maps and the
+        # table entries of the group's distinct disparities once a group
+        f, crop_px, proj_px, distinct = s
+        return f * (4 * crop_px + 4 * proj_px) + 2 * 2 * proj_px + 4 * distinct
     if name == "colorize_camera_group":
         px, distinct = s
         return sum(kernel_bytes("colorize_camera", {"colorize_camera": (px, d, False)})
@@ -2743,7 +2809,8 @@ def main() -> int:
         "event_disparity_scatter": (
             batch.capacity, int(batch.valid.sum()),
             t.cam_map_packed.numel() * 4, t.x_map.numel() * 2, packed_p.numel()),
-        "tail_projector": (packed_p.numel(), t.proj_mapx_i16.numel()),
+        "tail_projector": (packed_p.numel(), t.proj_mapx_i16.numel(),
+                           projector_disparities(packed_p, t, eng_p.plan), False),
         "colorize_camera": (packed_c.numel(), distinct_disparities(packed_c), False),
         "colorize_table": (eng_c.plan.table[0].numel(),),
     }
@@ -2757,6 +2824,7 @@ def main() -> int:
     time_kernel1_entries(card, eng_p, frames[0], batch, t_bin, ekw, shapes)
     time_offset_entry(card, eng_p, batch, t_bin, ekw)
     time_group(card, engines, frames, kernels_ms, shapes, groups)
+    time_kernel2_esl(card, eng_e, make_frames(esl, N_FRAMES, 0.031, target=CAPACITY - 1024))
     time_mesh(card)
     for eng in (eng_p, eng_c):
         time_ring_vs_staged(card, eng, frames)

@@ -147,26 +147,28 @@ def test_wrappers_check_inputs(cuda):
                        eng.tables, plan)
 
 
-def _tail_rig(crop_shape, proj_shape, seed):
+def _tail_rig(crop_shape, proj_shape, seed, frames=None):
     """A hand-made projector tail on the card: a crop at (5, 9) of a
     40 x 70 rect frame, projector maps drawn around the crop (some inside
-    the frame but outside the crop, some outside the frame), and random
-    packed words with every priority bit random."""
-    from xmaps_tpu_torch.ops.cuda_tail import TailPlan
+    the frame but outside the crop, some outside the frame), the plan's
+    colorize table built on the card, and random packed words with every
+    priority bit random: (H, W), or (frames, H, W) where given."""
+    from xmaps_tpu_torch.ops.cuda_tail import TailPlan, with_colorize_table
     from xmaps_tpu_torch.ops.frame_pipeline import DeviceTables
 
     rng = np.random.default_rng(seed)
     (H, W), (Hp, Wp) = crop_shape, proj_shape
     r0, c0 = 5, 9
-    plan = TailPlan(full_H=40, full_W=70, crop_row0=r0, crop_col0=c0, H=H, W=W,
-                    p03=40.0, z_near=0.2, z_far=1.2)
     mapx = rng.integers(c0 - 3, c0 + W + 3, (Hp, Wp)).astype(np.int16)
     mapy = rng.integers(r0 - 3, r0 + H + 3, (Hp, Wp)).astype(np.int16)
     mapx[0, :3] = -1
     mapy[-1, -2:] = 40
     zero = np.zeros((1, 1), np.int16)
-    tables = DeviceTables.from_numpy(zero, zero, zero, mapx, mapy, plan.p03, "cuda")
-    words = rng.integers(0, 2**32, (H, W), dtype=np.uint64).astype(np.uint32).view(np.int32)
+    tables = DeviceTables.from_numpy(zero, zero, zero, mapx, mapy, 40.0, "cuda")
+    plan = with_colorize_table(TailPlan(full_H=40, full_W=70, crop_row0=r0, crop_col0=c0,
+                                        H=H, W=W, p03=40.0, z_near=0.2, z_far=1.2), tables)
+    shape = (H, W) if frames is None else (frames, H, W)
+    words = rng.integers(0, 2**32, shape, dtype=np.uint64).astype(np.uint32).view(np.int32)
     return plan, tables, torch.from_numpy(words).cuda()
 
 
@@ -185,10 +187,61 @@ def test_tail_projector_edges_on_card(cuda, crop_shape, proj_shape):
         got = tail_projector(words, tables, plan, **variant)
         torch.cuda.synchronize()
         assert _build.LAUNCHES["tail_projector"] == 1
+        assert _build.LAUNCHES["colorize_table"] == 0
         want = tail_projector_plain(words, tables, plan, **variant)
         for a, b in zip(got, want):
             _equal(a, b)
         assert tuple(got[0].shape[:2]) == proj_shape
+
+
+@pytest.mark.parametrize("frames", [1, 2, 12])
+@pytest.mark.parametrize("crop_shape,proj_shape", [
+    ((37, 70), (29, 31)),  # 899 projector pixels: ragged for 4 and 8 px a thread
+    ((7, 11), (9, 13)),  # a crop smaller than one dilate tile; 117 pixels
+    ((45, 1), (13, 7)),  # a crop of one column; 91 pixels
+    ((70, 200), (16, 24)),  # several dilate tiles each way, no ragged tail
+], ids=["ragged", "tiny_crop", "one_col", "tiles"])
+def test_tail_projector_group_edges_on_card(cuda, crop_shape, proj_shape, frames):
+    """Kernel 2's group entry (the projector maps read once for the F
+    frames, each frame's outputs at a multiple of 8 pixels, each frame's
+    ragged tail scalar) against its plain version in all three output
+    variants, over outputs allocated on memory filled with garbage; one
+    counted launch a call, no table built."""
+    plan, tables, words = _tail_rig(crop_shape, proj_shape, seed=sum(crop_shape) + frames,
+                                    frames=frames)
+    for variant in VARIANTS:
+        garbage = [torch.full((4 * 11 * frames * proj_shape[0] * proj_shape[1],), 0x7B,
+                              dtype=torch.uint8, device=cuda) for _ in range(3)]
+        del garbage
+        _build.reset_launch_counts()
+        got = tail_projector_group(words, tables, plan, **variant)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["tail_projector_group"] == 1
+        assert _build.LAUNCHES["colorize_table"] == _build.LAUNCHES["tail_projector"] == 0
+        want = tail_projector_group_plain(words, tables, plan, **variant)
+        for a, b in zip(got, want):
+            _equal(a, b)
+        assert tuple(got[0].shape[:3]) == (frames, *proj_shape)
+        for f in (0, frames - 1):
+            for a, b in zip(got, tail_projector(words[f], tables, plan, **variant)):
+                _equal(None if a is None else a[f], b)
+
+
+def test_tail_projector_refuses_missing_or_foreign_table(cuda):
+    """Both entries of kernel 2 raise, and launch nothing, where the plan
+    holds no colorize table or holds it on another device."""
+    import dataclasses
+
+    plan, tables, words = _tail_rig((8, 8), (4, 6), seed=2)
+    bare = dataclasses.replace(plan, table=None)
+    on_cpu = dataclasses.replace(plan, table=tuple(t.cpu() for t in plan.table))
+    _build.reset_launch_counts()
+    for bad in (bare, on_cpu):
+        with pytest.raises(ValueError, match="no colorize table"):
+            tail_projector(words, tables, bad)
+        with pytest.raises(ValueError, match="no colorize table"):
+            tail_projector_group(words[None], tables, bad)
+    assert _build.LAUNCHES["tail_projector"] == _build.LAUNCHES["tail_projector_group"] == 0
 
 
 def test_tail_projector_refuses_misaligned_maps(cuda):
@@ -300,6 +353,52 @@ def test_engine_to_rebuilds_colorize_table(cuda):
     for got, ref in zip(back.process_frames(frames), cpu.process_frames(frames)):
         for name in ("frame_bgr", "depth", "disp_map", "num_inliers"):
             _equal(getattr(got, name), getattr(ref, name))
+
+
+def test_engine_to_rebuilds_projector_table(cuda):
+    """A projector-view engine holds its colorize table on the card (built
+    with the engine, from the plan's p03, equal to the tables' p03); moved
+    to the CPU it holds none, moved back it builds it again (one launch);
+    ``replicate`` onto the card, as a virtual mesh's replicas are made,
+    builds it from a CPU plan and keeps it where it lies."""
+    from xmaps_tpu_torch.ops.cuda_tail import colorize_table_plain
+    from xmaps_tpu_torch.parallel import make_mesh, make_sharded_pipeline, shard_batches
+    from xmaps_tpu_torch.parallel.sharding import replicate
+
+    eng = _engine(False)
+    # the table's p03 goes to the card as float32: the plain chain's float32
+    assert torch.equal(torch.tensor(eng.plan.p03, dtype=torch.float32), eng.tables.p03.cpu())
+    bgr, depth = eng.plan.table
+    assert bgr.device.type == "cuda"
+    ref_bgr, ref_depth = colorize_table_plain(eng.tables, eng.plan)
+    _equal(bgr, ref_bgr)
+    _equal(depth.view(torch.int32), ref_depth.view(torch.int32))
+    cpu = eng.to("cpu")
+    assert cpu.plan.table is None
+    _build.reset_launch_counts()
+    back = cpu.to("cuda")
+    _, plan = replicate(cpu.tables, cpu.plan, "cuda")
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["colorize_table"] == 2
+    for p in (back.plan, plan):
+        _equal(p.table[0], bgr)
+        _equal(p.table[1].view(torch.int32), depth.view(torch.int32))
+    assert eng.to("cuda").plan.table is eng.plan.table  # kept on its own device
+    assert replicate(eng.tables, eng.plan, "cuda")[1].table is eng.plan.table
+    mesh = make_mesh(["cuda:0"] * 2, data=2)
+    frames = _frames()
+    _build.reset_launch_counts()
+    out = make_sharded_pipeline(eng.cfg, eng.tables, mesh, eng.plan)(
+        shard_batches([eng.make_batch(ev) for ev in frames], mesh, eng.cfg))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["colorize_table"] == 0
+    assert _build.LAUNCHES["tail_projector_group"] == 2
+    for i, (ev, ref) in enumerate(zip(frames, cpu.process_frames(frames))):
+        for a, b in zip(out, ref):
+            _equal(a[i], b)
+    for got, ref in zip(back.process_frames(frames), cpu.process_frames(frames)):
+        for a, b in zip(got, ref):
+            _equal(a, b)
 
 
 # -- kernel 1 at the offline eval's capacity, kernels A and B ----------------
@@ -1105,8 +1204,7 @@ def test_wrappers_launch_on_their_tensors_card(cuda, cards, camera_perspective):
     with torch.cuda.device(0):
         eng = base.to(dev)
         assert eng.tables.x_map.device == dev
-        if camera_perspective:
-            assert eng.plan.table[0].device == dev
+        assert eng.plan.table[0].device == dev
         pool = HostStagingPool(eng.cfg.event_capacity, device=dev, layout=eng.compact_layout)
         for seed, ev in enumerate(frames):
             for a, b in zip(eng.process_frame(ev), cpu.process_frame(ev)):
@@ -1197,8 +1295,8 @@ def test_bench_geometry_esl_on_card(cuda, camera_perspective, monkeypatch, tmp_p
     """``apps.bench_geometry --geometry esl`` with 3 frames and rounds 1 2:
     one JSON line at the ESL rect, kernel 1's and the view's tail group
     entries launched once a call (the first call and 5 rounds of each
-    size) and nothing else but the camera view's colorize table; the
-    bench's group's first frame bit-equal to ``process_frame``."""
+    size) and nothing else but the engine's colorize table (either view);
+    the bench's group's first frame bit-equal to ``process_frame``."""
     import contextlib
     import io
     import json
@@ -1218,8 +1316,8 @@ def test_bench_geometry_esl_on_card(cuda, camera_perspective, monkeypatch, tmp_p
     calls = 1 + 5 * (1 + 2)
     tail = "colorize_camera_group" if camera_perspective else "tail_projector_group"
     want = {k: 0 for k in _build.LAUNCHES}
-    want.update({"event_disparity_scatter_group": calls, tail: calls,
-                 "colorize_table": int(camera_perspective)})
+    # the engine the bench builds builds its colorize table once, in either view
+    want.update({"event_disparity_scatter_group": calls, tail: calls, "colorize_table": 1})
     assert dict(_build.LAUNCHES) == want
     doc = json.loads(out.getvalue().strip().splitlines()[-1])
     assert doc["rect"] == [5760, 3240] and doc["xmap_shape"] == [5760, 1080]

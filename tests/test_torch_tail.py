@@ -23,7 +23,11 @@ from xmaps_tpu_torch.ops.cuda_tail import (  # noqa: E402
     CamTailPlan,
     build_tail_plan,
     colorize_camera,
+    colorize_table_plain,
     tail_projector,
+    tail_projector_group,
+    tail_projector_plain,
+    with_colorize_table,
 )
 from xmaps_tpu_torch.ops.frame_pipeline import DeviceTables  # noqa: E402
 from xmaps_tpu_torch.ops.scatter import PACK  # noqa: E402
@@ -202,3 +206,103 @@ def test_colorize_camera_every_disparity_matches_pallas(variant):
     _check(got, ref, variant)
     if variant["emit_aux"]:
         np.testing.assert_array_equal(np.sort(got[2].numpy().ravel()), np.arange(PACK))
+
+
+def test_cpu_projector_plan_holds_no_table():
+    """On the CPU ``with_colorize_table`` leaves a projector plan without a
+    table (dropping one it held), and ``tail_projector`` still runs the
+    plain chain, bit-equal to ``pallas_tail`` in interpret mode."""
+    import dataclasses
+
+    calib, maps, jplan, tplan, tables = _rig("default")
+    plan = with_colorize_table(tplan, tables)
+    assert plan.table is None and plan == tplan
+    held = dataclasses.replace(tplan, table=colorize_table_plain(tables, tplan))
+    assert with_colorize_table(held, tables).table is None
+    crop = _packed_map((tplan.H, tplan.W), seed=5)
+    padded = np.zeros((jplan.H_pad, jplan.W_pad), np.uint32)
+    padded[: tplan.H, : tplan.W] = crop
+    for variant in VARIANTS:
+        ref = jpt.pallas_tail(jnp.asarray(padded), jplan, interpret=True, pack=PACK, **variant)
+        _check(tail_projector(torch.from_numpy(crop.astype(np.int32)), tables, plan, **variant),
+               ref, variant)
+
+
+@pytest.mark.parametrize("geometry", ["demo", "esl"])
+def test_projector_plan_p03_is_the_tables_p03(geometry, monkeypatch):
+    """The card's colorize table is built from ``plan.p03`` (passed to the
+    kernel as float32); the plain chain divides by ``tables.p03`` (float32).
+    At both rigs of ``apps.bench_geometry``, the engine's construction
+    (``build_tail_plan`` and ``DeviceTables.from_maps`` of one
+    ``CamProjMaps``) gives the two the same float32.  The rect-sized
+    undistortion maps, which neither reads, are stubbed to keep the ESL
+    rig's 5760 x 3240 frame off the CPU."""
+    from xmaps_tpu_torch.apps.bench_geometry import rig
+    from xmaps_tpu_torch.calib import maps as tmaps
+
+    monkeypatch.setattr(tmaps, "init_undistort_rectify_map",
+                        lambda *a: (np.zeros((1, 1), np.float32),) * 2)
+    calib = rig(geometry)
+    maps = tmaps.CamProjMaps(calib)
+    plan = build_tail_plan(maps.disp_proj_mapx_i16, maps.disp_proj_mapy_i16,
+                           calib.rect_image_height, calib.rect_image_width,
+                           p03=float(maps.P2[0, 3]), z_near=Z_NEAR, z_far=Z_FAR)
+    tables = DeviceTables.from_maps(maps, np.zeros((1, 1), np.int16), "cpu")
+    assert tables.p03.dtype == torch.float32
+    assert torch.equal(torch.tensor(plan.p03, dtype=torch.float32), tables.p03)
+    assert plan.p03 > 100  # a real baseline x focal, not a default
+
+
+def _every_disparity_rig():
+    """A 364 x 364 rect frame, all of it the crop, with a 91 x 91 grid of
+    points 4 pixels apart (at 4 i + 2, 4 j + 2) and a 91 x 91 projector
+    whose pixel (i, j) samples point (i, j).  Every other pixel holds
+    disparity 0, and no point lies in another's 7 x 7 window, so the
+    dilated value at a point is its own disparity.  Points 0 .. PACK - 1
+    hold the disparities 0 .. PACK - 1 in a random order, the other 89
+    repeat some; every word has random priority bits above PACK (bit 31
+    among them)."""
+    n, step = 91, 4
+    ii, jj = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    mapx = (step * jj + 2).astype(np.int16)
+    mapy = (step * ii + 2).astype(np.int16)
+    args = (mapx, mapy, n * step, n * step)
+    jplan = jpt.build_tail_plan(*args, p03=40.0, z_near=Z_NEAR, z_far=Z_FAR)
+    tplan = build_tail_plan(*args, p03=40.0, z_near=Z_NEAR, z_far=Z_FAR)
+    zero = np.zeros((1, 1), np.int16)
+    tables = DeviceTables.from_numpy(zero, zero, zero, mapx, mapy, 40.0, "cpu")
+    rng = np.random.default_rng(91)
+    disp = np.zeros((n * step, n * step), np.uint64)
+    disp[2::step, 2::step] = np.concatenate(
+        [rng.permutation(PACK), rng.integers(0, PACK, n * n - PACK)]).reshape(n, n)
+    words = rng.integers(0, 2**32 // PACK, disp.shape).astype(np.uint64) * PACK + disp
+    return jplan, tplan, tables, words.astype(np.uint32)
+
+
+@pytest.mark.parametrize("variant", VARIANTS, ids=VARIANT_IDS)
+def test_tail_projector_every_disparity_matches_pallas(variant):
+    """Each disparity 0 .. PACK - 1 through the projector tail (dilate,
+    remap, epilogue): ``tail_projector_plain``, and the colorize table's
+    entries (``colorize_table_plain``, what the card's kernel 2 reads) at
+    the dilated disparity of each pixel, both equal to ``pallas_tail`` in
+    interpret mode; the group entry too, on two crops."""
+    jplan, tplan, tables, words = _every_disparity_rig()
+    assert (tplan.crop_row0, tplan.crop_col0, tplan.H, tplan.W) == (0, 0, 364, 364)
+    assert (words >= 2**31).any()
+    padded = np.zeros((jplan.H_pad, jplan.W_pad), np.uint32)
+    padded[: tplan.H, : tplan.W] = words
+    ref = jpt.pallas_tail(jnp.asarray(padded), jplan, interpret=True, pack=PACK, **variant)
+    crop = torch.from_numpy(words.view(np.int32))
+    got = tail_projector_plain(crop, tables, tplan, **variant)
+    _check(got, ref, variant)
+    d = tail_projector_plain(crop, tables, tplan)[2]
+    assert torch.equal(torch.unique(d), torch.arange(PACK, dtype=torch.float32))
+    bgr, depth = colorize_table_plain(tables, tplan)
+    idx = d.long()
+    frame = bgr[idx] if variant["packed_bgr"] else torch.stack(
+        [(bgr[idx] >> s) & 255 for s in (0, 8, 16)], -1).to(torch.uint8)
+    aux = (depth[idx], d) if variant["emit_aux"] else (None, None)
+    _check((frame, *aux), ref, variant)
+    group = tail_projector_group(torch.stack([crop, torch.flip(crop, (0, 1))]), tables, tplan,
+                                 **variant)
+    _check(tuple(None if a is None else a[0] for a in group), ref, variant)

@@ -1,8 +1,10 @@
 // Shared constants and the per-pixel depth/colorize epilogue of the tail
-// kernels (tail.cu).  The arithmetic is written with explicit round-to-
-// nearest intrinsics so that no contraction or fast-math rewrite can change
-// a u8 bin: the results equal the plain PyTorch chain (ops/image_tail.py)
-// and the JAX package's XLA chain bit for bit.
+// kernels (tail.cu: colorize_table writes it for each of the PACK
+// disparities once per engine; kernels 2 and 3 read that table).  The
+// arithmetic is written with explicit round-to-nearest intrinsics so that
+// no contraction or fast-math rewrite can change a u8 bin: the results
+// equal the plain PyTorch chain (ops/image_tail.py) and the JAX package's
+// XLA chain bit for bit.
 #pragma once
 
 #include <cstdint>

@@ -173,7 +173,7 @@ class XMapsDepthEngine:
                 p03=p03, z_near=z_near, z_far=z_far,
             ), tables)
         else:
-            plan = build_tail_plan(
+            plan = with_colorize_table(build_tail_plan(
                 maps.disp_proj_mapx_i16,
                 maps.disp_proj_mapy_i16,
                 calib.rect_image_height,
@@ -181,7 +181,7 @@ class XMapsDepthEngine:
                 p03=p03,
                 z_near=z_near,
                 z_far=z_far,
-            )
+            ), tables)
         return XMapsDepthEngine(
             cfg=cfg,
             maps=maps,
@@ -251,8 +251,8 @@ class XMapsDepthEngine:
         return x_map
 
     def to(self, device) -> "XMapsDepthEngine":
-        """The same engine (same tables) on another device; a camera-view
-        plan's colorize table is built there on CUDA, dropped on CPU."""
+        """The same engine (same tables) on another device; the plan's
+        colorize table is built there on CUDA, dropped on CPU."""
         dev = resolve_device(device)
         tables, plan = replicate(self.tables, self.plan, dev)
         return XMapsDepthEngine(

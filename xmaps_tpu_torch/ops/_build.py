@@ -109,11 +109,11 @@ _SIGNATURES = {
         _P, _P,  # (F, out_h, out_w) packed maps, (F,) inlier counts
         _P,  # stream
     ],
-    "tail_projector_group": [  # kernel 2 over F crops, the same two launches
+    "tail_projector_group": [  # kernel 2 over F crops: the dilate, then the remap
         _P, _I, _I, _I, _I, _I, _I, _I,  # crops, F, H, W, row0, col0, full_h, full_w
         _P,  # (F, H, W) u16 scratch
         _P, _P, _I, _I, _L,  # proj_mapx, proj_mapy, Hp, Wp, a frame's output stride (px)
-        _P, _F, _F, _F,  # lut, p03, z_near, z_far
+        _P, _P,  # the (PACK,) BGR (i32) and depth (f32) tables
         _P, _P, _P, _P,  # bgr_packed, bgr3, depth, disp (nullable)
         _P,  # stream
     ],

@@ -3,19 +3,23 @@
 - ``tail_projector``: packed crop map -> unpack -> 7x7 max dilate -> nearest
   remap to the projector -> depth -> u8 -> TURBO.  On CUDA it runs
   ``csrc/tail.cu:tail_projector`` (replacing the TPU kernel ``pallas_tail``)
-  as two launches on the current stream: ``tail_dilate`` (a shared-memory
-  separable 7x7 max of the crop into a uint16 scratch) and
-  ``tail_remap_colorize`` (8 projector pixels a thread, the maps read 16
-  bytes at a time), counted as one launch of ``tail_projector``; on CPU it
+  as two launches on the current stream: ``tail_dilate`` (the 7x7 max of
+  the crop in column strips into a uint16 scratch) and
+  ``tail_remap_colorize`` (4 projector pixels a thread, the maps read 8
+  bytes at a time, each pixel's depth and colour read from the plan's
+  colorize table), counted as one launch of ``tail_projector``; on CPU it
   runs the plain chain: ``dilate_max`` on the crop, ``remap_nearest_i16``,
   then ``ops.image_tail``.
 - ``colorize_camera``: the camera view, packed map -> unpack -> depth -> u8
-  -> TURBO (replacing ``pallas_colorize``).  The result depends on the
-  disparity ``packed & (PACK - 1)`` alone, so on CUDA the engine's plan
-  holds the epilogue of all PACK disparities (``build_colorize_table``,
-  one launch of ``csrc/tail.cu:colorize_table`` per engine) and the kernel
-  reads it, 4 pixels a thread; on CPU the plan holds no table and the plain
-  chain runs.
+  -> TURBO (replacing ``pallas_colorize``); on CUDA 4 pixels a thread
+  through the colorize table.
+
+Both results depend on the disparity (``packed & (PACK - 1)``, or the
+dilated one) alone, so on CUDA the engine's plan of either view holds the
+epilogue of all PACK disparities (``build_colorize_table``, one launch of
+``csrc/tail.cu:colorize_table`` per engine and card; ``with_colorize_table``)
+and the kernels read it in place of the divisions; on CPU the plan holds no
+table and the plain chain runs.
 
 The plans keep only what the GPU needs: the crop of the rectified frame
 that the projector remap samples (plus the 3-px dilate halo) and the
@@ -27,7 +31,8 @@ depth and disp are float32 planes, or None unless ``emit_aux``.
 
 ``tail_projector_group`` and ``colorize_camera_group`` take F frames' maps
 stacked as (F, H, W) and return each output with a leading frame axis, in
-one call of the kernel (kernel 2: its two launches with a frame grid axis;
+one call of the kernel (kernel 2: its dilate with the frame on a grid axis,
+then one remap pass that reads the projector maps once for the F frames;
 kernel 3: one launch over the F * H * W pixels).  Their plain versions run
 the one-frame plain version on each frame and stack the results.
 """
@@ -36,7 +41,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -53,6 +58,7 @@ from xmaps_tpu_torch.ops.image_tail import (
 from xmaps_tpu_torch.ops.scatter import PACK, unpack_disp
 
 __all__ = [
+    "Plan",
     "TailPlan",
     "build_tail_plan",
     "CamTailPlan",
@@ -69,10 +75,11 @@ __all__ = [
     "colorize_camera_group_plain",
 ]
 
-#: a group's frames: the tail kernels' frame grid axis (65535 at most)
+#: a group's frames: kernel 2's dilate takes the frame from a grid axis
+#: (65535 at most)
 MAX_GROUP_FRAMES = 65535
 #: kernel 2's group outputs hold a frame every multiple of this many pixels,
-#: so each frame's 16-byte (and 3-byte BGR's 8-byte) stores stay aligned
+#: so each frame's 16-byte stores (and 3-byte BGR's 4-byte words) stay aligned
 GROUP_STRIDE_PX = 8
 
 
@@ -94,6 +101,8 @@ class TailPlan:
     p03: float
     z_near: float
     z_far: float
+    #: (bgr, depth) of ``with_colorize_table``, on the card; None on the CPU
+    table: Optional[tuple] = dataclasses.field(default=None, compare=False, repr=False)
 
 
 def build_tail_plan(
@@ -138,6 +147,9 @@ class CamTailPlan:
     #: (bgr, depth): (PACK,) int32 packed BGR and float32 depth of every
     #: disparity, on the card; None on the CPU
     table: Optional[tuple] = dataclasses.field(default=None, compare=False, repr=False)
+
+
+Plan = Union[TailPlan, CamTailPlan]
 
 
 def _check(kernel, dev, **tensors):
@@ -204,6 +216,31 @@ def _stack_frames(outs):
     return tuple(None if parts[0] is None else torch.stack(parts) for parts in zip(*outs))
 
 
+def _table(kernel, plan: Plan, dev):
+    """The plan's (bgr, depth) colorize table, checked to lie on ``dev``."""
+    if plan.table is None or plan.table[0].device != dev:
+        raise ValueError(
+            f"{kernel}: the plan holds no colorize table on {dev} "
+            "(build it with with_colorize_table)")
+    bgr_table, depth_table = plan.table
+    _check(kernel, dev, bgr_table=(bgr_table, torch.int32, (PACK,)),
+           depth_table=(depth_table, torch.float32, (PACK,)))
+    return bgr_table, depth_table
+
+
+def _projector_maps(kernel, tables, dev):
+    """(Hp, Wp) of the projector maps, checked 16-byte aligned on ``dev``."""
+    Hp, Wp = tables.proj_mapx_i16.shape
+    _check(kernel, dev,
+           proj_mapx=(tables.proj_mapx_i16, torch.int16, (Hp, Wp)),
+           proj_mapy=(tables.proj_mapy_i16, torch.int16, (Hp, Wp)))
+    for name in ("proj_mapx_i16", "proj_mapy_i16"):
+        if getattr(tables, name).data_ptr() % 16:
+            raise ValueError(
+                f"{kernel}: {name} must be 16-byte aligned (the kernel's vector loads)")
+    return Hp, Wp
+
+
 def _group_frames(kernel, maps, shape) -> int:
     if maps.dim() != 3 or tuple(maps.shape[1:]) != tuple(shape) or not (
             1 <= maps.shape[0] <= MAX_GROUP_FRAMES):
@@ -263,7 +300,7 @@ def colorize_camera_plain(
     )
 
 
-def colorize_table_plain(tables, plan: CamTailPlan):
+def colorize_table_plain(tables, plan: Plan):
     """Plain PyTorch version of ``build_colorize_table`` (any device): the
     epilogue of the disparities 0 .. PACK - 1."""
     d = torch.arange(PACK, dtype=torch.float32, device=tables.turbo_lut.device)
@@ -272,14 +309,14 @@ def colorize_table_plain(tables, plan: CamTailPlan):
     return bgr, disparity_to_depth(d, tables.p03)
 
 
-def build_colorize_table(tables, plan: CamTailPlan):
+def build_colorize_table(tables, plan: Plan):
     """(bgr, depth): the packed BGR (int32) and depth (float32) of every
     disparity 0 .. PACK - 1, on ``tables.turbo_lut``'s CUDA device, in one
-    launch of ``colorize_table`` (the epilogue kernel 2 runs, so each entry
-    equals ``colorize_camera_plain`` of its disparity bit for bit).  Only
-    the card holds a table: on the CPU ``with_colorize_table`` builds none
-    and ``colorize_camera`` runs its plain chain, so any other device
-    raises."""
+    launch of ``colorize_table`` (the IEEE epilogue of ``plan.p03``,
+    ``z_near`` and ``z_far``, so each entry equals the plain chain of its
+    disparity bit for bit).  Only the card holds a table: on the CPU
+    ``with_colorize_table`` builds none and kernels 2 and 3 run their plain
+    chains, so any other device raises."""
     lut = tables.turbo_lut
     dev = lut.device
     if dev.type != "cuda":
@@ -295,10 +332,10 @@ def build_colorize_table(tables, plan: CamTailPlan):
     return bgr, depth
 
 
-def with_colorize_table(plan: CamTailPlan, tables) -> CamTailPlan:
-    """``plan`` holding the colorize table on ``tables``' device: built
-    there on CUDA (kept where the plan already holds one there), none on
-    CPU."""
+def with_colorize_table(plan: Plan, tables) -> Plan:
+    """``plan`` (either view's) holding the colorize table on ``tables``'
+    device: built there on CUDA (kept where the plan already holds one
+    there), none on CPU."""
     dev = tables.turbo_lut.device
     if dev.type == "cpu":
         return dataclasses.replace(plan, table=None)
@@ -318,8 +355,10 @@ def tail_projector(
     """(H, W) int32 packed crop map -> projector-view (frame, depth, disp).
 
     ``tables``: ``ops.frame_pipeline.DeviceTables`` (projector maps, p03,
-    TURBO LUT) on the map's device.  On CUDA the projector maps must be
-    16-byte aligned (a ``ValueError`` otherwise).
+    TURBO LUT) on the map's device.  On CUDA the plan must hold the
+    colorize table on the map's device (``with_colorize_table``; the
+    engine's plan does) and the projector maps must be 16-byte aligned: a
+    ``ValueError`` otherwise.
     """
     dev = packed_crop.device
     if dev.type == "cpu":
@@ -328,18 +367,10 @@ def tail_projector(
         )
     if dev.type != "cuda":
         raise ValueError(f"tail_projector: unsupported device {dev}")
-    Hp, Wp = tables.proj_mapx_i16.shape
-    _check(
-        "tail_projector", dev,
-        packed_crop=(packed_crop, torch.int32, (plan.H, plan.W)),
-        proj_mapx=(tables.proj_mapx_i16, torch.int16, (Hp, Wp)),
-        proj_mapy=(tables.proj_mapy_i16, torch.int16, (Hp, Wp)),
-        lut=(tables.turbo_lut, torch.int32, (256,)),
-    )
-    for name in ("proj_mapx_i16", "proj_mapy_i16"):
-        if getattr(tables, name).data_ptr() % 16:
-            raise ValueError(
-                f"tail_projector: {name} must be 16-byte aligned (the kernel reads int4)")
+    _check("tail_projector", dev,
+           packed_crop=(packed_crop, torch.int32, (plan.H, plan.W)))
+    bgr_table, depth_table = _table("tail_projector", plan, dev)
+    Hp, Wp = _projector_maps("tail_projector", tables, dev)
     outs, ptrs = _outputs((Hp, Wp), dev, emit_aux, packed_bgr)
     dil = torch.empty((plan.H, plan.W), dtype=torch.uint16, device=dev)
     # kernel 2's one C entry, at F = 1 (one frame's outputs, stride Hp * Wp)
@@ -348,8 +379,7 @@ def tail_projector(
         packed_crop.data_ptr(), 1, plan.H, plan.W, plan.crop_row0, plan.crop_col0,
         plan.full_H, plan.full_W, dil.data_ptr(),
         tables.proj_mapx_i16.data_ptr(), tables.proj_mapy_i16.data_ptr(), Hp, Wp, Hp * Wp,
-        tables.turbo_lut.data_ptr(), plan.p03, plan.z_near, plan.z_far,
-        *ptrs,
+        bgr_table.data_ptr(), depth_table.data_ptr(), *ptrs,
     )
     return outs
 
@@ -375,17 +405,8 @@ def colorize_camera(
         )
     if dev.type != "cuda":
         raise ValueError(f"colorize_camera: unsupported device {dev}")
-    if plan.table is None or plan.table[0].device != dev:
-        raise ValueError(
-            f"colorize_camera: the plan holds no colorize table on {dev} "
-            "(build it with with_colorize_table)")
-    bgr_table, depth_table = plan.table
-    _check(
-        "colorize_camera", dev,
-        packed=(packed, torch.int32, (plan.H, plan.W)),
-        bgr_table=(bgr_table, torch.int32, (PACK,)),
-        depth_table=(depth_table, torch.float32, (PACK,)),
-    )
+    bgr_table, depth_table = _table("colorize_camera", plan, dev)
+    _check("colorize_camera", dev, packed=(packed, torch.int32, (plan.H, plan.W)))
     if packed.data_ptr() % 16:
         raise ValueError("colorize_camera: packed must be 16-byte aligned (the kernel reads int4)")
     outs, ptrs = _outputs((plan.H, plan.W), dev, emit_aux, packed_bgr)
@@ -424,8 +445,9 @@ def tail_projector_group(
 ):
     """(F, H, W) int32 packed crop maps -> F projector-view (frame, depth,
     disp), each output (F, Hp, Wp[, 3]), frame f equal to
-    ``tail_projector`` of crop f: one call of kernel 2 (its dilate and
-    remap launches, each over the F frames)."""
+    ``tail_projector`` of crop f: one call of kernel 2 (its dilate over the
+    F crops, then one remap pass that reads the projector maps once for
+    the F frames)."""
     f = _group_frames("tail_projector_group", packed_crops, (plan.H, plan.W))
     dev = packed_crops.device
     if dev.type == "cpu":
@@ -434,18 +456,10 @@ def tail_projector_group(
         )
     if dev.type != "cuda":
         raise ValueError(f"tail_projector_group: unsupported device {dev}")
-    Hp, Wp = tables.proj_mapx_i16.shape
-    _check(
-        "tail_projector_group", dev,
-        packed_crops=(packed_crops, torch.int32, (f, plan.H, plan.W)),
-        proj_mapx=(tables.proj_mapx_i16, torch.int16, (Hp, Wp)),
-        proj_mapy=(tables.proj_mapy_i16, torch.int16, (Hp, Wp)),
-        lut=(tables.turbo_lut, torch.int32, (256,)),
-    )
-    for name in ("proj_mapx_i16", "proj_mapy_i16"):
-        if getattr(tables, name).data_ptr() % 16:
-            raise ValueError(
-                f"tail_projector_group: {name} must be 16-byte aligned (the kernel reads int4)")
+    _check("tail_projector_group", dev,
+           packed_crops=(packed_crops, torch.int32, (f, plan.H, plan.W)))
+    bgr_table, depth_table = _table("tail_projector_group", plan, dev)
+    Hp, Wp = _projector_maps("tail_projector_group", tables, dev)
     outs, ptrs, stride = _group_outputs(f, (Hp, Wp), dev, emit_aux, packed_bgr)
     dil = torch.empty((f, plan.H, plan.W), dtype=torch.uint16, device=dev)
     _build.launch(
@@ -453,8 +467,7 @@ def tail_projector_group(
         packed_crops.data_ptr(), f, plan.H, plan.W, plan.crop_row0, plan.crop_col0,
         plan.full_H, plan.full_W, dil.data_ptr(),
         tables.proj_mapx_i16.data_ptr(), tables.proj_mapy_i16.data_ptr(), Hp, Wp, stride,
-        tables.turbo_lut.data_ptr(), plan.p03, plan.z_near, plan.z_far,
-        *ptrs,
+        bgr_table.data_ptr(), depth_table.data_ptr(), *ptrs,
     )
     return outs
 
@@ -496,17 +509,8 @@ def colorize_camera_group(
         )
     if dev.type != "cuda":
         raise ValueError(f"colorize_camera_group: unsupported device {dev}")
-    if plan.table is None or plan.table[0].device != dev:
-        raise ValueError(
-            f"colorize_camera_group: the plan holds no colorize table on {dev} "
-            "(build it with with_colorize_table)")
-    bgr_table, depth_table = plan.table
-    _check(
-        "colorize_camera_group", dev,
-        packed=(packed, torch.int32, (f, plan.H, plan.W)),
-        bgr_table=(bgr_table, torch.int32, (PACK,)),
-        depth_table=(depth_table, torch.float32, (PACK,)),
-    )
+    bgr_table, depth_table = _table("colorize_camera_group", plan, dev)
+    _check("colorize_camera_group", dev, packed=(packed, torch.int32, (f, plan.H, plan.W)))
     if packed.data_ptr() % 16:
         raise ValueError(
             "colorize_camera_group: packed must be 16-byte aligned (the kernel reads int4)")

@@ -53,7 +53,7 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Callable, NamedTuple, Optional, Sequence, Union
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -61,7 +61,7 @@ import torch
 from xmaps_tpu_torch.config import PipelineConfig
 from xmaps_tpu_torch.io.prefetch import CompactLayout, CompactStagedGroup
 from xmaps_tpu_torch.ops.cuda_events import EventScatterResult, event_disparity_scatter_group
-from xmaps_tpu_torch.ops.cuda_tail import CamTailPlan, TailPlan, with_colorize_table
+from xmaps_tpu_torch.ops.cuda_tail import Plan, with_colorize_table
 from xmaps_tpu_torch.ops.disparity import scale_time, time_bounds
 from xmaps_tpu_torch.ops.event_batch import EventBatch
 from xmaps_tpu_torch.ops.frame_pipeline import (
@@ -94,8 +94,6 @@ __all__ = [
 #: the int32 view of a uint32 word's sign bit: ``w ^ SIGN`` maps the
 #: unsigned order of packed words onto the signed order of int32
 SIGN = -(2**31)
-
-Plan = Union[TailPlan, CamTailPlan]
 
 
 @dataclass(frozen=True, eq=False)
@@ -209,12 +207,10 @@ def all_gather(parts: Sequence[torch.Tensor], leader, dim: int = -1) -> torch.Te
 
 def replicate(tables: DeviceTables, plan: Plan, device) -> tuple[DeviceTables, Plan]:
     """``tables`` and ``plan`` on ``device`` (as ``XMapsDepthEngine.to``):
-    the same tensors where they already lie there; a camera-view plan's
-    colorize table built there on CUDA, dropped on the CPU."""
+    the same tensors where they already lie there; the plan's colorize
+    table built there on CUDA, dropped on the CPU."""
     t = tables.to(device)
-    if isinstance(plan, CamTailPlan):
-        plan = with_colorize_table(plan, t)
-    return t, plan
+    return t, with_colorize_table(plan, t)
 
 
 def _replicas(tables, plan, mesh: Mesh, cache: Optional[dict] = None) -> dict:
