@@ -29,8 +29,9 @@ the port's paths:
   launch of kernel 1 and one of the tail a group, every element bit-equal
   to ``process_frame`` on the card and to the CPU port; phase 6 times the
   group against the per-frame loop (device and wall ms a frame, in turns)
-  and each group entry against its plain version, and kernel 2 at the ESL
-  rig (one frame and a group of 12, L2 flushed) beside the demonstrator's;
+  and each group entry against its plain version, and kernels 1 and 2 at
+  the ESL rig (one frame and a group of 12, L2 flushed) beside the
+  demonstrator's;
 - scale-out on a virtual mesh of the one card (phase 4c): ``cuda:0``
   listed data x event times, ``parallel.make_sharded_pipeline`` of the 12
   demonstrator frames at (data, event) = (2, 1), (4, 1), (1, 2), (1, 4),
@@ -932,6 +933,50 @@ def time_kernel2_esl(card, eng, frames):
             f"{card}")
 
 
+def time_kernel1_esl(card, eng, frames):
+    """Phase 6: kernel 1 at the ESL Table-2 rig (the 5760 x 1080 X-map and
+    the crop of ``eng``), beside the demonstrator's rows: the staged
+    one-frame entry on the first frame and the staged group entry on
+    ``frames``, each checked bit-equal to its plain version, then timed
+    against it in turns with the L2 cache flushed before each call, with
+    its bound (bytes, ``kernel_bytes``) and share."""
+    from xmaps_tpu_torch.ops.cuda_events import (
+        event_disparity_scatter_staged,
+        event_disparity_scatter_staged_group,
+        event_disparity_scatter_staged_group_plain,
+        event_disparity_scatter_staged_plain,
+    )
+
+    t, layout = eng.tables, eng.compact_layout
+    kw = view_kwargs(eng)[0]
+    group = eng.stage_group(frames)
+    word, n = group.word[0], group.host_counts[0]
+    tables_b = (t.cam_map_packed.numel() * 4, t.x_map.numel() * 2)
+    out_px = kw["out_shape"][0] * kw["out_shape"][1]
+    rows = {
+        "event_disparity_scatter_staged": (
+            lambda: event_disparity_scatter_staged(word, n, layout, t, **kw),
+            lambda: event_disparity_scatter_staged_plain(word, n, layout, t, **kw),
+            (n, *tables_b, out_px)),
+        "event_disparity_scatter_group": (
+            lambda: event_disparity_scatter_staged_group(group, layout, t, **kw),
+            lambda: event_disparity_scatter_staged_group_plain(group, layout, t, **kw),
+            (group.host_counts, *tables_b, out_px)),
+    }
+    for k, (kernel_fn, plain_fn, shape) in rows.items():
+        assert_exact(f"ESL {k}", list(zip(kernel_fn()[:2], plain_fn()[:2])))
+        km, pm = time_pair(kernel_fn, plain_fn, cold=True)
+        bound = kernel_bytes(k, {k: shape}) / HBM_BYTES_PER_S * 1e3
+        if bound > MAX_SHARE * km["ms"]:
+            raise AssertionError(f"ESL {k}: share {bound / km['ms']:.4f} over {MAX_SHARE}")
+        f = len(shape[0]) if k.endswith("group") else 1
+        log(f"  kernel {k} at the ESL rig (X-map {tuple(t.x_map.shape)}, map "
+            f"{kw['out_shape']}, {f} frame(s) a call, bit-equal to the plain version, L2 "
+            f"flushed before each call): {km['ms']:.5f} ms device (turns {km['turns'][0]:.5f}, "
+            f"{km['turns'][1]:.5f}), {km['ms'] / f * 1e3:.3f} us a frame; plain {pm['ms']:.5f} "
+            f"ms; bound {bound:.6f} ms (bytes), share {bound / km['ms']:.4f} {card}")
+
+
 def filters_out_of_camera(engines, frames):
     """Phase 5b: each dedup filter on frames with events outside the camera
     (a larger sensor than the configured camera): no device-side assert,
@@ -1161,7 +1206,8 @@ def time_kernel1_entries(card, eng, ev, batch, t_bin, kw, shapes):
     rg, st2 = time_pair(calls["ring"], calls["staged"])
     _, _, lut_b, xmap_b, out_px = shapes["event_disparity_scatter"]
     n = staged.count
-    bound = (4 * n + min(4 * n, lut_b) + min(2 * n, xmap_b) + 4 * out_px + 4) / HBM_BYTES_PER_S * 1e3
+    bound = kernel_bytes("event_disparity_scatter_staged", {
+        "event_disparity_scatter_staged": (n, lut_b, xmap_b, out_px)}) / HBM_BYTES_PER_S * 1e3
     log(f"  kernel 1 staged entry (count {n}): {st['ms']:.5f} ms (turns {st['turns'][0]:.5f}, "
         f"{st['turns'][1]:.5f}) vs the array entry {arr['ms']:.5f} ms in the same turns; bound "
         f"{bound:.6f} ms (bytes, 4 B an event), share {bound / st['ms']:.4f} {card}")
@@ -2565,6 +2611,11 @@ def kernel_bytes(name, shapes) -> float:
     if name == "event_disparity_scatter":
         n, inl, lut_b, xmap_b, out_px = s
         return 13 * n + min(4 * inl, lut_b) + min(2 * inl, xmap_b) + 4 * out_px + 4
+    if name == "event_disparity_scatter_staged":
+        # the 1-word batch: 4 B an event read, its two gathers, the map
+        # written, the count written (the host passes it)
+        n, lut_b, xmap_b, out_px = s
+        return 4 * n + min(4 * n, lut_b) + min(2 * n, xmap_b) + 4 * out_px + 4
     if name == "tail_projector":
         # the crop in, the two i16 maps, packed BGR out, and the table
         # entries of the distinct disparities the frame shows (BGR, and
@@ -2824,7 +2875,9 @@ def main() -> int:
     time_kernel1_entries(card, eng_p, frames[0], batch, t_bin, ekw, shapes)
     time_offset_entry(card, eng_p, batch, t_bin, ekw)
     time_group(card, engines, frames, kernels_ms, shapes, groups)
-    time_kernel2_esl(card, eng_e, make_frames(esl, N_FRAMES, 0.031, target=CAPACITY - 1024))
+    esl_group = make_frames(esl, N_FRAMES, 0.031, target=CAPACITY - 1024)
+    time_kernel1_esl(card, eng_e, esl_group)
+    time_kernel2_esl(card, eng_e, esl_group)
     time_mesh(card)
     for eng in (eng_p, eng_c):
         time_ring_vs_staged(card, eng, frames)

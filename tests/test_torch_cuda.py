@@ -21,6 +21,7 @@ from xmaps_tpu_torch.io.prefetch import stage_compact_group  # noqa: E402
 from xmaps_tpu_torch.models.depth_pipeline import XMapsDepthEngine  # noqa: E402
 from xmaps_tpu_torch.ops import _build  # noqa: E402
 from xmaps_tpu_torch.ops.cuda_events import (  # noqa: E402
+    EventScatterResult,
     event_disparity_scatter,
     event_disparity_scatter_group,
     event_disparity_scatter_group_plain,
@@ -1057,6 +1058,129 @@ def test_group_entries_match_plain_on_card(cuda, camera_perspective, odd, n_fram
     assert _build.LAUNCHES["event_disparity_scatter_group"] == 3
     assert _build.LAUNCHES[tail_name] == len(VARIANTS)
     assert _build.LAUNCHES["event_disparity_scatter"] == 0
+
+
+def _edge_frames(n_frames, cap, seed, outside=True):
+    """``n_frames`` frames of random events with integer times at the
+    small rig: frame 0 half full or more, frame 1 over the capacity, frame
+    2 empty, frame 3 (``outside``) every event past the camera's last
+    column, the rest of random sizes up to the capacity."""
+    rng = np.random.default_rng(seed)
+    cam_w, cam_h = SIZES["camera_width"], SIZES["camera_height"]
+    frames = []
+    for f in range(n_frames):
+        n = {0: int(rng.integers(cap // 2, cap + 1)), 1: cap + 500, 2: 0}.get(
+            f, int(rng.integers(0, cap + 1)))
+        ev = np.zeros(n, dtype=[("x", "<u2"), ("y", "<u2"), ("p", "<i2"), ("t", "<i8")])
+        ev["x"] = rng.integers(cam_w, cam_w + 6, n) if f == 3 and outside else rng.integers(
+            0, cam_w, n)
+        ev["y"] = rng.integers(0, cam_h, n)
+        ev["t"] = np.sort(rng.integers(0, 16000, n))
+        ev["p"] = rng.integers(0, 2, n)
+        frames.append(ev)
+    return frames
+
+
+def _poisoned(fn, words):
+    """``fn()`` with the allocator's next block of ``words`` int32 freed
+    holding -1, so outputs the kernel fails to write show."""
+    junk = torch.full((words + 64,), -1, dtype=torch.int32, device="cuda")
+    del junk
+    return fn()
+
+
+@pytest.mark.parametrize("camera_perspective", [False, True], ids=["projector", "camera"])
+@pytest.mark.parametrize("capacity", [1000, 4099, 28672])
+@pytest.mark.parametrize("n_frames", [1, 2, 12, 40])
+def test_kernel1_group_edges_on_card(cuda, n_frames, capacity, camera_perspective):
+    """Kernel 1's array and staged group entries against their plain
+    versions, every map word and count exact, one launch a call: F = 1, 2,
+    12 and 40 (40 x 28672 lanes are far more than the co-resident grid's
+    threads: each thread walks lanes past the ones it gathers up front),
+    capacities 1000 and 4099 (no multiple of 32: warps and blocks straddle
+    frames) and 28672; a frame with no event, one over the capacity, one
+    whose events all lie past the camera (the array group's), a priority,
+    an ``index_offset``, and a window that leaves every lane outside the
+    map."""
+    eng = _engine(camera_perspective)
+    kw, _, _ = _group_view(eng)
+    tables, layout = eng.tables, eng.compact_layout
+    frames = _edge_frames(n_frames, capacity, seed=n_frames * capacity)
+    batch = EventBatch.stack_structured(frames, capacity, device=cuda)
+    t_bin = scale_time(batch.t, batch.valid, eng.cfg.t_px_scale)
+    prio = torch.from_numpy(np.random.default_rng(capacity).integers(
+        0, capacity, (n_frames, capacity), dtype=np.int32)).to(cuda)
+    staged = stage_compact_group(_edge_frames(n_frames, capacity, seed=capacity, outside=False),
+                                 capacity, layout, device=cuda)
+    far = dict(kw, window=(100000, 100000), out_shape=(7, 9))
+    calls = [
+        (dict(), kw), (dict(index_offset=777), kw), (dict(priority=prio), kw), (dict(), far),
+    ]
+    for extra, view in calls:
+        words = n_frames * view["out_shape"][0] * view["out_shape"][1]
+        _build.reset_launch_counts()
+        got = _poisoned(lambda: event_disparity_scatter_group(
+            batch, t_bin, tables, **extra, **view), words)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["event_disparity_scatter_group"] == 1
+        ref = event_disparity_scatter_group_plain(batch, t_bin, tables, **extra, **view)
+        _equal(got.packed_map, ref.packed_map)
+        _equal(got.num_inliers, ref.num_inliers)
+        if view is far:
+            assert not bool(got.packed_map.any()) and int(got.num_inliers.sum()) > 0
+    for view in (kw, far):
+        words = n_frames * view["out_shape"][0] * view["out_shape"][1]
+        _build.reset_launch_counts()
+        got = _poisoned(lambda: event_disparity_scatter_staged_group(
+            staged, layout, tables, **view), words)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["event_disparity_scatter_group"] == 1
+        ref = event_disparity_scatter_staged_group_plain(staged, layout, tables, **view)
+        _equal(got.packed_map, ref.packed_map)
+        _equal(got.num_inliers, ref.num_inliers)
+
+
+def test_kernel1_calls_stay_exact_back_to_back_on_card(cuda):
+    """Nothing of one kernel 1 call leaks into the next (each zeroes its
+    maps and counts and sums its inliers inside its own launch):
+    back-to-back calls on one engine with no synchronisation between them,
+    calls of two engines sharing the card (other maps) interleaved,
+    one-frame and group entries mixed, and calls on a second stream beside
+    the current one; every result exact."""
+    engines = (_engine(False), _engine(True))
+    frames = _edge_frames(12, 4096, seed=3, outside=False)
+    runs = []
+    for eng in engines:
+        kw, _, _ = _group_view(eng)
+        staged = stage_compact_group(frames, 4096, eng.compact_layout, device=cuda)
+        batch = EventBatch.stack_structured(frames, 4096, device=cuda)
+        t_bin = scale_time(batch.t, batch.valid, eng.cfg.t_px_scale)
+        runs.append((
+            lambda eng=eng, kw=kw, staged=staged: event_disparity_scatter_staged_group(
+                staged, eng.compact_layout, eng.tables, **kw),
+            event_disparity_scatter_staged_group_plain(staged, eng.compact_layout, eng.tables,
+                                                       **kw)))
+        one, bins = batch.frame(0), t_bin[0]
+        ref = event_disparity_scatter_plain(one, bins, eng.tables, **kw)
+        runs.append((
+            lambda eng=eng, kw=kw, one=one, bins=bins: event_disparity_scatter(
+                one, bins, eng.tables, **kw),
+            EventScatterResult(ref.packed_map[None], ref.num_inliers[None])))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    got = []
+    for rep in range(3):
+        for fn, _ in runs:
+            got.append(fn())
+        with torch.cuda.stream(side):
+            got.append(runs[rep % len(runs)][0]())
+    torch.cuda.synchronize()
+    want = []
+    for rep in range(3):
+        want += [ref for _, ref in runs] + [runs[rep % len(runs)][1]]
+    for g, r in zip(got, want):
+        _equal(g.packed_map.reshape(r.packed_map.shape), r.packed_map)
+        _equal(g.num_inliers.reshape(r.num_inliers.shape), r.num_inliers)
 
 
 @pytest.mark.parametrize("camera_perspective", [False, True], ids=["projector", "camera"])

@@ -240,6 +240,21 @@ def test_process_frames_capacity_and_strides_not_aligned(view):
     _same_as_frames(teng, _frames(5, sizes))
 
 
+@pytest.mark.parametrize("view", sorted(VIEWS))
+def test_process_frames_forty_frames_capacity_1000_matches_jax(view):
+    """Forty frames at capacity 1000 (on the card kernel 1's group entry
+    then walks more lanes than its co-resident grid holds threads; here it
+    runs its plain version), an empty frame and frames over the capacity
+    among them: element by element equal to the JAX engine's
+    ``process_frames`` and to the port's ``process_frame``."""
+    jeng, teng = _engines(VIEWS[view], 1000)
+    frames = list(_frames(40))
+    assert sum(len(ev) > 1000 for ev in frames) >= 2 and len(frames[2]) == 0
+    got = _same_as_frames(teng, frames)
+    for g, r in zip(got, jeng.process_frames(frames)):
+        _same(g, r)
+
+
 def test_process_frames_empty_list():
     _, teng = _engines(False)
     assert teng.process_frames([]) == []

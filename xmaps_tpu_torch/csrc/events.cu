@@ -6,13 +6,18 @@
 // math (xmaps_tpu/ops/disparity.py:299-309) and the packed scatter
 // (xmaps_tpu/ops/scatter.py, method "max"/"sorted").
 //
-// What bounds it on the H100: dependent random reads.  Each event does two
-// table gathers (4 B from the packed camera LUT, 2 B from the i16 X-map) and
-// one atomicMax into the packed disparity map; at ~28k events a frame that
-// is ~170 KB of event reads and ~56k scattered 32 B sectors -- latency, not
-// bandwidth.  Both tables fit in the 50 MB L2 at both geometries (camera LUT
-// 1.2 MB; X-map 1.9 MB at the demonstrator, 12.4 MB at the ESL rig).  The
-// map the scatter lands in (1.9 MB at the demonstrator) must start zeroed.
+// What bounds it on the H100, measured (experiments/kernel1_designs.py:
+// ablations of the previous design, L2 flushed before each call; PERF.md
+// section 6): at the demonstrator, a group of 12 frames took 31.0 us,
+// of which the cooperative launch 1.5, the grid barrier 2.2, the zeroing of
+// the 23 MB of maps 7.4 (3.1 TB/s: the bytes' rate) and the lanes 20.0; of
+// the lanes, the dependent gather chains 5.9, the atomicMax scatter 3.2 and
+// the inlier count 10.9 -- one same-address atomicAdd a warp and step, ~10.7k
+// of them onto 48 bytes, which serialise in one L2 slice.  At the ESL rig
+// (42.6 MB of maps, a 12.4 MB X-map) the count took 23.5 of 55.5 us.  One
+// frame took 5.9 us, 2.0 of them the launch and the barrier.  Both tables
+// fit in the 50 MB L2 (camera LUT 1.2 MB; X-map 1.9 MB at the demonstrator,
+// 12.4 MB at the ESL rig).
 //
 // What the design does about it: one thread per event lane, tables read
 // through the read-only path straight from global memory / L2.  The TPU
@@ -27,16 +32,34 @@
 // raster rank, read from an optional per-lane int32 array (< capacity).  The key is
 // unsigned 32-bit, as in the JAX package, so capacities up to 524286 lanes
 // fit (the offline eval's whole-image batch is 307200); the map is handed
-// over as int32 words.  The inlier count is summed per warp and frame
-// before one atomicAdd (count_frames).
+// over as int32 words.
+//
+// The inlier counts are summed in shared memory: each warp adds its
+// inliers a frame to the block's counter of that frame (the frame less the
+// step's first frame: a block's 256 lanes of a step span at most 256
+// frames, at any capacity), and each block adds each non-zero counter to
+// its frame's count once, at its end: one global atomicAdd a block, frame
+// and up-front step in place of one a warp and step.  Sums are order-free:
+// the counts stay exact.
 //
 // The map and the count are zeroed inside the launch: a cooperative grid,
-// sized to be co-resident, loads and gathers its first lane a thread
-// (nothing of that touches the map), stores 16-byte zeros over the map,
-// meets at one grid barrier, then does its atomics and the remaining lanes
-// in a grid-stride loop: the gather chain's latency hides under the zeroing
-// and the barrier.  (cudaMemsetAsync of both before a plain launch measured
-// slower on the H100; PERF.md section 6.)
+// sized to be co-resident, loads, gathers and counts its first K lanes a
+// thread (nothing of that touches the map or the counts: K = 4 in the group
+// entries, whose F x cap lanes outrun the grid's threads, K = 1 in the
+// one-frame entries, whose lanes the grid covers), stores 16-byte zeros
+// over the map, meets at one grid barrier, then does those lanes' atomics
+// and the remaining lanes in a grid-stride loop (counted a warp and step
+// straight into the counts): the gather chains' latency hides under the
+// zeroing.  K = 4 takes the group kernels to 40 registers, 6 blocks of 256
+// an SM in place of 8; the experiment's (a)+(c), this design in 30
+// registers (8 blocks), measured 6 % slower (fewer blocks meet at the
+// barrier, which cost 1.1 us at 117 blocks and 2.2 us at 1056).
+// (cudaMemsetAsync of both before a plain launch measured slower on the
+// H100.)  Measured and not shipped: readiness flags in place of the
+// barrier -- a block's flag, or zero warps releasing the maps chunk by
+// chunk in frame order beside lane warps -- were 1.4-3.3x slower in the
+// group: an acquire poll a lane cost more than the 2.2 us barrier it
+// replaced.
 //
 // Three entries share the per-lane device function: the array entry (x, y,
 // time bin, valid, optional priority and lane outputs); the staged entry,
@@ -277,23 +300,59 @@ __device__ __forceinline__ void commit(const Target& g, const Scatter& s) {
   if (s.word >= 0) atomicMax(g.packed_map + s.word, s.key);
 }
 
-// A step's inliers, one atomicAdd for each frame the warp's lanes hold (one
-// frame in a one-frame launch); every lane of the warp calls it.
-__device__ __forceinline__ void count_frames(const Target& g, const Scatter& s) {
+// Lanes a thread loads and gathers before the zeroing: the group entries'
+// F x cap lanes outrun the co-resident grid, one frame's lanes do not.
+template <class Src>
+struct UpFront {
+  static constexpr int K = 1;
+};
+template <class Inner>
+struct UpFront<FrameLanes<Inner>> {
+  static constexpr int K = 4;
+};
+
+// The frame of lane i of the walk (0 in a one-frame launch).
+template <class Src>
+__device__ __forceinline__ int frame_of(const Src&, int) {
+  return 0;
+}
+template <class Inner>
+__device__ __forceinline__ int frame_of(const FrameLanes<Inner>& src, int i) {
+  return i / src.cap;
+}
+
+// A step's inliers, one atomicAdd for each frame the warp's lanes hold, into
+// `counts` at the frame less `f0` (the block's shared counters, or the
+// global counts with f0 = 0); every lane of the warp calls it.
+__device__ __forceinline__ void count_frames(int32_t* counts, int f0, const Scatter& s) {
   const unsigned peers = __match_any_sync(0xffffffffu, s.f);
   const unsigned ones = __ballot_sync(0xffffffffu, s.inlier) & peers;
   if (ones != 0u && static_cast<int>(threadIdx.x & 31) == __ffs(peers) - 1) {
-    atomicAdd(g.inlier_count + s.f, __popc(ones));
+    atomicAdd(counts + (s.f - f0), __popc(ones));
   }
 }
 
 template <class Src>
 __global__ void __launch_bounds__(THREADS)
     event_disparity_scatter_kernel(Src src, Target g) {
-  // the thread's first lane, loaded and gathered before the zeroing
+  constexpr int K = UpFront<Src>::K;
+  // counts[k][j]: the block's inliers of frame j + (frame of its step k's
+  // first lane)
+  __shared__ int32_t counts[K][THREADS];
   const int stride = gridDim.x * blockDim.x;
   const int first = blockIdx.x * blockDim.x + threadIdx.x;
-  const Scatter s0 = first < src.n ? prepare_lane(src, g, first) : no_lane();
+  for (int k = threadIdx.x; k < K * THREADS; k += THREADS) (&counts[0][0])[k] = 0;
+  __syncthreads();
+  // the thread's first K lanes, loaded, gathered and counted before the
+  // zeroing (each step's loop bound is uniform over a block, so every lane
+  // of a warp meets each count)
+  Scatter s[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int i = first + k * stride;
+    s[k] = i < src.n ? prepare_lane(src, g, i) : no_lane();
+    count_frames(counts[k], frame_of(src, i - static_cast<int>(threadIdx.x)), s[k]);
+  }
   // phase A: 16-byte zeros over the maps (torch allocations are 16-byte
   // aligned), a scalar ragged tail, the counts; then one grid barrier
   const long words = static_cast<long>(g.frames) * g.out_h * g.out_w;
@@ -303,16 +362,24 @@ __global__ void __launch_bounds__(THREADS)
   for (long k = 4 * nv + first; k < words; k += stride) g.packed_map[k] = 0u;
   for (int k = first; k < g.frames; k += stride) g.inlier_count[k] = 0;
   cg::this_grid().sync();
-  // phase B: the first lane's atomic, then the other lanes grid-stride (none
-  // where the grid covers the events); the loop bound is uniform over a
-  // block, so every lane of a warp meets each step's count
-  commit(g, s0);
-  count_frames(g, s0);
-  for (int base = blockIdx.x * blockDim.x + stride; base < src.n; base += stride) {
+  // phase B: the first K lanes' atomics, then the other lanes grid-stride
+  // (none where K steps of the grid cover the events), counted a warp and
+  // step into the counts
+#pragma unroll
+  for (int k = 0; k < K; ++k) commit(g, s[k]);
+  for (int base = blockIdx.x * blockDim.x + K * stride; base < src.n; base += stride) {
     const int i = base + threadIdx.x;
-    const Scatter s = i < src.n ? prepare_lane(src, g, i) : no_lane();
-    commit(g, s);
-    count_frames(g, s);
+    const Scatter x = i < src.n ? prepare_lane(src, g, i) : no_lane();
+    commit(g, x);
+    count_frames(g.inlier_count, 0, x);
+  }
+  // each of the block's counters into its frame's count, once
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int base = blockIdx.x * blockDim.x + k * stride;
+    const int c = counts[k][threadIdx.x];
+    if (base < src.n && c != 0) atomicAdd(g.inlier_count + frame_of(src, base) + threadIdx.x, c);
   }
 }
 
