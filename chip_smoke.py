@@ -99,12 +99,21 @@ the port's paths:
   its plain version, on a tile several clusters share too, then one run of
   ``apps.bench_store_loop``,
   whose JSON line is printed and gives kernel S's times (kernel, plain
-  version, ``index_put_``).
+  version, ``index_put_``);
+- the measurement tools (phase 11): ``apps.check_bitexact --geometry
+  both`` (every frame entry on the card bit-equal to the CPU port, 0
+  failures), ``apps.profile_trace`` at both rigs in both views (a group of
+  12, its kernel events equal to the launches counted), ``apps.profile_stages``,
+  ``apps.profile_setup`` (warm, in a process of its own),
+  ``apps.bench_esl_init`` and ``apps.profile_esl_init``, whose JSON lines
+  are printed.
 
 It times frames, scans and kernels (torch.profiler device time and wall
 time; kernel 2 ``tail_projector`` is two launches, the column-strip dilate
 and the remap through the colorize table, timed together and listed apart) and prints one JSON line with every kernel's launches on the main
-paths, error, time, plain and library time and bound, then the card's name
+paths, error, time, plain and library time and bound (phase 6 also holds
+kernels 2 and 3 against the nearest library calls: ``F.max_pool2d`` for the
+dilate half, ``torch.index_select`` through the colorize table), then the card's name
 and power limit, then a last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any mismatch or error raises: there is no fallback and no caught phase.
@@ -2531,6 +2540,167 @@ def phase10_store_loop(card, errs, kernels_ms, shapes, library_ms):
     return launches
 
 
+def tail_library_ms(card, eng_p, packed_p, eng_c, packed_c, library_ms):
+    """Phase 6: the PyTorch calls nearest kernels 2 and 3, each checked
+    equal to the kernel's result, then timed in turns with it (library,
+    kernel, kernel, library; device ms a call).  Kernel 2's dilate half
+    (``tail_dilate``, the device event of ``tail_projector``) against
+    ``F.max_pool2d(x, 7, 1, 3)`` on the unpacked crop, which computes that
+    half only (the ``kernels`` line keeps no library time for kernel 2);
+    kernel 3 (display-packed) against ``torch.index_select(bgr_table, 0,
+    packed.view(-1) % PACK)`` through the engine's colorize table, the same
+    function in a pair of calls: its ``library_ms``."""
+    import torch
+    import torch.nn.functional as F
+    from xmaps_tpu_torch.ops.cuda_tail import colorize_camera, tail_projector
+    from xmaps_tpu_torch.ops.image_tail import dilate_max
+    from xmaps_tpu_torch.ops.scatter import PACK, unpack_disp
+
+    disp = dict(emit_aux=False, packed_bgr=True)
+    x = unpack_disp(packed_p)[None, None]
+    assert_exact("F.max_pool2d(x, 7, 1, 3) vs dilate_max",
+                 [(F.max_pool2d(x, 7, 1, 3)[0, 0], dilate_max(x[0, 0], 7))])
+    table = eng_c.plan.table[0]
+    def lookup():
+        return torch.index_select(table, 0, packed_c.view(-1) % PACK).view(packed_c.shape)
+
+    assert_exact("torch.index_select(bgr_table, 0, packed % PACK) vs colorize_camera", [
+        (lookup(), colorize_camera(packed_c, eng_c.tables, eng_c.plan, **disp)[0])])
+
+    def dilate_ms():
+        _, by_name = profile_calls(
+            lambda: tail_projector(packed_p, eng_p.tables, eng_p.plan, **disp), 50)
+        return sum(v for k, v in by_name.items() if "tail_dilate" in k)
+
+    pool = [device_ms(lambda: F.max_pool2d(x, 7, 1, 3))[0]]
+    dil = [dilate_ms(), dilate_ms()]
+    pool.append(device_ms(lambda: F.max_pool2d(x, 7, 1, 3))[0])
+
+    def camera():
+        return colorize_camera(packed_c, eng_c.tables, eng_c.plan, **disp)
+
+    take = [device_ms(lookup)[0]]
+    cam = [device_ms(camera)[0], device_ms(camera)[0]]
+    take.append(device_ms(lookup)[0])
+    library_ms["colorize_camera"] = statistics.mean(take)
+    log(f"  library calls (turns; device ms a call) {card}: kernel 2's dilate half tail_dilate "
+        f"{statistics.mean(dil):.5f} {dil} against F.max_pool2d(x, 7, 1, 3) on the unpacked "
+        f"{tuple(x.shape[2:])} crop {statistics.mean(pool):.5f} {pool}; kernel 3 "
+        f"colorize_camera {statistics.mean(cam):.5f} {cam} against torch.index_select(bgr_table, "
+        f"0, packed % PACK) {statistics.mean(take):.5f} {take}")
+
+
+def run_tool(card, name, main_fn, argv, check):
+    """One run of a measurement tool's ``main(argv)`` on the card, its
+    launches counted from 0 just before it and read just after; raises
+    unless it returns 0 and ``check(doc, launches)`` holds for its last
+    (JSON) line.  Prints that line.  Returns (doc, launches)."""
+    import torch
+    from xmaps_tpu_torch.ops import _build
+
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = main_fn(argv)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    lines = out.getvalue().strip().splitlines()
+    doc = json.loads(lines[-1])
+    if rc != 0 or doc.get("device") != "cuda" or not doc.get("gpu") or not check(doc, launches):
+        raise AssertionError(f"apps.{name} {' '.join(argv)} rc {rc}, launches {launches}: "
+                             f"{lines[-12:]}")
+    log(f"  apps.{name} {' '.join(argv)} ({time.perf_counter() - t0:.1f} s) launches "
+        f"{ {k: v for k, v in launches.items() if v} }; its line {card}:")
+    print(lines[-1], flush=True)
+    return doc, launches
+
+
+def phase11_tools(card):
+    """Phase 11: the measurement tools on the card, each through its
+    ``main`` with its launches counted from 0 just before it and read just
+    after: ``apps.check_bitexact --geometry both`` (0 failures over 2
+    geometries x 2 views x 3 depths x 4 entries, the launches exactly its
+    entries'), ``apps.profile_trace`` at both rigs in both views (a group of
+    12, ``classification_ok``), ``apps.profile_stages`` at the demonstrator,
+    ``apps.profile_setup`` (warm, in a process of its own: its launches are
+    not counted here), ``apps.bench_esl_init`` and ``apps.profile_esl_init``
+    (the synthetic ESL rig).  Returns the launches."""
+    from xmaps_tpu_torch.apps import (
+        bench_esl_init,
+        check_bitexact,
+        profile_esl_init,
+        profile_stages,
+        profile_trace,
+    )
+
+    t_phase = time.perf_counter()
+    total = collections.Counter()
+    log(f"phase 11 the measurement tools {card}:")
+    runs = 2 * 2 * 3  # geometries x views x depths
+    want = {"event_disparity_scatter": 3 * runs, "tail_projector": 3 * runs // 2,
+            "colorize_camera": 3 * runs // 2, "event_disparity_scatter_group": 4,
+            "tail_projector_group": 2, "colorize_camera_group": 2, "colorize_table": 4}
+    _, la = run_tool(card, "check_bitexact", check_bitexact.main, ["--geometry", "both"],
+                     lambda d, la: d["value"] == 0 and d["cases"] == runs
+                     and {k: v for k, v in la.items() if v} == want)
+    total.update(la)
+    budgets = {}
+    for geometry in ("demo", "esl"):
+        for view in (False, True):
+            tail = "colorize_camera_group" if view else "tail_projector_group"
+            argv = (["--geometry", geometry, "--frames", str(N_FRAMES)]
+                    + (["--camera-perspective"] if view else []))
+            doc, la = run_tool(
+                card, "profile_trace", profile_trace.main, argv,
+                lambda d, la, tail=tail: d["classification_ok"] is True
+                and la["colorize_table"] == 1 and la["event_disparity_scatter_group"] > 3
+                and la[tail] == la["event_disparity_scatter_group"]
+                and sum(la.values()) == 1 + 2 * la[tail]
+                and d["event_kernel_us"] > 0 and d["tail_kernel_us"] > 0
+                and 0 < d["busy_share"] <= 1)
+            total.update(la)
+            budgets[f"{geometry} {'camera' if view else 'projector'}"] = {
+                k: round(doc[k], 4) for k in ("event_kernel_us", "tail_kernel_us",
+                                              "outside_kernels_us", "device_ops_total_us",
+                                              "module_total_us", "busy_share")}
+    log(f"  group-of-{N_FRAMES} stage budgets, us a frame {card}: {budgets}")
+    _, la = run_tool(card, "profile_stages", profile_stages.main, [],
+                     lambda d, la: d["full_us"] > 0 and d["event_scatter_us"] > 0
+                     and d["tail_only_us"] > 0 and d["event_us"] is None
+                     and la["event_disparity_scatter"] > 0 and la["tail_projector"] > 0
+                     and la["colorize_table"] == 1)
+    total.update(la)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "xmaps_tpu_torch.apps.profile_setup"],
+                          capture_output=True, text=True, timeout=300,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = proc.stdout.strip().splitlines()
+    doc = json.loads(lines[-1]) if proc.returncode == 0 and lines else {}
+    steps = [k for k, _ in doc.get("engine_build2_steps", {}).items()]
+    if not (doc.get("gpu") and doc["cold_caches"] is False and len(steps) == 6
+            and doc["kernel_library_s"] > 0 and doc["group12_run_s"] > 0):
+        raise AssertionError(f"apps.profile_setup rc {proc.returncode}: {proc.stdout[-2000:]}"
+                             f"{proc.stderr[-2000:]}")
+    log(f"  apps.profile_setup, warm, in its own process ({time.perf_counter() - t0:.1f} s); "
+        f"its line {card}:")
+    print(lines[-1], flush=True)
+    for name, fn, check in (
+            ("bench_esl_init", bench_esl_init.main,
+             lambda d, la: d["bit_equal_to_full"] and d["value"] > 0
+             and d["full_surface_ms"] > 0 and la["esl_disparity_search"] > 0
+             and la["remap_gather"] == 2 * la["esl_disparity_search"]),
+            ("profile_esl_init", profile_esl_init.main,
+             lambda d, la: d["ops_total_ms"] > 0 and 0 < d["busy_share"] <= 1
+             and any("esl_search" in k for k in d["top"])
+             and la["remap_gather"] == 2 * la["esl_disparity_search"] > 0)):
+        _, la = run_tool(card, name, fn, [], check)
+        total.update(la)
+    log(f"  phase 11: {time.perf_counter() - t_phase:.1f} s")
+    return dict(total)
+
+
 def remap_library_ms(cam, fwd, disp_box, back):
     """Device ms of torch.take computing kernel B's forward + back remaps
     (an int64 flat index into the source with one zero appended, for the
@@ -2872,6 +3042,7 @@ def main() -> int:
         log(f"  kernel {k}: {km['ms']:.5f} ms device ({km['source']}), plain "
             f"{pm['ms']:.5f} ms; issue rate {km['issue_ms']:.5f} vs {pm['issue_ms']:.5f} "
             f"ms/call (demonstrator, display-packed, mean of 2x50 calls) {card}")
+    tail_library_ms(card, eng_p, packed_p, eng_c, packed_c, library_ms)
     time_kernel1_entries(card, eng_p, frames[0], batch, t_bin, ekw, shapes)
     time_offset_entry(card, eng_p, batch, t_bin, ekw)
     time_group(card, engines, frames, kernels_ms, shapes, groups)
@@ -2882,21 +3053,23 @@ def main() -> int:
     for eng in (eng_p, eng_c):
         time_ring_vs_staged(card, eng, frames)
 
-    # -- 7-10. the offline eval, the replay app, the benches ------------
+    # -- 7-11. the offline eval, the replay app, the benches, the tools --
     # launches: the engine's main path (phase 4), the group's (phase 4b),
     # the virtual meshes' (phase 4c), the filters' (phase 5b) plus the eval
     # apps' and the sharded eval loop's (phase 7), the replay and live
     # app's (phase 8), the benches' (phase 9) and the store-loop bench's
-    # (phase 10), each counted from 0 just before its run
+    # (phase 10) and the measurement tools' (phase 11), each counted from 0
+    # just before its run
     for part in (phase7_offline_eval(card, errs, kernels_ms, shapes, library_ms),
                  phase8_streaming(card, errs),
                  phase9_bench(card, errs, kernels_ms, shapes, library_ms),
                  phase9_bench_geometry(card, errs),
                  phase9_bench_stream(card),
-                 phase10_store_loop(card, errs, kernels_ms, shapes, library_ms)):
+                 phase10_store_loop(card, errs, kernels_ms, shapes, library_ms),
+                 phase11_tools(card)):
         for k, v in part.items():
             launches[k] += v
-    log(f"launches on the main paths (phases 4, 4b, 4c, 5b, 7, 8, 9, 10): {launches}")
+    log(f"launches on the main paths (phases 4, 4b, 4c, 5b, 7, 8, 9, 10, 11): {launches}")
 
     kernels = []
     for k in KERNEL_INFO:

@@ -1459,3 +1459,49 @@ def test_bench_geometry_esl_on_card(cuda, camera_perspective, monkeypatch, tmp_p
     one = eng.process_frame(frames[0], **kw)
     assert torch.equal(res.frame_bgr[0], one.frame_bgr)
     assert int(res.num_inliers[0]) == int(one.num_inliers) > 0
+
+
+def _tool_line(main_fn, argv):
+    """(return code, last JSON line) of a measurement tool's ``main``."""
+    import contextlib
+    import io
+    import json
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main_fn(argv)
+    return rc, json.loads(out.getvalue().strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("camera_perspective", [False, True], ids=["projector", "camera"])
+def test_profile_trace_classifies_the_group_on_card(cuda, camera_perspective, monkeypatch,
+                                                    tmp_path):
+    """``apps.profile_trace`` at the demonstrator (a group of 4): every
+    device kernel in its bucket, the buckets' kernels equal to the launches
+    of the same calls (kernel 2 two kernels a launch), a busy share in
+    (0, 1], and a scatter bucket of 0 (kernel 1 scatters its lanes)."""
+    from xmaps_tpu_torch.apps import profile_trace
+
+    monkeypatch.setenv("HOME", str(tmp_path))
+    argv = ["--geometry", "demo", "--frames", "4"] + (
+        ["--camera-perspective"] if camera_perspective else [])
+    rc, doc = _tool_line(profile_trace.main, argv)
+    assert rc == 0 and doc["classification_ok"] is True and doc["device"] == "cuda"
+    tail = "colorize_camera_group" if camera_perspective else "tail_projector_group"
+    assert doc["launches_per_call"] == {"event_disparity_scatter_group": 1, tail: 1}
+    assert doc["expected_kernels"] == {"event_kernel": 3,
+                                       "tail_kernel": 3 if camera_perspective else 6}
+    assert doc["ops_per_frame"]["event_kernel"] == 0.25
+    assert doc["event_kernel_us"] > 0 and doc["tail_kernel_us"] > 0 and doc["scatter_us"] == 0
+    assert 0 < doc["busy_share"] <= 1
+    assert doc["device_ops_total_us"] <= doc["module_total_us"]
+
+
+def test_check_bitexact_demo_on_card(cuda, monkeypatch, tmp_path):
+    """``apps.check_bitexact --geometry demo``: 0 failures over 2 views x 3
+    depths, every entry on the card bit-equal to the CPU port."""
+    from xmaps_tpu_torch.apps import check_bitexact
+
+    monkeypatch.setenv("HOME", str(tmp_path))
+    rc, doc = _tool_line(check_bitexact.main, ["--geometry", "demo"])
+    assert rc == 0 and doc["value"] == 0 and doc["cases"] == 6 and doc["device"] == "cuda"

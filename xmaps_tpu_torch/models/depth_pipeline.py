@@ -10,6 +10,8 @@ at construction, so a missing ``nvcc`` fails there and not mid-stream.
 from __future__ import annotations
 
 import os
+import sys
+import time
 from dataclasses import dataclass, field
 from typing import Optional, Union
 
@@ -112,6 +114,9 @@ class XMapsDepthEngine:
     _replicas: dict = field(default_factory=dict, init=False, repr=False, compare=False)
     #: the sharded group pipelines, by (mesh, cfg)
     _sharded: dict = field(default_factory=dict, init=False, repr=False, compare=False)
+    #: per-step wall-clock breakdown of the build, (label, seconds since the
+    #: previous mark), for ``apps.profile_setup`` (``from_calibration``)
+    setup_timings: list = field(default_factory=list, init=False, repr=False, compare=False)
 
     # -- construction --------------------------------------------------
 
@@ -132,12 +137,32 @@ class XMapsDepthEngine:
         projector_time_map_path: Optional[str] = None,
         xmap_cache_dir: Optional[str] = None,
     ) -> "XMapsDepthEngine":
+        """The engine of ``calib`` on ``device``.  Each step of the build is
+        timed into ``setup_timings`` (on ``cuda`` each mark waits for the
+        card first); ``XMAPS_SETUP_TRACE=1`` prints every mark to stderr, as
+        the JAX engine does."""
         if event_capacity > MAX_CAPACITY:
             raise ValueError(
                 f"event_capacity {event_capacity} overflows the uint32 PACK "
                 f"packing (at most {MAX_CAPACITY})"
             )
+        trace = os.environ.get("XMAPS_SETUP_TRACE") == "1"
+        t0 = time.perf_counter()
+        timings: list = []
+        prev = [t0]
+
+        def mark(label):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            now = time.perf_counter()
+            timings.append((label, now - prev[0]))
+            prev[0] = now
+            if trace:
+                print(f"[setup +{now - t0:7.2f}s] {label}", file=sys.stderr, flush=True)
+
+        # on cuda this builds (cold) or loads the kernel library
         dev = resolve_device(device)
+        mark("device resolved (kernel library built or loaded)")
         cfg = PipelineConfig(
             camera_width=calib.camera_width,
             camera_height=calib.camera_height,
@@ -155,6 +180,7 @@ class XMapsDepthEngine:
             zero_undistort_proj_map=zero_undistort_proj_map,
             cache_dir=xmap_cache_dir,
         )
+        mark("CamProjMaps (host calibration math, disk-cached)")
         if projector_time_map_path is not None:
             # precalibrated rectified time map (reference proj_time_map.py:47-49)
             time_map_rect = np.load(projector_time_map_path)
@@ -165,7 +191,9 @@ class XMapsDepthEngine:
         x_map_np = XMapsDepthEngine._build_or_load_xmap(
             time_map_rect, cfg, xmap_cache_dir, dev
         )
+        mark("X-map build/load")
         tables = DeviceTables.from_maps(maps, x_map_np, dev)
+        mark("DeviceTables H2D")
         p03 = float(maps.P2[0, 3])
         if camera_perspective:
             plan = with_colorize_table(CamTailPlan(
@@ -182,7 +210,8 @@ class XMapsDepthEngine:
                 z_near=z_near,
                 z_far=z_far,
             ), tables)
-        return XMapsDepthEngine(
+        mark("kernel plans built (tail plan, colorize table)")
+        eng = XMapsDepthEngine(
             cfg=cfg,
             maps=maps,
             tables=tables,
@@ -191,6 +220,9 @@ class XMapsDepthEngine:
             plan=plan,
             device=dev,
         )
+        mark("engine assembled")
+        eng.setup_timings = timings
+        return eng
 
     @staticmethod
     def from_runtime_params(
@@ -255,7 +287,7 @@ class XMapsDepthEngine:
         colorize table is built there on CUDA, dropped on CPU."""
         dev = resolve_device(device)
         tables, plan = replicate(self.tables, self.plan, dev)
-        return XMapsDepthEngine(
+        eng = XMapsDepthEngine(
             cfg=self.cfg,
             maps=self.maps,
             tables=tables,
@@ -264,6 +296,8 @@ class XMapsDepthEngine:
             plan=plan,
             device=dev,
         )
+        eng.setup_timings = list(self.setup_timings)
+        return eng
 
     # -- per-frame API ---------------------------------------------------
 
