@@ -3,8 +3,8 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-Builds the eight CUDA kernels (and the group entries of kernels 1, 2 and
-3) from xmaps_tpu_torch/csrc/ with nvcc (one
+Builds the nine CUDA kernels (and the group entries of kernels 1, 2, 3
+and F) from xmaps_tpu_torch/csrc/ with nvcc (one
 process a source, started together), checks each against its plain PyTorch
 version on the card (the per-engine colorize table that kernels 2 and 3 read
 against the plain epilogue of all 8192 disparities, bit for bit), and drives
@@ -45,14 +45,21 @@ the port's paths:
   line (each mesh shape's wall and device ms a frame), and phase 7 runs
   ``apps.eval_xmaps.run_sharded`` (``-devices N``'s loop) on a virtual
   mesh of 2, its depth ``.npy`` byte-equal to ``-devices 1``'s;
-- the five dedup frame filters (phase 5b): kernel 1 with each filter's
+- the five dedup frame filters (phase 5b): kernel F (``frame_dedup_filter``,
+  which replaces the JAX package's XLA stage ``apply_frame_filter``) and
+  its group entry against their plain version on the card (the keep mask
+  and the time bit-equal, the priority each survivor's rank by the plain
+  version's dense rank, so order-equal over the survivors, and below the
+  capacity) on the demonstrator frames, their group of 12, the ESL frames
+  and frames with events outside the camera; kernel 1 with each filter's
   scatter priority against its plain version, then ``set_frame_filter``
   and the 12 demonstrator frames in both views for each of the four dedup
   filters, and ``first_per_yt`` (the largest key space) on 3 frames at the
-  ESL geometry, every frame bit-equal to the CPU port, then each filter on
-  frames with events outside the camera (no device-side assert, bit-equal
-  to the CPU port); phase 6 times each filter (wall and device ms a frame,
-  the filter ops' device time);
+  ESL geometry, every frame bit-equal to the CPU port and one kernel F
+  launch a frame, then each filter on frames with events outside the
+  camera (no device-side assert, bit-equal to the CPU port); phase 6 times
+  each filter (wall and device ms a frame, kernel F against its plain
+  version on the card, and the group entry on the 12 frames);
 - the offline evaluation at the ESL geometry (phase 7): the four eval apps
   (ESL init + refine, MC3D, X-maps, table) through their ``main`` on 4
   synthetic plane scans, with kernels A and B (ESL search, static remap)
@@ -191,6 +198,16 @@ KERNEL_INFO = {
     "colorize_camera_group": (
         "xmaps_tpu_torch/csrc/tail.cu",
         "xmaps_tpu/ops/pallas_tail.py:777",
+    ),
+    # kernel F, the dedup frame filters: it replaces an XLA stage of the
+    # JAX package, which has no Pallas kernel there
+    "frame_dedup_filter": (
+        "xmaps_tpu_torch/csrc/filters.cu",
+        "xmaps_tpu/ops/filters.py:83 (XLA stage, not a TPU kernel)",
+    ),
+    "frame_dedup_filter_group": (
+        "xmaps_tpu_torch/csrc/filters.cu",
+        "xmaps_tpu/ops/filters.py:83 (XLA stage, not a TPU kernel)",
     ),
 }
 #: H100 SXM memory rate (NVIDIA data sheet), bytes/s: every kernel here
@@ -521,6 +538,60 @@ def filter_batch(eng, batch, name):
     return filter_events(batch, eng.tables, eng.cfg.replace(frame_filter=name))
 
 
+def survivor_rank(prio, keep):
+    """Each survivor's rank among its frame's survivors by ``prio`` (the
+    plain version's dense rank), 0 for a dropped lane: kernel F's
+    priority.  Each row of a (F, N) group on its own."""
+    import torch
+
+    if prio.dim() == 2:
+        return torch.stack([survivor_rank(p, k) for p, k in zip(prio, keep)])
+    out = torch.zeros_like(prio)
+    idx = keep.nonzero().flatten()
+    out[idx[torch.argsort(prio[idx])]] = torch.arange(len(idx), dtype=prio.dtype,
+                                                      device=prio.device)
+    return out
+
+
+def dedup_parity(what, eng, batch, errs, names=None):
+    """Kernel F (``apply_frame_filter``, or its group entry on a stacked
+    batch) against its plain version on the card, for each dedup filter
+    in ``names``: the keep mask and the time exact, the priority equal to
+    ``survivor_rank`` of the plain priority (so it orders the survivors as
+    the plain version does) and below the capacity."""
+    from xmaps_tpu_torch.ops.filters import (
+        FILTER_NAMES,
+        apply_frame_filter,
+        apply_frame_filter_group,
+        apply_frame_filter_group_plain,
+        apply_frame_filter_plain,
+        lut_rectified_x,
+    )
+
+    group = batch.x.dim() == 2
+    entry = "frame_dedup_filter_group" if group else "frame_dedup_filter"
+    apply, plain = ((apply_frame_filter_group, apply_frame_filter_group_plain) if group
+                    else (apply_frame_filter, apply_frame_filter_plain))
+    cfg, lut = eng.cfg, eng.tables.cam_map_packed
+    kw = dict(camera_width=cfg.camera_width, camera_height=cfg.camera_height,
+              rect_width=cfg.rect_width)
+    survivors = {}
+    for name in names or FILTER_NAMES[1:]:
+        got = apply(batch, None, name=name, cam_lut=lut, **kw)
+        xr = lut_rectified_x(batch.x, batch.y, lut) if name == "first_per_yt" else None
+        want = plain(batch, xr, name=name, **kw)
+        keep = want.batch.valid
+        err = assert_exact(f"{entry} {name} {what}", [
+            (got.batch.valid, keep), (got.batch.t, want.batch.t),
+            (got.scatter_priority, survivor_rank(want.scatter_priority, keep))])
+        if int(got.scatter_priority.max()) >= batch.capacity:
+            raise AssertionError(f"{entry} {name} {what}: a priority at or over the capacity")
+        errs[entry] = max(errs.get(entry, 0.0), err)
+        survivors[name] = int(keep.sum())
+    log(f"  {entry} {what} {tuple(batch.x.shape)} vs its plain version: keep and t exact, "
+        f"priority = the survivors' rank; survivors {survivors}")
+
+
 def filter_parity(eng, ev, errs):
     """Kernel 1 with each dedup filter's scatter priority (and the
     filtered batch) against its plain version on the card."""
@@ -563,7 +634,26 @@ def phase_filters(card, errs, engines, frames, eng_e, esl_frames):
     from xmaps_tpu_torch.ops import _build
     from xmaps_tpu_torch.ops.filters import FILTER_NAMES
 
+    from xmaps_tpu_torch.ops.event_batch import EventBatch
+    from xmaps_tpu_torch.utils.synthetic import with_events_outside_camera
+
     log("phase 5b dedup frame filters:")
+    eng = engines["projector"]
+    cap = eng.cfg.event_capacity
+    dedup_parity("demonstrator frame 0", eng, eng.make_batch(frames[0]), errs)
+    dedup_parity(f"demonstrator, {len(frames)} frames", eng,
+                 EventBatch.stack_structured(frames, cap, device="cuda"), errs)
+    dedup_parity("ESL frame 0", eng_e, eng_e.make_batch(esl_frames[0]), errs,
+                 names=["first_per_yt"])
+    dedup_parity(f"ESL, {len(esl_frames)} frames", eng_e,
+                 EventBatch.stack_structured(esl_frames, cap, device="cuda"), errs,
+                 names=["first_per_yt"])
+    outside = [with_events_outside_camera(ev[: cap - 2000], np.random.default_rng(i),
+                                          eng.cfg.camera_width, eng.cfg.camera_height, n=200)
+               for i, ev in enumerate(frames[:3])]
+    dedup_parity("frame with events outside the camera", eng, eng.make_batch(outside[0]), errs)
+    dedup_parity("frames with events outside the camera", eng,
+                 EventBatch.stack_structured(outside, cap, device="cuda"), errs)
     for eng in engines.values():
         filter_parity(eng, frames[0], errs)
     runs = [(name, view, eng, frames) for name in FILTER_NAMES[1:]
@@ -592,7 +682,8 @@ def phase_filters(card, errs, engines, frames, eng_e, esl_frames):
     launches = dict(_build.LAUNCHES)
     n, n_e = len(FILTER_NAMES[1:]) * len(frames), len(esl_frames)
     want = {k: 0 for k in launches}
-    want.update(event_disparity_scatter=2 * n + n_e, tail_projector=n + n_e, colorize_camera=n)
+    want.update(event_disparity_scatter=2 * n + n_e, tail_projector=n + n_e, colorize_camera=n,
+                frame_dedup_filter=2 * n + n_e)
     if launches != want:
         raise AssertionError(f"filter launches {launches} != {want}")
     log(f"  launches {launches} {card}")
@@ -686,7 +777,8 @@ def phase4b_group(card, errs, engines, frames, eng_e, esl_frames):
     launches = dict(_build.LAUNCHES)
     want = {k: 0 for k in launches}
     want.update(event_disparity_scatter_group=len(runs), tail_projector_group=len(runs) - 1,
-                colorize_camera_group=1)
+                colorize_camera_group=1,
+                frame_dedup_filter_group=sum(name != "none" for *_, name in runs))
     if launches != want:
         raise AssertionError(f"process_frames launches {launches} != {want}")
     for (view, eng, fr, name), got in zip(runs, outs):
@@ -706,7 +798,8 @@ def phase4b_group(card, errs, engines, frames, eng_e, esl_frames):
         log(f"  {view} ({name}): process_frames of {len(fr)} frames, each bit-equal to "
             f"process_frame on the card and to the CPU port (display-packed too); inliers "
             f"{[int(o.num_inliers) for o in got]}")
-    log(f"  launches {launches}: one kernel 1 and one tail a group {card}")
+    log(f"  launches {launches}: one kernel 1 and one tail a group, one kernel F a filtered "
+        f"group {card}")
     return launches, groups
 
 
@@ -756,9 +849,11 @@ def phase4c_mesh(card, errs, engines, frames, eng_e, esl_frames):
         return "colorize_camera_group" if eng.cfg.camera_perspective else "tail_projector_group"
 
     want = {k: 0 for k in launches}
-    for _, eng, _, _, (d, e) in runs:
+    for _, eng, _, name, (d, e) in runs:
         want["event_disparity_scatter_group"] += d * e
         want[tail(eng)] += d
+        # a filtered row: its frames gathered on the leader, one kernel F
+        want["frame_dedup_filter_group"] += d * (name != "none")
     for _, eng, _ in engine_runs:
         want["event_disparity_scatter_group"] += 4
         want[tail(eng)] += 4
@@ -802,7 +897,8 @@ def phase4c_mesh(card, errs, engines, frames, eng_e, esl_frames):
     for k in ("event_disparity_scatter_group", "tail_projector_group", "colorize_camera_group"):
         errs[k] = max(errs.get(k, 0.0), err)
     log(f"  launches {launches}: one kernel 1 group launch a mesh device, one tail group call "
-        f"a data row; max_abs_err {err}; runs {run_s:.1f} s, phase "
+        f"a data row, one kernel F group launch a filtered data row; max_abs_err {err}; runs "
+        f"{run_s:.1f} s, phase "
         f"{time.perf_counter() - t_phase:.1f} s {card}")
     return launches
 
@@ -1015,26 +1111,83 @@ def filters_out_of_camera(engines, frames):
             f"the {cam_w}x{cam_h} camera each: no device assert, bit-equal to the CPU port")
 
 
-def time_filters(card, eng, frames):
-    """Phase 6, the filters: per dedup filter, wall ms a frame (median of
-    60), device ms a frame (profiler, 48 frames) and the device time of the
-    filter's own ops (``filter_events``: the rectify gather for
-    first_per_yt, then ``apply_frame_filter``) on frame 0."""
+def time_filters(card, what, eng, frames, names, kernels_ms=None, shapes=None):
+    """Phase 6, the filters: per dedup filter of ``names``, wall ms a
+    frame (median of 60), device ms a frame and kernel F's share of it
+    (profiler, 48 frames); with ``kernels_ms``, the plain version's device
+    ms on frame 0 on the card (profiler, 20 calls).  Where ``shapes`` is
+    given, kernel F against its plain version in turns (``time_pair``) on
+    frame 0 with first_per_yt (the E key's first filter) and its group
+    entry on the stacked frames with first_per_xy (phase 4b's filtered
+    group), filling ``kernels_ms`` and ``shapes`` (the bound's inputs).
+    The kernel does not depend on the view: one view's engine times it."""
     import torch
-    from xmaps_tpu_torch.ops.filters import FILTER_NAMES
+    from xmaps_tpu_torch.ops.event_batch import EventBatch
+    from xmaps_tpu_torch.ops.filters import (
+        apply_frame_filter_group,
+        apply_frame_filter_group_plain,
+        apply_frame_filter_plain,
+        lut_rectified_x,
+    )
 
-    view = "camera" if eng.cfg.camera_perspective else "projector"
+    cfg, lut = eng.cfg, eng.tables.cam_map_packed
+    kw = dict(camera_width=cfg.camera_width, camera_height=cfg.camera_height,
+              rect_width=cfg.rect_width)
     batch = eng.make_batch(frames[0])
-    for name in FILTER_NAMES[1:]:
+
+    def lanes(b, name):
+        """(lanes, positive lanes, LUT bytes read or 0, mean filter) a frame."""
+        pos = b.valid & (b.p == 1)
+        return [(b.capacity, int(p.sum()), lut.numel() * 4 if name == "first_per_yt" else 0,
+                 name == "mean_first_last_per_xy") for p in pos.reshape(-1, b.capacity)]
+
+    def bound_ms(key, b, name):
+        return kernel_bytes(key, {key: lanes(b, name)}) / HBM_BYTES_PER_S * 1e3
+
+    for name in names:
         eng.set_frame_filter(name)
-        w, p90, dev, _ = time_frames(eng, frames)
-        ops, by_name = profile_calls(lambda: filter_batch(eng, batch, name), 48)
-        if ops is None:
-            raise AssertionError("torch.profiler recorded no device event for a filter")
-        top = ", ".join(f"{k[:40]} {v * 1e3:.2f}" for k, v in
-                        sorted(by_name.items(), key=lambda kv: -kv[1])[:3])
-        log(f"  {view} {name}: {w:.4f} ms/frame wall median (p90 {p90:.4f}), {dev:.4f} "
-            f"ms/frame device; filter ops {ops * 1e3:.2f} us device (top us: {top}) {card}")
+        w, p90, dev, by_name = time_frames(eng, frames)
+        kf = sum(v for k, v in by_name.items() if "frame_dedup_filter" in k)
+        if not kf:
+            raise AssertionError(f"{what} {name}: no kernel F event in the frames' profile")
+        line = (f"  {what} {name}: {w:.4f} ms/frame wall median (p90 {p90:.4f}), {dev:.4f} "
+                f"ms/frame device, of it kernel F {kf * 1e3:.3f} us")
+        if kernels_ms is None:
+            log(f"{line} {card}")
+            eng.set_frame_filter("none")
+            continue
+        xr = lut_rectified_x(batch.x, batch.y, lut) if name == "first_per_yt" else None
+
+        def plain():
+            return apply_frame_filter_plain(batch, xr, name=name, **kw)
+
+        bound = bound_ms("frame_dedup_filter", batch, name)
+        if shapes is not None and name == "first_per_yt":
+            km, pm = time_pair(lambda: filter_batch(eng, batch, name), plain)
+            kernels_ms["frame_dedup_filter"] = (km, pm)
+            shapes["frame_dedup_filter"] = lanes(batch, name)
+            line += (f"; frame 0 in turns: kernel F {km['ms'] * 1e3:.3f} us (turns "
+                     f"{km['turns'][0] * 1e3:.3f}, {km['turns'][1] * 1e3:.3f})")
+            plain_ms, top = pm["ms"], pm["top"]
+        else:
+            plain_ms, top = profile_calls(plain, 20)
+            top = sorted(top.items(), key=lambda kv: -kv[1])[:3]
+        log(f"{line}; bound {bound * 1e3:.4f} us (bytes, frame 0), share {bound / kf:.4f}; "
+            f"plain version on frame 0 {plain_ms * 1e3:.3f} us (top us: "
+            f"{[(k[:40], round(v * 1e3, 2)) for k, v in top]}) {card}")
+        if shapes is not None and name == "first_per_xy":
+            group = EventBatch.stack_structured(frames, cfg.event_capacity, device="cuda")
+            km, pm = time_pair(
+                lambda: apply_frame_filter_group(group, None, name=name, cam_lut=lut, **kw),
+                lambda: apply_frame_filter_group_plain(group, None, name=name, **kw))
+            kernels_ms["frame_dedup_filter_group"] = (km, pm)
+            shapes["frame_dedup_filter_group"] = lanes(group, name)
+            bound = kernel_bytes("frame_dedup_filter_group", shapes) / HBM_BYTES_PER_S * 1e3
+            log(f"  {what} {name}, kernel F's group entry on {len(frames)} frames: "
+                f"{km['ms'] * 1e3:.3f} us device (turns {km['turns'][0] * 1e3:.3f}, "
+                f"{km['turns'][1] * 1e3:.3f}), {km['ms'] / len(frames) * 1e3:.3f} us a frame; "
+                f"bound {bound * 1e3:.4f} us (bytes), share {bound / km['ms']:.4f}; plain "
+                f"version {pm['ms'] * 1e3:.3f} us {card}")
         eng.set_frame_filter("none")
     torch.cuda.synchronize()
 
@@ -1868,8 +2021,10 @@ def replay(app, argv, want_tail, expect_frames, keys="", prestage=True):
     if not prestage and (ring is not None or "ring" in rec["how"]):
         raise AssertionError("a prestage=False replay used the ring")
     want = {k: 0 for k in launches}
-    # the app's engine builds its colorize table once, in either view
-    want.update({"event_disparity_scatter": n, want_tail: n, "colorize_table": 1})
+    # the app's engine builds its colorize table once, in either view; a
+    # key pressed selects a dedup filter: one kernel F a frame
+    want.update({"event_disparity_scatter": n, want_tail: n, "colorize_table": 1,
+                 "frame_dedup_filter": n if keys else 0})
     if launches != want:
         raise AssertionError(f"replay launches {launches} != {want}")
     return rec, counters, loop_s[0], launches
@@ -2825,6 +2980,13 @@ def kernel_bytes(name, shapes) -> float:
         # per call (destination px, valid px, source px): the packed int32
         # index in, one source element per valid lane, the f32 plane out
         return sum(4 * px + 4 * min(n_in, src_px) + 4 * px for px, n_in, src_px in s)
+    if name in ("frame_dedup_filter", "frame_dedup_filter_group"):
+        # a frame's (lanes, positive lanes, LUT bytes, mean filter): x, y,
+        # p and valid read, valid and the priority written (18 B a lane);
+        # first_per_yt's positive lanes read their LUT entries, the mean
+        # filter reads and writes t
+        return sum(18 * n + min(4 * pos, lut_b) + (8 * n if mean else 0)
+                   for n, pos, lut_b, mean in s)
     if name == "warmup_add_one":
         (n,) = s
         return 8 * n
@@ -2857,6 +3019,7 @@ def main() -> int:
         tail_projector,
         tail_projector_plain,
     )
+    from xmaps_tpu_torch.ops.filters import FILTER_NAMES
     from xmaps_tpu_torch.ops.xmap import build_x_map
     from xmaps_tpu_torch.utils.synthetic import make_synthetic_calibration
 
@@ -2965,14 +3128,18 @@ def main() -> int:
     for k, v in esl_errs.items():
         errs[k] = max(errs.get(k, 0.0), v)
     engines = {"projector": eng_p, "camera": eng_c}
+    log(f"  (phases 1-5 done at {time.perf_counter() - t_start:.1f} s)")
     group_launches, groups = phase4b_group(card, errs, engines, frames, eng_e, esl_frames)
     for k, v in group_launches.items():
         launches[k] += v
+    log(f"  (phase 4b done at {time.perf_counter() - t_start:.1f} s)")
     for k, v in phase4c_mesh(card, errs, engines, frames, eng_e, esl_frames).items():
         launches[k] += v
     for k, v in phase_filters(card, errs, {"projector": eng_p, "camera": eng_c}, frames,
                               eng_e, esl_frames).items():
         launches[k] += v
+
+    log(f"  (phases 4c, 5b done at {time.perf_counter() - t_start:.1f} s)")
 
     # -- 6. timing -------------------------------------------------------
     # wall: host clock around process_frame + synchronize (staging, H2D,
@@ -3001,10 +3168,14 @@ def main() -> int:
                                  f"{batch_fills}: a fill runs in the frame program")
         log(f"      fills a frame {frame_fills}, all in make_batch (EventBatch.from_arrays); "
             f"none in the frame program")
-    for eng in (eng_p, eng_c):
-        time_filters(card, eng, frames)
+    log(f"  (phase 6 frames done at {time.perf_counter() - t_start:.1f} s)")
+    kernels_ms: dict = {}
+    filter_shapes: dict = {}
+    time_filters(card, "projector", eng_p, frames, FILTER_NAMES[1:], kernels_ms, filter_shapes)
+    time_filters(card, "camera", eng_c, frames, FILTER_NAMES[1:])
+    time_filters(card, "esl_projector", eng_e, esl_frames, ["first_per_yt"], {})
+    log(f"  (phase 6 filters done at {time.perf_counter() - t_start:.1f} s)")
 
-    kernels_ms = {}
     batch, t_bin, ekw, packed_p = staged["projector"]
     kernels_ms["event_disparity_scatter"] = time_pair(
         lambda: event_disparity_scatter(batch, t_bin, eng_p.tables, **ekw),
@@ -3034,6 +3205,7 @@ def main() -> int:
                            projector_disparities(packed_p, t, eng_p.plan), False),
         "colorize_camera": (packed_c.numel(), distinct_disparities(packed_c), False),
         "colorize_table": (eng_c.plan.table[0].numel(),),
+        **filter_shapes,
     }
     log(f"  kernel 3's bound reads {shapes['colorize_camera'][1]} BGR table entries: the "
         f"distinct disparities of the camera-view map")
@@ -3045,13 +3217,18 @@ def main() -> int:
     tail_library_ms(card, eng_p, packed_p, eng_c, packed_c, library_ms)
     time_kernel1_entries(card, eng_p, frames[0], batch, t_bin, ekw, shapes)
     time_offset_entry(card, eng_p, batch, t_bin, ekw)
+    log(f"  (phase 6 kernels 1-3 and their library calls done at "
+        f"{time.perf_counter() - t_start:.1f} s)")
     time_group(card, engines, frames, kernels_ms, shapes, groups)
     esl_group = make_frames(esl, N_FRAMES, 0.031, target=CAPACITY - 1024)
     time_kernel1_esl(card, eng_e, esl_group)
     time_kernel2_esl(card, eng_e, esl_group)
+    log(f"  (phase 6 groups and ESL kernels done at {time.perf_counter() - t_start:.1f} s)")
     time_mesh(card)
     for eng in (eng_p, eng_c):
         time_ring_vs_staged(card, eng, frames)
+
+    log(f"  (phase 6 done at {time.perf_counter() - t_start:.1f} s)")
 
     # -- 7-11. the offline eval, the replay app, the benches, the tools --
     # launches: the engine's main path (phase 4), the group's (phase 4b),

@@ -1505,3 +1505,179 @@ def test_check_bitexact_demo_on_card(cuda, monkeypatch, tmp_path):
     monkeypatch.setenv("HOME", str(tmp_path))
     rc, doc = _tool_line(check_bitexact.main, ["--geometry", "demo"])
     assert rc == 0 and doc["value"] == 0 and doc["cases"] == 6 and doc["device"] == "cuda"
+
+
+# -- kernel F: the dedup frame filters ----------------------------------------
+
+#: (camera_width, camera_height, rect_width): the test engine's rig, the
+#: demonstrator's (xy: 307,200 keys; first_per_yt: 844,800) and the ESL
+#: rig's first_per_yt (2,764,800 keys)
+FILTER_RIGS = {"small": (128, 96, 300), "demonstrator": (640, 480, 1760),
+               "esl": (640, 480, 5760)}
+
+
+def _filter_lanes(rig, frames, capacity, seed, float_t=False):
+    """A stacked (frames, capacity) batch on the card with collisions,
+    padding, polarities {-1, 0, 1}, an empty frame 1, and raw keys -1,
+    n_keys, below -n_keys and outside the camera; and a packed camera LUT
+    whose x reaches past both edges of the rectified width."""
+    cw, ch, rw = FILTER_RIGS[rig]
+    rng = np.random.default_rng(seed)
+    fields = {k: [] for k in ("x", "y", "t", "p", "valid")}
+    for f in range(frames):
+        x = rng.integers(0, min(cw, 40), capacity).astype(np.int32)
+        y = rng.integers(0, min(ch, 30), capacity).astype(np.int32)
+        k = rng.integers(0, capacity, 50)
+        x[k[:10]], y[k[:10]] = -1, 0  # raw key -1
+        x[k[10:20]], y[k[10:20]] = 0, ch  # raw key n_keys
+        y[k[20:30]] = -ch - 3  # below -n_keys
+        x[k[30:40]] = cw + 5  # outside the camera
+        y[k[40:50]] = ch + 7
+        t = (np.sort(rng.random(capacity)).astype(np.float32) if float_t
+             else np.sort(rng.integers(-50, 16_000, capacity)).astype(np.int32))
+        valid = np.zeros(capacity, bool)
+        valid[: 0 if f == 1 else capacity - capacity // 7] = True
+        for key, a in zip(fields, (x, y, t, rng.choice([-1, 0, 1, 1], capacity).astype(np.int32),
+                                   valid)):
+            fields[key].append(a)
+    batch = EventBatch(*(torch.from_numpy(np.stack(a)).cuda() for a in fields.values()),
+                       count=torch.full((frames,), capacity, dtype=torch.int32, device="cuda"))
+    mapx = rng.integers(-20, rw + 20, (ch, cw)).astype(np.int32)
+    mapy = rng.integers(0, 100, (ch, cw)).astype(np.int32)
+    lut = torch.from_numpy((mapy << 16) | (mapx & 0xFFFF)).cuda()
+    return batch, lut, dict(camera_width=cw, camera_height=ch, rect_width=rw)
+
+
+def _survivor_rank(prio, keep):
+    """Each survivor's rank among the survivors by ``prio``; 0 elsewhere:
+    kernel F's priority, given the plain version's (each row of a group on
+    its own)."""
+    if prio.dim() == 2:
+        return torch.stack([_survivor_rank(p, k) for p, k in zip(prio, keep)])
+    out = torch.zeros_like(prio)
+    idx = keep.nonzero().flatten()
+    out[idx[torch.argsort(prio[idx])]] = torch.arange(len(idx), dtype=prio.dtype,
+                                                      device=prio.device)
+    return out
+
+
+def _check_filtered(got, batch, lut, kw, name):
+    """Kernel F's frame(s) against the plain version on the card: keep and
+    t bit-equal, the priority each survivor's rank by the plain priority
+    (so order-equal over the survivors) and below the capacity."""
+    from xmaps_tpu_torch.ops.filters import apply_frame_filter_plain, lut_rectified_x
+
+    group = batch.x.dim() == 2
+    frames = [batch.frame(f) for f in range(batch.x.shape[0])] if group else [batch]
+    for f, b in enumerate(frames):
+        xr = lut_rectified_x(b.x, b.y, lut) if name == "first_per_yt" else None
+        want = apply_frame_filter_plain(b, xr, name=name, **kw)
+        g = got.batch.frame(f) if group else got.batch
+        prio = got.scatter_priority[f] if group else got.scatter_priority
+        _equal(g.valid, want.batch.valid)
+        _equal(g.t, want.batch.t)
+        _equal(prio, _survivor_rank(want.scatter_priority, want.batch.valid))
+        assert int(prio.max()) < b.capacity
+
+
+@pytest.mark.parametrize("float_t", [False, True], ids=["int_t", "float_t"])
+@pytest.mark.parametrize("rig", sorted(FILTER_RIGS))
+@pytest.mark.parametrize("name", ["first_per_yt", "first_per_xy", "last_per_xy",
+                                  "mean_first_last_per_xy"])
+def test_frame_dedup_filter_matches_plain_on_card(cuda, name, rig, float_t):
+    """Kernel F's one-frame entry on frames 0 and 1 (empty) of
+    ``_filter_lanes`` and its group entry on F = 1 and 7: one launch a call,
+    and twice in a row (the scratch left zero)."""
+    from xmaps_tpu_torch.ops.filters import apply_frame_filter, apply_frame_filter_group
+
+    batch, lut, kw = _filter_lanes(rig, 7, 3001, seed=len(name) + len(rig), float_t=float_t)
+    for f in (0, 1, 0):
+        _build.reset_launch_counts()
+        got = apply_frame_filter(batch.frame(f), None, name=name, cam_lut=lut, **kw)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["frame_dedup_filter"] == 1
+        _check_filtered(got, batch.frame(f), lut, kw, name)
+    for frames in (1, 7):
+        part = EventBatch(*(a[:frames] for a in batch))
+        _build.reset_launch_counts()
+        got = apply_frame_filter_group(part, None, name=name, cam_lut=lut, **kw)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["frame_dedup_filter_group"] == 1
+        assert sum(_build.LAUNCHES.values()) == 1
+        _check_filtered(got, part, lut, kw, name)
+
+
+@pytest.mark.parametrize("camera_perspective", [False, True], ids=["projector", "camera"])
+def test_filter_events_is_one_kernel_f_launch_on_card(cuda, camera_perspective):
+    """``filter_events`` on the card: one ``frame_dedup_filter`` launch a
+    frame (one ``frame_dedup_filter_group`` a group) and nothing else of
+    ours; under the profiler no torch sort and no ``scatter_reduce``; the
+    results equal the CPU port's filters (keep and t exact, priority
+    order-equal over the survivors); ``process_frames`` with each filter
+    equals the CPU port's."""
+    from xmaps_tpu_torch.ops.filters import FILTER_NAMES
+    from xmaps_tpu_torch.ops.frame_pipeline import filter_events
+    from xmaps_tpu_torch.utils.synthetic import with_events_outside_camera
+
+    eng = _engine(camera_perspective)
+    cpu = eng.to("cpu")
+    cfg = eng.cfg
+    rng = np.random.default_rng(3)
+    frames = [with_events_outside_camera(ev, rng, cfg.camera_width, cfg.camera_height)
+              for ev in _frames()]
+    try:
+        for name in FILTER_NAMES[1:]:
+            c = cfg.replace(frame_filter=name)
+            for arg in [eng.make_batch(ev) for ev in frames] + [
+                    EventBatch.stack_structured(frames, cfg.event_capacity, device="cuda")]:
+                _build.reset_launch_counts()
+                with torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    got = filter_events(arg, eng.tables, c)
+                    torch.cuda.synchronize()
+                entry = "frame_dedup_filter_group" if arg.x.dim() == 2 else "frame_dedup_filter"
+                assert {k: v for k, v in _build.LAUNCHES.items() if v} == {entry: 1}
+                names = " ".join(e.key.lower() for e in prof.key_averages())
+                assert "sort" not in names and "scatter_reduce" not in names, names
+                want = filter_events(EventBatch(*(a.cpu() for a in arg)), cpu.tables, c)
+                _equal(got.batch.valid, want.batch.valid)
+                _equal(got.batch.t, want.batch.t)
+                keep = want.batch.valid
+                _equal(got.scatter_priority.cpu(),
+                       _survivor_rank(want.scatter_priority, keep))
+            eng.set_frame_filter(name)
+            cpu.set_frame_filter(name)
+            _build.reset_launch_counts()
+            outs = eng.process_frames(frames)
+            assert _build.LAUNCHES["frame_dedup_filter_group"] == 1
+            for g, r in zip(outs, cpu.process_frames(frames)):
+                for a, b in zip(g, r):
+                    _equal(a, b)
+    finally:
+        eng.set_frame_filter("none")
+
+
+def test_frame_dedup_filter_checks_inputs(cuda):
+    """Kernel F's wrapper raises on what the kernel does not take: a
+    capacity over MAX_CAPACITY, a wrong dtype, a non-contiguous lane array,
+    first_per_yt without the LUT or with one on another device."""
+    from xmaps_tpu_torch.ops.filters import apply_frame_filter, apply_frame_filter_group
+
+    batch, lut, kw = _filter_lanes("small", 2, 64, seed=1)
+    one = batch.frame(0)
+    cases = [
+        (one._replace(x=one.x.long()), "first_per_xy", lut, "x must be"),
+        (one._replace(t=one.t.double()), "mean_first_last_per_xy", lut, "t must be"),
+        (EventBatch(*(a.t().contiguous().t() for a in batch[:5]), count=batch.count),
+         "last_per_xy", lut, "not contiguous"),
+        (one, "first_per_yt", None, "cam_lut"),
+        (one, "first_per_yt", lut.cpu(), "every tensor"),
+    ]
+    big = torch.zeros(524287, dtype=torch.int32, device="cuda")
+    cases.append((EventBatch(big, big, big, big, big.bool(), big[0]), "first_per_xy", lut,
+                  "capacity 524287"))
+    for b, name, lt, match in cases:
+        apply = apply_frame_filter_group if b.x.dim() == 2 else apply_frame_filter
+        with pytest.raises(ValueError, match=match):
+            apply(b, None, name=name, cam_lut=lt, **kw)

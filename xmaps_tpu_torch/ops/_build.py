@@ -31,7 +31,8 @@ __all__ = ["load", "launch", "LAUNCHES", "reset_launch_counts", "check", "NVCC_F
            "build_dir"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("events.cu", "tail.cu", "esl.cu", "remap.cu", "warmup.cu", "store_loop.cu")
+SOURCES = ("events.cu", "tail.cu", "esl.cu", "remap.cu", "warmup.cu", "store_loop.cu",
+           "filters.cu")
 HEADERS = ("common.cuh",)
 
 #: sm_90a for Hopper; no --use_fast_math: the f32 epilogue (p03/disp, the
@@ -55,6 +56,8 @@ LAUNCHES = {
     "remap_gather": 0,
     "warmup_add_one": 0,
     "tile_store_last": 0,
+    "frame_dedup_filter": 0,
+    "frame_dedup_filter_group": 0,
 }
 
 _P = ctypes.c_void_p
@@ -148,6 +151,22 @@ _SIGNATURES = {
     "tile_store_last": [
         _P, _P, _P, _I,  # rows, cols (i32), vals (u32 as i32), n
         _I, _I, _P,  # H, W, out (H, W) u32 as i32
+        _P,  # stream
+    ],
+    "frame_dedup_filter": [  # kernel F on one frame's (n,) lanes
+        _P, _P, _P, _P, _P, _I,  # x, y, p (i32), valid (bool), t (i32 or f32), t is f32
+        _I, _I, _I, _I,  # n, filter (index in FILTER_NAMES), key width, n_keys
+        _P, _I, _I,  # packed cam LUT (first_per_yt, else null), lut_h, lut_w
+        _P, _P,  # scratch: zeroed (i32, zero at entry and exit), work (i32)
+        _P, _P, _P,  # keep (bool), t (mean filter, else null), priority (i32) out
+        _P,  # stream
+    ],
+    "frame_dedup_filter_group": [  # kernel F over F frames' (F, n) rows
+        _P, _P, _P, _P, _P, _I,  # x, y, p (i32), valid (bool), t (i32 or f32), t is f32
+        _I, _I, _I, _I, _I,  # F, n, filter (index in FILTER_NAMES), key width, n_keys
+        _P, _I, _I,  # packed cam LUT (first_per_yt, else null), lut_h, lut_w
+        _P, _P,  # scratch: zeroed (i32, zero at entry and exit), work (i32)
+        _P, _P, _P,  # keep (bool), t (mean filter, else null), priority (i32) out
         _P,  # stream
     ],
 }

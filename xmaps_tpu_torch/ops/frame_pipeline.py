@@ -21,9 +21,10 @@ unfiltered) through the kernel's ring entry, which reads the rows, decodes
 the words and bins time from the frame's host time bounds: again the two
 kernels and nothing else.
 With a dedup frame filter (``cfg.frame_filter``, ``ops.filters``) the
-events are first rectified (a gather of the camera LUT) and filtered; the
-time binning then runs on the filtered batch and kernel 1 takes the
-filter's scatter priority.
+events are first filtered (on CUDA kernel F ``frame_dedup_filter``, which
+reads first_per_yt's rectified x from the camera LUT itself); the time
+binning then runs on the filtered batch and kernel 1 takes the filter's
+scatter priority.
 ``group_depth_frames`` runs F independent frames as one program (the
 counterpart of the JAX engine's ``process_frames`` group and of
 ``bench.py``'s ``run_group``): kernel 1's group entry once over the F
@@ -62,7 +63,11 @@ from xmaps_tpu_torch.ops.cuda_tail import (
 )
 from xmaps_tpu_torch.ops.disparity import rectify_events, scale_time
 from xmaps_tpu_torch.ops.event_batch import EventBatch
-from xmaps_tpu_torch.ops.filters import FilteredBatch, apply_frame_filter
+from xmaps_tpu_torch.ops.filters import (
+    FilteredBatch,
+    apply_frame_filter,
+    apply_frame_filter_group,
+)
 from xmaps_tpu_torch.ops.image_tail import turbo_packed_lut
 
 __all__ = [
@@ -137,19 +142,28 @@ class DeviceTables(NamedTuple):
 def filter_events(
     batch: EventBatch, tables: DeviceTables, cfg: PipelineConfig
 ) -> FilteredBatch:
-    """``cfg.frame_filter`` applied to the batch (``ops.filters``), with the
-    per-event rectified x that first_per_yt keys on (the other filters key
-    on the raw pixel and get None)."""
-    x_rect = None
+    """``cfg.frame_filter`` applied to the batch, one frame or a stacked
+    group (``ops.filters.apply_frame_filter`` / ``apply_frame_filter_group``:
+    on CUDA one launch of kernel F either way).  first_per_yt keys on the
+    per-event rectified x: on the CPU ``rectify_events`` gathers it, on
+    CUDA kernel F reads it from the camera LUT itself; the other filters
+    key on the raw pixel."""
+    x_rect, lut = None, None
     if cfg.frame_filter == "first_per_yt":
-        x_rect, _ = rectify_events(batch.x, batch.y, tables.cam_mapx_i16, tables.cam_mapy_i16)
-    return apply_frame_filter(
+        if batch.x.device.type == "cpu":
+            x_rect, _ = rectify_events(batch.x, batch.y, tables.cam_mapx_i16,
+                                       tables.cam_mapy_i16)
+        else:
+            lut = tables.cam_map_packed
+    apply = apply_frame_filter_group if batch.x.dim() == 2 else apply_frame_filter
+    return apply(
         batch,
         x_rect,
         name=cfg.frame_filter,
         camera_width=cfg.camera_width,
         camera_height=cfg.camera_height,
         rect_width=cfg.rect_width,
+        cam_lut=lut,
     )
 
 
@@ -256,10 +270,11 @@ def group_depth_frames(
     ``group``: the F 1-word staged rows of ``io.prefetch.stage_compact_group``
     (with their ``layout``; unfiltered), or an ``EventBatch`` with a leading
     frame axis (``EventBatch.stack_structured``; integer or float time,
-    any filter).  The stacked batch is binned as one (F, capacity) tensor
-    and, with a dedup filter, filtered frame by frame (torch ops), its
-    batches and priorities stacked.  Then kernel 1's group entry (one
-    launch for the F frames) and the view's tail group entry (one call)."""
+    any filter).  With a dedup filter the stacked batch is first filtered
+    (``filter_events``: kernel F's group entry, one launch for the F
+    frames), then binned as one (F, capacity) tensor.  Then kernel 1's
+    group entry (one launch for the F frames) and the view's tail group
+    entry (one call)."""
     _check_display(display_only, display_packed)
     view = scatter_view(cfg, plan)
     if isinstance(group, CompactStagedGroup):
@@ -269,10 +284,7 @@ def group_depth_frames(
     else:
         priority = None
         if cfg.frame_filter != "none":
-            filtered = [filter_events(group.frame(f), tables, cfg)
-                        for f in range(group.x.shape[0])]
-            group = EventBatch(*(torch.stack(a) for a in zip(*(b for b, _ in filtered))))
-            priority = torch.stack([p for _, p in filtered])
+            group, priority = filter_events(group, tables, cfg)
         t_bin = scale_time(group.t, group.valid, cfg.t_px_scale)
         ev = event_disparity_scatter_group(group, t_bin, tables, **view, priority=priority)
     return group_tail(ev, tables, cfg, plan, display_only=display_only,

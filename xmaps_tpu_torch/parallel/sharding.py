@@ -332,9 +332,7 @@ def _event_sharded_row(
         # priority (which replaces the lane index: no offset)
         full = EventBatch(*(all_gather([getattr(s, k) for s in shards], leader) for k in _LANES),
                           count=shards[0].count.to(leader))
-        filtered = [filter_events(full.frame(f), tables, cfg) for f in range(full.x.shape[0])]
-        fb = EventBatch(*(torch.stack(a) for a in zip(*(b for b, _ in filtered))))
-        prio = torch.stack([p for _, p in filtered])
+        fb, prio = filter_events(full, tables, cfg)
 
         def part(a, s, dev):
             return a[:, s * lanes:(s + 1) * lanes].contiguous().to(dev)
