@@ -50,8 +50,10 @@ the port's paths:
   its group entry against their plain version on the card (the keep mask
   and the time bit-equal, the priority each survivor's rank by the plain
   version's dense rank, so order-equal over the survivors, and below the
-  capacity) on the demonstrator frames, their group of 12, the ESL frames
-  and frames with events outside the camera; kernel 1 with each filter's
+  capacity) on the demonstrator frames, their group of 12, the ESL frames,
+  the ESL frames' events as one frame of more lanes than the main path's
+  capacity (and a group of 2 such) and frames with events outside the
+  camera; kernel 1 with each filter's
   scatter priority against its plain version, then ``set_frame_filter``
   and the 12 demonstrator frames in both views for each of the four dedup
   filters, and ``first_per_yt`` (the largest key space) on 3 frames at the
@@ -140,6 +142,7 @@ import collections
 import contextlib
 import cProfile
 import dataclasses
+import functools
 import io
 import itertools
 import json
@@ -233,6 +236,10 @@ LIVE_S = 1.0
 #: host seconds of untimed calls on each side of a profiled window
 #: (device_events)
 PROFILE_PAD_S = 0.02
+#: the plain versions' calls a turn in phase 6's cold group and ESL timings
+#: (each is a host loop of many torch ops: 10 calls time it well, 50 took
+#: most of the phase)
+COLD_PLAIN_ITERS = 10
 #: bytes written between the calls of a cold timing (cold_device_ms)
 L2_FLUSH_BYTES = 256 << 20
 
@@ -632,9 +639,8 @@ def phase_filters(card, errs, engines, frames, eng_e, esl_frames):
     nothing)."""
     import torch
     from xmaps_tpu_torch.ops import _build
-    from xmaps_tpu_torch.ops.filters import FILTER_NAMES
-
     from xmaps_tpu_torch.ops.event_batch import EventBatch
+    from xmaps_tpu_torch.ops.filters import FILTER_NAMES
     from xmaps_tpu_torch.utils.synthetic import with_events_outside_camera
 
     log("phase 5b dedup frame filters:")
@@ -648,6 +654,15 @@ def phase_filters(card, errs, engines, frames, eng_e, esl_frames):
     dedup_parity(f"ESL, {len(esl_frames)} frames", eng_e,
                  EventBatch.stack_structured(esl_frames, cap, device="cuda"), errs,
                  names=["first_per_yt"])
+    # more lanes than the main path's capacity: the ESL frames' events as
+    # one frame (and a group of 2)
+    long = np.concatenate(esl_frames)
+    wide = EventBatch.stack_structured([long, long[::2]], len(long), device="cuda")
+    if len(long) <= cap:
+        raise AssertionError(f"{len(long)} lanes: not past the capacity {cap}")
+    dedup_parity(f"ESL, its {len(esl_frames)} frames as one", eng_e, wide.frame(0), errs)
+    dedup_parity(f"ESL, its {len(esl_frames)} frames as one, and half of them", eng_e, wide,
+                 errs)
     outside = [with_events_outside_camera(ev[: cap - 2000], np.random.default_rng(i),
                                           eng.cfg.camera_width, eng.cfg.camera_height, n=200)
                for i, ev in enumerate(frames[:3])]
@@ -974,7 +989,7 @@ def time_group(card, engines, frames, kernels_ms, shapes, groups):
     }
     warm_ms = {}
     for k, (kernel_fn, plain_fn) in pairs.items():
-        kernels_ms[k] = time_pair(kernel_fn, plain_fn, cold=True)
+        kernels_ms[k] = time_pair(kernel_fn, plain_fn, cold=True, plain_iters=COLD_PLAIN_ITERS)
         warm_ms[k] = device_ms(kernel_fn)[0]
     t = eng_p.tables
     lut_b, xmap_b = t.cam_map_packed.numel() * 4, t.x_map.numel() * 2
@@ -1026,7 +1041,7 @@ def time_kernel2_esl(card, eng, frames):
             (len(frames), crop_px, proj_px, projector_disparities(packed, t, plan))),
     }
     for k, (kernel_fn, plain_fn, shape) in rows.items():
-        km, pm = time_pair(kernel_fn, plain_fn, cold=True)
+        km, pm = time_pair(kernel_fn, plain_fn, cold=True, plain_iters=COLD_PLAIN_ITERS)
         bound = kernel_bytes(k, {k: shape}) / HBM_BYTES_PER_S * 1e3
         if bound > MAX_SHARE * km["ms"]:
             raise AssertionError(f"ESL {k}: share {bound / km['ms']:.4f} over {MAX_SHARE}")
@@ -1070,7 +1085,7 @@ def time_kernel1_esl(card, eng, frames):
     }
     for k, (kernel_fn, plain_fn, shape) in rows.items():
         assert_exact(f"ESL {k}", list(zip(kernel_fn()[:2], plain_fn()[:2])))
-        km, pm = time_pair(kernel_fn, plain_fn, cold=True)
+        km, pm = time_pair(kernel_fn, plain_fn, cold=True, plain_iters=COLD_PLAIN_ITERS)
         bound = kernel_bytes(k, {k: shape}) / HBM_BYTES_PER_S * 1e3
         if bound > MAX_SHARE * km["ms"]:
             raise AssertionError(f"ESL {k}: share {bound / km['ms']:.4f} over {MAX_SHARE}")
@@ -1268,21 +1283,38 @@ def device_ms(fn, iters=50):
     return (dev, "profiler", ev, by_name) if dev is not None else (ev, "cuda_events", ev, {})
 
 
-def cold_device_ms(fn, iters=50):
+#: the L2 flush's buffer and its device events' names, made once
+_FLUSH: dict = {}
+
+
+def l2_flush():
+    """(buffer, names): ``L2_FLUSH_BYTES`` to ``bitwise_not_`` and the
+    names of the device events that flush runs (profiled once)."""
+    import torch
+
+    if not _FLUSH:
+        buf = torch.zeros(L2_FLUSH_BYTES // 8, dtype=torch.int64, device="cuda")
+        _, names = profile_calls(buf.bitwise_not_, 4)
+        if not names:
+            raise AssertionError("the profiler recorded no device event of the L2 flush")
+        _FLUSH.update(buf=buf, names=set(names))
+    return _FLUSH["buf"], _FLUSH["names"]
+
+
+def cold_device_ms(fn, iters=50, checked=False):
     """``device_ms`` of ``fn`` with the L2 cache flushed before each call:
     each call follows a ``bitwise_not_`` of ``L2_FLUSH_BYTES`` (5x the
     H100's 50 MB L2, so the call reads its inputs from HBM and evicts the
     flush's dirty lines as it writes), whose device events are left out of
     the sum (the profiler's time only; the CUDA-event time includes them).
-    Raises if ``fn`` itself runs a kernel of the flush's name."""
-    import torch
-
-    buf = torch.zeros(L2_FLUSH_BYTES // 8, dtype=torch.int64, device="cuda")
-    _, flush = profile_calls(buf.bitwise_not_, 4)
-    _, own = profile_calls(fn, 4)
-    if not flush or set(flush) & set(own):
-        raise AssertionError(f"the L2 flush's device events {sorted(flush)} are not "
-                             f"apart from the call's {sorted(own)}")
+    Raises if ``fn`` itself runs a kernel of the flush's name (``checked``:
+    ``fn`` was checked so before)."""
+    buf, flush = l2_flush()
+    if not checked:
+        _, own = profile_calls(fn, 4)
+        if flush & set(own):
+            raise AssertionError(f"the L2 flush's device events {sorted(flush)} are not "
+                                 f"apart from the call's {sorted(own)}")
 
     def call():
         buf.bitwise_not_()
@@ -1295,18 +1327,20 @@ def cold_device_ms(fn, iters=50):
     return sum(names.values()), "profiler, L2 flushed", ev, names
 
 
-def time_pair(kernel_fn, plain_fn, cold=False):
+def time_pair(kernel_fn, plain_fn, cold=False, plain_iters=50):
     """Kernel vs plain in turns (plain, kernel, kernel, plain) after a
     warm-up of each; each entry is a mean of the two turns.  ``cold``:
-    each call finds the L2 cache flushed (``cold_device_ms``), else the
-    calls run back to back."""
+    each call finds the L2 cache flushed (``cold_device_ms``; each function
+    checked apart from the flush once), else the calls run back to back.
+    ``plain_iters``: the plain version's calls a turn (the kernel's: 50)."""
     kernel_fn()
     plain_fn()
     timer = cold_device_ms if cold else device_ms
-    p1 = timer(plain_fn)
+    again = functools.partial(cold_device_ms, checked=True) if cold else device_ms
+    p1 = timer(plain_fn, plain_iters)
     k1 = timer(kernel_fn)
-    k2 = timer(kernel_fn)
-    p2 = timer(plain_fn)
+    k2 = again(kernel_fn)
+    p2 = again(plain_fn, plain_iters)
 
     def mean(a, b):
         top = sorted(((k.replace("(anonymous namespace)::", ""), v) for k, v in b[3].items()),

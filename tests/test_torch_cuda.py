@@ -1586,18 +1586,18 @@ def _check_filtered(got, batch, lut, kw, name):
                                   "mean_first_last_per_xy"])
 def test_frame_dedup_filter_matches_plain_on_card(cuda, name, rig, float_t):
     """Kernel F's one-frame entry on frames 0 and 1 (empty) of
-    ``_filter_lanes`` and its group entry on F = 1 and 7: one launch a call,
-    and twice in a row (the scratch left zero)."""
+    ``_filter_lanes`` and its group entry on F = 1, 7 and 12: one launch a
+    call, and twice in a row (the scratch left zero)."""
     from xmaps_tpu_torch.ops.filters import apply_frame_filter, apply_frame_filter_group
 
-    batch, lut, kw = _filter_lanes(rig, 7, 3001, seed=len(name) + len(rig), float_t=float_t)
+    batch, lut, kw = _filter_lanes(rig, 12, 3001, seed=len(name) + len(rig), float_t=float_t)
     for f in (0, 1, 0):
         _build.reset_launch_counts()
         got = apply_frame_filter(batch.frame(f), None, name=name, cam_lut=lut, **kw)
         torch.cuda.synchronize()
         assert _build.LAUNCHES["frame_dedup_filter"] == 1
         _check_filtered(got, batch.frame(f), lut, kw, name)
-    for frames in (1, 7):
+    for frames in (1, 7, 12):
         part = EventBatch(*(a[:frames] for a in batch))
         _build.reset_launch_counts()
         got = apply_frame_filter_group(part, None, name=name, cam_lut=lut, **kw)
@@ -1605,6 +1605,79 @@ def test_frame_dedup_filter_matches_plain_on_card(cuda, name, rig, float_t):
         assert _build.LAUNCHES["frame_dedup_filter_group"] == 1
         assert sum(_build.LAUNCHES.values()) == 1
         _check_filtered(got, part, lut, kw, name)
+
+
+DEDUP_NAMES = ["first_per_yt", "first_per_xy", "last_per_xy", "mean_first_last_per_xy"]
+
+
+@pytest.mark.parametrize("name", DEDUP_NAMES)
+def test_frame_dedup_filter_long_frames_on_card(cuda, name):
+    """Frames of 98,405 lanes, past the main path's capacity: kernel F
+    against its plain version at the ESL rig, one frame and a group of 3
+    (295,215 lanes, more than the resident grid has threads on an H100, so
+    its grid-stride walk takes a lane a thread more than once), int and
+    float time."""
+    from xmaps_tpu_torch.ops.filters import apply_frame_filter, apply_frame_filter_group
+
+    n = 3 * 32768 + 101
+    for float_t in (False, True):
+        batch, lut, kw = _filter_lanes("esl", 3, n, seed=len(name), float_t=float_t)
+        got = apply_frame_filter(batch.frame(0), None, name=name, cam_lut=lut, **kw)
+        _check_filtered(got, batch.frame(0), lut, kw, name)
+        got = apply_frame_filter_group(batch, None, name=name, cam_lut=lut, **kw)
+        _check_filtered(got, batch, lut, kw, name)
+
+
+@pytest.mark.parametrize("name", DEDUP_NAMES)
+def test_frame_dedup_filter_large_key_space_on_card(cuda, name):
+    """An 8192 x 8192 camera (67,108,864 xy keys; first_per_yt over an
+    8200-wide rectified width): kernel F equals its plain version, one
+    frame and a group of 3, int and float time, and leaves its scratch
+    zero."""
+    from xmaps_tpu_torch.ops import filters as F
+
+    FILTER_RIGS["large_keys"] = (8192, 8192, 8200)
+    try:
+        for float_t in (False, True):
+            batch, lut, kw = _filter_lanes("large_keys", 3, 5003, seed=7 + len(name),
+                                           float_t=float_t)
+            got = F.apply_frame_filter(batch.frame(0), None, name=name, cam_lut=lut, **kw)
+            _check_filtered(got, batch.frame(0), lut, kw, name)
+            got = F.apply_frame_filter_group(batch, None, name=name, cam_lut=lut, **kw)
+            _check_filtered(got, batch, lut, kw, name)
+            torch.cuda.synchronize()
+            zeroed = F._SCRATCH[(batch.x.device, torch.cuda.current_stream())][0]
+            assert int(zeroed.count_nonzero()) == 0
+    finally:
+        del FILTER_RIGS["large_keys"]
+
+
+def test_frame_dedup_filter_sequence_on_one_stream_on_card(cuda):
+    """Filters A, B, A on one stream (and across key spaces: the
+    demonstrator, the ESL rig, the demonstrator): each call equals its
+    plain version, A's second call its first, and the scratch is zero
+    after each; one kernel F launch a call and nothing else of ours."""
+    from xmaps_tpu_torch.ops import filters as F
+
+    seq = [("demonstrator", "first_per_yt"), ("demonstrator", "mean_first_last_per_xy"),
+           ("demonstrator", "first_per_yt"), ("esl", "first_per_yt"),
+           ("demonstrator", "first_per_xy")]
+    first = {}
+    for rig, name in seq:
+        batch, lut, kw = _filter_lanes(rig, 1, 28672, seed=3)
+        one = batch.frame(0)
+        _build.reset_launch_counts()
+        got = F.apply_frame_filter(one, None, name=name, cam_lut=lut, **kw)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in _build.LAUNCHES.items() if v} == {"frame_dedup_filter": 1}
+        _check_filtered(got, one, lut, kw, name)
+        zeroed = F._SCRATCH[(one.x.device, torch.cuda.current_stream())][0]
+        assert int(zeroed.count_nonzero()) == 0
+        out = (got.batch.valid, got.batch.t, got.scatter_priority)
+        if (rig, name) in first:
+            for a, b in zip(out, first[(rig, name)]):
+                _equal(a, b)
+        first[(rig, name)] = [a.clone() for a in out]
 
 
 @pytest.mark.parametrize("camera_perspective", [False, True], ids=["projector", "camera"])

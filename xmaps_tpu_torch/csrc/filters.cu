@@ -14,8 +14,17 @@
 // What bounds it: bytes, 18 B a lane (x, y, p in, valid in and out,
 // priority out), 22 with first_per_yt's LUT read, 26 with the mean
 // filter's time read and written: ~0.5-0.75 MB at the demonstrator's
-// capacity of 28672 lanes, ~0.2 us at 3.35 TB/s.  Launch latency and the
-// three grid barriers dominate by an order of magnitude.
+// capacity of 28672 lanes, ~0.2 us at 3.35 TB/s.  It takes 11.6-15.0 us a
+// frame with the L2 cache flushed on an H100 SXM, split by its ablations
+// (experiments/filter_designs.py, PERF.md section 6): ~1.0 us the bare
+// cooperative launch, ~1.2 us each grid barrier, 2.3-3.3 us the first pass
+// (the cold lane loads and the atomics), 1.4-3.6 us each of the others
+// (their scattered round trips; 3.6 the tile scan of ESL first_per_yt's
+// 691 KB bitmap).  A design as thread-block clusters with the bitmap in
+// distributed shared memory (experiments/filter_clusters.cu) measured
+// slower for one frame: a cluster barrier costs ~0.8 us, one cluster a
+// frame starves the passes of memory parallelism, and a frame cut over 8
+// clusters loads every lane 8 times.
 //
 // What the design does about it: no sort and no fill.  One launch, four
 // phases over the lanes (a grid-stride walk over F x n lanes), three grid
