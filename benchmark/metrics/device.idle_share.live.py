@@ -1,0 +1,6 @@
+"""Device: the traced window's idle share, 100 x (1 - the union of the
+device's busy intervals over the window), in the live stream."""
+
+
+def read(run):
+    return run.idle_share()
