@@ -114,12 +114,48 @@ def test_cv_yaml_parse_matches(tmp_path):
     assert t_load(str(p)) == j_load(str(p))
 
 
-def _ast_without_imports(path):
-    """The module's AST with every import statement (at any depth) and the
-    JAX platform pin of the JAX package's CLIs taken out."""
+#: the dashboard counters only the port counts (the trigger finder's discard
+#: split by its cause)
+PORT_COUNTERS = {"trig span too long", "trig too few events"}
+
+#: the port's own parts of a copy, left out on both sides: utils/stats.py's
+#: tracer (span, records and their state), its module docstring and the
+#: method the port removed
+PORT_OWN = {
+    "utils/stats.py": {"__doc__", "TRACE_CAPACITY", "_name", "_tag", "_start", "_end",
+                       "_parent", "_dropped", "_stack", "Record", "_append", "_open", "_close",
+                       "_Span", "_Off", "_OFF", "span", "records", "dropped", "clear",
+                       "StatsPrinter.start_time_ns"},
+}
+
+#: the tracer's calls inside a copy's own code: a statement that makes one
+#: goes (``StatsPrinter.measure_time`` opens and closes its span so; the rest
+#: of the timer stays pinned to the original)
+TRACER_CALLS = {"utils/stats.py": {"_open", "_close"}}
+
+
+def _ast_without_imports(path, own=(), calls=()):
+    """The module's AST with every import statement (at any depth), the JAX
+    platform pin of the JAX package's CLIs and the port's tracing taken out
+    (a ``with span(...)`` block keeps its body; the dashboard counts of
+    ``PORT_COUNTERS`` go, and every statement that calls a name of
+    ``calls``), and the names of ``own`` (top-level, or ``Class.method``;
+    ``__doc__`` the docstring)."""
     import ast
 
     tree = ast.parse(path.read_text())
+
+    def named(node, prefix=""):
+        name = getattr(node, "name", None)
+        if isinstance(node, ast.Assign) and len(node.targets) == 1:
+            name = getattr(node.targets[0], "id", None)
+        if isinstance(node, ast.AnnAssign):
+            name = getattr(node.target, "id", None)
+        return name is not None and prefix + name in own
+
+    def calls_tracer(node):
+        return any(isinstance(n, ast.Call) and getattr(n.func, "id", None) in calls
+                   for n in ast.walk(node))
 
     class Strip(ast.NodeTransformer):
         def visit_Import(self, node):
@@ -128,33 +164,67 @@ def _ast_without_imports(path):
         def visit_ImportFrom(self, node):
             return None
 
+        def visit_Assign(self, node):
+            return None if calls_tracer(node.value) else node
+
         def visit_Expr(self, node):
             call = node.value
             if (isinstance(call, ast.Call) and isinstance(call.func, ast.Name)
                     and call.func.id == "respect_jax_platforms"):
                 return None
+            if calls_tracer(call):
+                return None
+            if (isinstance(call, ast.Call) and isinstance(call.func, ast.Attribute)
+                    and call.func.attr == "count" and call.args):
+                texts = {n.value for n in ast.walk(call.args[0])
+                         if isinstance(n, ast.Constant) and isinstance(n.value, str)}
+                if texts and texts <= PORT_COUNTERS:
+                    return None
             return node
 
-    return ast.dump(Strip().visit(tree))
+        def visit_With(self, node):
+            self.generic_visit(node)
+            if all(isinstance(i.context_expr, ast.Call)
+                   and getattr(i.context_expr.func, "id", None) == "span" for i in node.items):
+                return node.body
+            return node
+
+        def visit_ClassDef(self, node):
+            self.generic_visit(node)
+            node.body = [n for n in node.body if not named(n, node.name + ".")]
+            return node
+
+    tree = Strip().visit(tree)
+    body = tree.body
+    if "__doc__" in own and body and isinstance(body[0], ast.Expr) \
+            and isinstance(body[0].value, ast.Constant):
+        body = body[1:]
+    tree.body = [n for n in body if not named(n)]
+    return ast.dump(tree)
 
 
 @pytest.mark.parametrize("module", ["utils/ply.py", "utils/stats.py",
                                     "utils/eval_metrics.py", "apps/eval_table.py"])
 def test_eval_copies_equal_apart_from_imports(module):
     """The eval helpers the port carries as copies equal the originals
-    statement for statement; only their imports point elsewhere."""
+    statement for statement; only their imports point elsewhere, and
+    utils/stats.py holds the port's tracer besides (``PORT_OWN``), whose
+    span the dashboard timer opens and closes (``TRACER_CALLS``)."""
     from pathlib import Path
 
     repo = Path(__file__).resolve().parent.parent
     port = repo / "xmaps_tpu_torch" / module
-    assert _ast_without_imports(port) == _ast_without_imports(repo / "xmaps_tpu" / module)
+    own, calls = PORT_OWN.get(module, ()), TRACER_CALLS.get(module, ())
+    assert _ast_without_imports(port, own, calls) == \
+        _ast_without_imports(repo / "xmaps_tpu" / module, own, calls)
     assert "xmaps_tpu." not in port.read_text().replace("xmaps_tpu_torch.", "")
 
 
 @pytest.mark.parametrize("module", ["runtime/trigger_finder.py", "runtime/watchdog.py"])
 def test_runtime_copies_equal_apart_from_imports(module):
     """The streaming runtime's trigger finder (frame segmentation, with the
-    global-index bookkeeping) and watchdog are copies of the originals."""
+    global-index bookkeeping) and watchdog are copies of the originals, apart
+    from the port's spans and its split discard counter."""
     from pathlib import Path
 
     repo = Path(__file__).resolve().parent.parent

@@ -16,6 +16,7 @@ from typing import Iterator, Optional
 import numpy as np
 
 from xmaps_tpu_torch.io.evt_decoder import EVENT_DTYPE, EvtDecoder
+from xmaps_tpu_torch.utils.stats import span
 
 
 class FileEventsIterator:
@@ -65,14 +66,19 @@ class FileEventsIterator:
         for chunk in self._decoder:
             if len(chunk) == 0:
                 continue
-            pending = np.concatenate([pending, chunk]) if len(pending) else chunk
-            if t_next is None:
-                t_next = int(pending["t"][0]) + self.delta_t
-            # emit all complete packets
-            while len(pending) and int(pending["t"][-1]) >= t_next:
-                cut = int(np.searchsorted(pending["t"], t_next, side="left"))
-                yield pending[:cut]
-                pending = pending[cut:]
-                t_next += self.delta_t
+            with span("io.packetize"):
+                pending = np.concatenate([pending, chunk]) if len(pending) else chunk
+                if t_next is None:
+                    t_next = int(pending["t"][0]) + self.delta_t
+            # emit all complete packets; each span closes before its yield,
+            # so the consumer's time is not the source's
+            while True:
+                with span("io.packetize"):
+                    if not (len(pending) and int(pending["t"][-1]) >= t_next):
+                        break
+                    cut = int(np.searchsorted(pending["t"], t_next, side="left"))
+                    packet, pending = pending[:cut], pending[cut:]
+                    t_next += self.delta_t
+                yield packet
         if len(pending):
             yield pending

@@ -31,6 +31,8 @@ from typing import Iterator, Optional
 
 import numpy as np
 
+from xmaps_tpu_torch.utils.stats import span
+
 __all__ = [
     "EVENT_DTYPE",
     "EvtDecoder",
@@ -329,18 +331,20 @@ class EvtDecoder:
         if self._native is not None:
             lib, h = self._native
             while True:
-                xs = np.empty(self.chunk_events, dtype=np.uint16)
-                ys = np.empty(self.chunk_events, dtype=np.uint16)
-                ps = np.empty(self.chunk_events, dtype=np.int16)
-                ts = np.empty(self.chunk_events, dtype=np.int64)
-                n = lib.evt_decode(h, self.chunk_events, xs, ys, ps, ts)
-                if n <= 0:
-                    break
-                out = np.zeros(n, dtype=EVENT_DTYPE)
-                out["x"] = xs[:n]
-                out["y"] = ys[:n]
-                out["p"] = ps[:n]
-                out["t"] = ts[:n]
+                # closed before the yield: the consumer's time is not the decode's
+                with span("io.decode"):
+                    xs = np.empty(self.chunk_events, dtype=np.uint16)
+                    ys = np.empty(self.chunk_events, dtype=np.uint16)
+                    ps = np.empty(self.chunk_events, dtype=np.int16)
+                    ts = np.empty(self.chunk_events, dtype=np.int64)
+                    n = lib.evt_decode(h, self.chunk_events, xs, ys, ps, ts)
+                    if n <= 0:
+                        break
+                    out = np.zeros(n, dtype=EVENT_DTYPE)
+                    out["x"] = xs[:n]
+                    out["y"] = ys[:n]
+                    out["p"] = ps[:n]
+                    out["t"] = ts[:n]
                 yield out
         else:
             arr = self._npy

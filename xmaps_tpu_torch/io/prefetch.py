@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from xmaps_tpu_torch.ops.event_batch import EventBatch
+from xmaps_tpu_torch.utils.stats import span
 
 __all__ = [
     "HostStagingPool",
@@ -340,13 +341,16 @@ def stage_compact_group(
     pinned allocator keeps the buffer until its copy has run)."""
     dev = torch.device(device)
     f = len(frames)
-    buf = torch.empty(f * capacity + f, dtype=torch.int32, pin_memory=dev.type == "cuda")
+    with span("staging.copy"):  # its pinned buffer
+        buf = torch.empty(f * capacity + f, dtype=torch.int32, pin_memory=dev.type == "cuda")
     host = buf.numpy().view(np.uint32)
     counts = [min(len(evs), capacity) for evs in frames]
-    for i, (evs, n) in enumerate(zip(frames, counts)):
-        _pack_compact(evs, n, layout, host[i * capacity:(i + 1) * capacity])
-    host[f * capacity:] = counts
-    out = buf.to(dev, non_blocking=True) if dev.type == "cuda" else buf
+    with span("staging.pack"):
+        for i, (evs, n) in enumerate(zip(frames, counts)):
+            _pack_compact(evs, n, layout, host[i * capacity:(i + 1) * capacity])
+        host[f * capacity:] = counts
+    with span("staging.copy"):  # its enqueue
+        out = buf.to(dev, non_blocking=True) if dev.type == "cuda" else buf
     return CompactStagedGroup(
         word=out[:f * capacity].view(f, capacity), counts=out[f * capacity:],
         host_counts=tuple(counts),
@@ -711,7 +715,8 @@ class PacketRing:
         (all) resident."""
         if not len(evs):
             return None
-        out = self.frame_meta(gstart, gstart + len(evs), int(evs["t"][0]))
-        if out is None:
-            return None
-        return (*out, ring_time_bounds(evs, capacity))
+        with span("ring.frame"):
+            out = self.frame_meta(gstart, gstart + len(evs), int(evs["t"][0]))
+            if out is None:
+                return None
+            return (*out, ring_time_bounds(evs, capacity))

@@ -56,6 +56,7 @@ from xmaps_tpu_torch.parallel.sharding import (
     shard_staged_group,
     split_frames,
 )
+from xmaps_tpu_torch.utils.stats import span
 
 __all__ = ["XMapsDepthEngine", "resolve_device"]
 
@@ -378,24 +379,25 @@ class XMapsDepthEngine:
         layout that entry does not cover: it is assembled by torch ops
         (``assemble_ring_frame[_compact]``) and runs ``depth_frame``, the
         filter and its priority included."""
-        k = len(packets)
-        if not (0 < k <= RING_SLOTS_PER_FRAME and meta.shape == (3, k)):
-            raise ValueError(f"process_ring: {k} packets, meta {meta.shape}")
-        kw = dict(display_only=True, display_packed=True)
-        cap = self.cfg.event_capacity
-        rows = tuple(p.xy for p in packets)
-        if packets[0].tp is None:
-            # compact one-word packets (PacketRing built with RingLayout)
-            layout = self.ring_layout
-            if layout is None:
-                raise ValueError("1-word ring packets need the engine's ring_layout")
-            if t_bounds is not None and self.cfg.frame_filter == "none":
-                return ring_depth_frame(rows, meta, t_bounds, layout, self.tables, self.cfg,
-                                        self.plan, **kw)
-            batch = assemble_ring_frame_compact(rows, meta, cap, layout)
-        else:
-            batch = assemble_ring_frame(rows, tuple(p.tp for p in packets), meta, cap)
-        return depth_frame(batch, self.tables, self.cfg, self.plan, **kw)
+        with span("engine.ring"):
+            k = len(packets)
+            if not (0 < k <= RING_SLOTS_PER_FRAME and meta.shape == (3, k)):
+                raise ValueError(f"process_ring: {k} packets, meta {meta.shape}")
+            kw = dict(display_only=True, display_packed=True)
+            cap = self.cfg.event_capacity
+            rows = tuple(p.xy for p in packets)
+            if packets[0].tp is None:
+                # compact one-word packets (PacketRing built with RingLayout)
+                layout = self.ring_layout
+                if layout is None:
+                    raise ValueError("1-word ring packets need the engine's ring_layout")
+                if t_bounds is not None and self.cfg.frame_filter == "none":
+                    return ring_depth_frame(rows, meta, t_bounds, layout, self.tables, self.cfg,
+                                            self.plan, **kw)
+                batch = assemble_ring_frame_compact(rows, meta, cap, layout)
+            else:
+                batch = assemble_ring_frame(rows, tuple(p.tp for p in packets), meta, cap)
+            return depth_frame(batch, self.tables, self.cfg, self.plan, **kw)
 
     def dump_frame_csv(self, events: np.ndarray, csv_path: str) -> int:
         """Write one frame's per-event debug CSV: raw coords, rectified
@@ -435,13 +437,17 @@ class XMapsDepthEngine:
         ``EventBatch`` with a leading frame axis (the JAX engine's unsorted
         group staging).  ``device``: where to (default: the engine's; a
         mesh row's in ``process_frames_sharded``)."""
-        dev = self.device if device is None else device
-        layout = self.compact_layout
-        if (layout is not None and self.cfg.frame_filter == "none"
-                and all(np.issubdtype(ev.dtype["t"].type, np.integer)
-                        and fits_layout(ev, layout) for ev in frames)):
-            return stage_compact_group(frames, self.cfg.event_capacity, layout, device=dev)
-        return EventBatch.stack_structured(frames, self.cfg.event_capacity, device=dev)
+        with span("engine.stage_group"):
+            dev = self.device if device is None else device
+            layout = self.compact_layout
+            with span("staging.check"):
+                compact = (layout is not None and self.cfg.frame_filter == "none"
+                           and all(np.issubdtype(ev.dtype["t"].type, np.integer)
+                                   and fits_layout(ev, layout) for ev in frames))
+            if compact:
+                return stage_compact_group(frames, self.cfg.event_capacity, layout, device=dev)
+            with span("staging.copy"):
+                return EventBatch.stack_structured(frames, self.cfg.event_capacity, device=dev)
 
     def process_frames(
         self,

@@ -27,6 +27,8 @@ from pathlib import Path
 
 import torch
 
+from xmaps_tpu_torch.utils.stats import span
+
 __all__ = ["load", "launch", "LAUNCHES", "reset_launch_counts", "check", "NVCC_FLAGS",
            "build_dir"]
 
@@ -277,8 +279,9 @@ def launch(dev: torch.device, kernel: str, entry: str, *args) -> None:
     tensor lies on the current device, so no run there can show that
     fault: only a second card (or the guard) does.
     """
-    fn = getattr(load(), entry)
-    with torch.cuda.device(dev):
-        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
-    check(entry, err)
-    LAUNCHES[kernel] += 1
+    with span("kernel.launch", kernel):
+        fn = getattr(load(), entry)
+        with torch.cuda.device(dev):
+            err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+        check(entry, err)
+        LAUNCHES[kernel] += 1

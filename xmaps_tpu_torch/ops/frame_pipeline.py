@@ -69,6 +69,7 @@ from xmaps_tpu_torch.ops.filters import (
     apply_frame_filter_group,
 )
 from xmaps_tpu_torch.ops.image_tail import turbo_packed_lut
+from xmaps_tpu_torch.utils.stats import span
 
 __all__ = [
     "DeviceTables",
@@ -275,20 +276,21 @@ def group_depth_frames(
     frames), then binned as one (F, capacity) tensor.  Then kernel 1's
     group entry (one launch for the F frames) and the view's tail group
     entry (one call)."""
-    _check_display(display_only, display_packed)
-    view = scatter_view(cfg, plan)
-    if isinstance(group, CompactStagedGroup):
-        if layout is None or cfg.frame_filter != "none":
-            raise ValueError("1-word staged rows need their layout and frame_filter == 'none'")
-        ev = event_disparity_scatter_staged_group(group, layout, tables, **view)
-    else:
-        priority = None
-        if cfg.frame_filter != "none":
-            group, priority = filter_events(group, tables, cfg)
-        t_bin = scale_time(group.t, group.valid, cfg.t_px_scale)
-        ev = event_disparity_scatter_group(group, t_bin, tables, **view, priority=priority)
-    return group_tail(ev, tables, cfg, plan, display_only=display_only,
-                      display_packed=display_packed)
+    with span("engine.group"):
+        _check_display(display_only, display_packed)
+        view = scatter_view(cfg, plan)
+        if isinstance(group, CompactStagedGroup):
+            if layout is None or cfg.frame_filter != "none":
+                raise ValueError("1-word staged rows need their layout and frame_filter == 'none'")
+            ev = event_disparity_scatter_staged_group(group, layout, tables, **view)
+        else:
+            priority = None
+            if cfg.frame_filter != "none":
+                group, priority = filter_events(group, tables, cfg)
+            t_bin = scale_time(group.t, group.valid, cfg.t_px_scale)
+            ev = event_disparity_scatter_group(group, t_bin, tables, **view, priority=priority)
+        return group_tail(ev, tables, cfg, plan, display_only=display_only,
+                          display_packed=display_packed)
 
 
 def group_tail(

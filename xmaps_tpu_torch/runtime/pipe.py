@@ -34,7 +34,7 @@ from xmaps_tpu_torch.models.depth_pipeline import XMapsDepthEngine
 from xmaps_tpu_torch.ops.filters import FILTER_NAMES
 from xmaps_tpu_torch.runtime.trigger_finder import RobustTriggerFinder
 from xmaps_tpu_torch.runtime.watchdog import TimingWatchdog
-from xmaps_tpu_torch.utils.stats import SingleTimer, StatsPrinter
+from xmaps_tpu_torch.utils.stats import SingleTimer, StatsPrinter, span
 
 
 @dataclass
@@ -74,6 +74,8 @@ class DepthReprojectionPipe:
 
     _filter_idx: int = 0
     _pending: Optional[object] = None  # in-flight device FrameResult
+    _packets: int = 0  # packets seen, the ``pipe.packet`` spans' tag
+    _frames: int = 0  # frames handed over, the ``pipe.handover`` spans' tag
 
     def __post_init__(self):
         p = self.params
@@ -126,34 +128,36 @@ class DepthReprojectionPipe:
     # -- per packet -------------------------------------------------------
 
     def process_events(self, evs: np.ndarray):
-        behind = (
-            self.watchdog.is_processing_behind(evs)
-            and self.params.should_drop_frames
-        )
-        if behind:
-            self.trigger_finder.drop_frame()
-
-        with self.stats_printer.measure_time("act+pol filter"):
-            evs = self.act_filter.process(evs)
-
-        if self.ring is not None and len(evs):
+        self._packets += 1
+        with span("pipe.packet", self._packets):
+            behind = (
+                self.watchdog.is_processing_behind(evs)
+                and self.params.should_drop_frames
+            )
             if behind:
-                # The watchdog is dropping frames to catch up: shipping a
-                # doomed frame's bytes would only deepen the lag.  Keep the
-                # ring's numbering in sync; a surviving frame that spans
-                # this range takes the segmented fallback.
-                self.ring.skip_events(len(evs))
-            else:
-                with self.stats_printer.measure_time("prestage packet"):
-                    self.ring.stage_packets(evs)
+                self.trigger_finder.drop_frame()
 
-        self.trigger_finder.process_events(evs)
-        if self.ring is not None:
-            # everything below the finder's buffer base is final, emitted
-            # or not: free those packets after every packet (the JAX pipe
-            # frees them only after a dispatched frame, so a run of dropped
-            # or failed frames fills its ring and the next frames fall back)
-            self.ring.retire_below(self.trigger_finder.buffer_global_base)
+            with self.stats_printer.measure_time("act+pol filter"):
+                evs = self.act_filter.process(evs)
+
+            if self.ring is not None and len(evs):
+                if behind:
+                    # The watchdog is dropping frames to catch up: shipping a
+                    # doomed frame's bytes would only deepen the lag.  Keep the
+                    # ring's numbering in sync; a surviving frame that spans
+                    # this range takes the segmented fallback.
+                    self.ring.skip_events(len(evs))
+                else:
+                    with self.stats_printer.measure_time("prestage packet"):
+                        self.ring.stage_packets(evs)
+
+            self.trigger_finder.process_events(evs)
+            if self.ring is not None:
+                # everything below the finder's buffer base is final, emitted
+                # or not: free those packets after every packet (the JAX pipe
+                # frees them only after a dispatched frame, so a run of dropped
+                # or failed frames fills its ring and the next frames fall back)
+                self.ring.retire_below(self.trigger_finder.buffer_global_base)
 
     # -- per frame ---------------------------------------------------------
 
@@ -161,13 +165,15 @@ class DepthReprojectionPipe:
         """Indexed trigger-finder callback (pre-staging mode): the frame's
         events are already device-resident ring packets; dispatch ships
         nothing."""
-        self._flush_pending()
-        if not self._dispatch_ring(evs, gstart):
-            # overrun/hole: this frame's packets are not (all) resident
-            self.stats_printer.count("ring fallback")
-            self._dispatch_segmented(evs)
-        if self.low_latency:
+        self._frames += 1
+        with span("pipe.handover", self._frames):
             self._flush_pending()
+            if not self._dispatch_ring(evs, gstart):
+                # overrun/hole: this frame's packets are not (all) resident
+                self.stats_printer.count("ring fallback")
+                self._dispatch_segmented(evs)
+            if self.low_latency:
+                self._flush_pending()
 
     def _dispatch_ring(self, evs: np.ndarray, gstart: int) -> bool:
         """Dispatch the frame from its resident packets; False where they
@@ -187,10 +193,12 @@ class DepthReprojectionPipe:
         overlaps with the next frame's host-side segmentation (double
         buffering; the staging alternates host slots).
         """
-        self._flush_pending()
-        self._dispatch_segmented(evs)
-        if self.low_latency:
+        self._frames += 1
+        with span("pipe.handover", self._frames):
             self._flush_pending()
+            self._dispatch_segmented(evs)
+            if self.low_latency:
+                self._flush_pending()
 
     def _dispatch_segmented(self, evs: np.ndarray):
         with self.stats_printer.measure_time("stage batch"):

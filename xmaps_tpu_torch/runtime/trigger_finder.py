@@ -21,7 +21,7 @@ from typing import Callable, List, Optional
 import numpy as np
 
 from xmaps_tpu_torch.config import FRAME_PAUSED_THRESH_US, MIN_EVENTS_PER_FRAME
-from xmaps_tpu_torch.utils.stats import StatsPrinter
+from xmaps_tpu_torch.utils.stats import StatsPrinter, span
 
 
 @dataclass
@@ -145,7 +145,10 @@ class RobustTriggerFinder:
             return
 
         self.stats.add_metric("evs in buf", self._ev_buf.num_events())
-        ev_time = self.find_trigger()
+        # the whole scan: the buffer's concatenation, the pause search and
+        # the frame's handover
+        with span("trigger.scan"):
+            ev_time = self.find_trigger()
         if ev_time > 0:
             self.stats.count("trig ok")
         else:
@@ -157,6 +160,7 @@ class RobustTriggerFinder:
         the frame start time in us, or -1."""
         evs = self._ev_buf.pop_all()
 
+        # the pause search alone (np.diff), not the concatenation above
         with self.stats.measure_time("find pauses"):
             pauses = np.nonzero(
                 np.diff(evs["t"]) >= self.frame_paused_thresh_us
@@ -189,6 +193,9 @@ class RobustTriggerFinder:
                 self._gbase += int(next_idx) - 2
                 return start_time
             # malformed gap structure: discard up to the second pause
+            self.stats.count(
+                "trig span too long" if span > frame_period_us else "trig too few events"
+            )
             self._ev_buf.push(evs[next_idx:])
             self._gbase += int(next_idx)
             return -1

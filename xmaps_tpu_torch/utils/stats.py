@@ -1,20 +1,149 @@
-"""Observability: counters, running metrics, timers, terminal dashboard.
+"""Observability: counters, running metrics, timers, terminal dashboard,
+and the program's one tracer.
 
 The framework's profiling/metrics system, with the capability set of the
 reference's StatsPrinter (stats_printer.py:43-347): occurrence counters,
 scalar metric aggregation with local (since last print) and global windows,
 named context-manager timers around pipeline stages, a 1 Hz in-place ANSI
 dashboard, and one-shot setup timers.  Device-side stage timings come from
-jax.profiler traces (see XMapsDepthEngine); these host-side timers measure
-wall-clock per stage including dispatch.
+torch.profiler (``utils/profiling.py``, the benchmark's device trace);
+these host-side timers measure wall-clock per stage including dispatch.
+
+The tracer (``span``, ``records``) keeps records, not aggregates: a
+span's name, start, end, the enclosing open span and a tag.  It records
+only while a ``torch.profiler`` session records; otherwise ``span`` returns
+one shared no-op context after a single flag read, with no clock read.
+``records`` gives the times in seconds of ``time.perf_counter``, the clock
+a profiler trace is tied to by a marker kernel, so spans and device
+intervals share one time axis.  A dashboard timer (``measure_time``) is
+also a span of its label.
 """
 
 from __future__ import annotations
 
 import time
+from array import array
 from contextlib import contextmanager
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional
+
+from torch.autograd import profiler as _profiler
+
+#: records kept at most; later ones are dropped (and counted), never grown
+TRACE_CAPACITY = 1 << 20
+
+# The records, one column each (no object a record, so a long trace leaves
+# the garbage collector nothing to walk): name, start and end in
+# perf_counter ns (end -1 while open), the enclosing open span's index (-1
+# at the top) and the tag.
+_name: list = []
+_tag: list = []
+_start = array("q")
+_end = array("q")
+_parent = array("q")
+_dropped = 0
+#: the indices of the open spans, innermost last: one stack, as the
+#: program's host path runs on one thread
+_stack: list = []
+
+
+class Record(NamedTuple):
+    """One traced record, in seconds of ``time.perf_counter``; ``parent`` is
+    the index in ``records()`` of the span open around it (None at the top),
+    ``end`` None while the span is open."""
+
+    name: str
+    start: float
+    end: Optional[float]
+    parent: Optional[int]
+    tag: Any
+
+
+def _append(name: str, tag, start_ns: int, end_ns: int) -> int:
+    """Append a record; its index, or -1 where the buffer is full."""
+    global _dropped
+    i = len(_name)
+    if i >= TRACE_CAPACITY:
+        _dropped += 1
+        return -1
+    _name.append(name)
+    _tag.append(tag)
+    _start.append(start_ns)
+    _end.append(end_ns)
+    _parent.append(_stack[-1] if _stack else -1)
+    return i
+
+
+def _open(name: str, tag, start_ns: int) -> int:
+    """Start a span at ``start_ns``; its index (-1: dropped)."""
+    i = _append(name, tag, start_ns, -1)
+    if i >= 0:
+        _stack.append(i)
+    return i
+
+
+def _close(i: int) -> None:
+    """End span ``i`` now (nothing for -1: dropped, or not recording)."""
+    if i >= 0:
+        _end[i] = time.perf_counter_ns()
+        _stack.pop()
+
+
+class _Span:
+    __slots__ = ("name", "tag", "i")
+
+    def __init__(self, name: str, tag):
+        self.name, self.tag = name, tag
+
+    def __enter__(self):
+        self.i = _open(self.name, self.tag, time.perf_counter_ns())
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        _close(self.i)
+        return False
+
+
+class _Off:
+    """The shared no-op context of a span while nothing records."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, exc_type, exc, tb):
+        return False
+
+
+_OFF = _Off()
+
+
+def span(name: str, tag=None):
+    """A context manager recording the block as a span of ``name`` while a
+    profiler records; else the shared no-op context."""
+    if not _profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name, tag)
+
+
+def records() -> list:
+    """Every record kept, as ``Record``s in the order they started."""
+    return [Record(n, a / 1e9, None if b < 0 else b / 1e9, None if p < 0 else p, tag)
+            for n, a, b, p, tag in zip(_name, _start, _end, _parent, _tag)]
+
+
+def dropped() -> int:
+    """Records dropped since the last ``clear`` because the buffer was full."""
+    return _dropped
+
+
+def clear() -> None:
+    """Forget every record (call with no span open)."""
+    global _dropped
+    for col in (_name, _tag, _start, _end, _parent, _stack):
+        del col[:]
+    _dropped = 0
 
 
 def human_readable_time(ns: float) -> str:
@@ -90,9 +219,6 @@ class StatsPrinter:
         self._start_ns = time.perf_counter_ns()
         self._last_print_ns = self._start_ns
 
-    def start_time_ns(self) -> int:
-        return self._start_ns
-
     def count(self, name: str, inc: int = 1):
         self._local.count(name, inc)
         self._global.count(name, inc)
@@ -107,10 +233,15 @@ class StatsPrinter:
 
     @contextmanager
     def measure_time(self, name: str):
+        # The dashboard's timer; while a profiler records, the block is also
+        # a span of ``name`` that starts at the timer's own clock read and
+        # ends just before its last one (so it leaves out the aggregation).
         t0 = time.perf_counter_ns()
+        i = _open(name, None, t0) if _profiler._is_profiler_enabled else -1
         try:
             yield
         finally:
+            _close(i)
             self.add_time_measure_ns(name, time.perf_counter_ns() - t0)
 
     # -- output ----------------------------------------------------------
