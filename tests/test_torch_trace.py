@@ -231,24 +231,34 @@ def test_source_spans_never_cover_the_consumer(replay):
 
 
 def test_stage_group_spans():
+    """The group staging's spans, in order, on the 1-word and the 2-word
+    staging; the ``staging.pack`` span's tag is the route the pack took:
+    "native" for the decoder's record type, "numpy" for a group whose ``x``
+    is another integer type."""
     calib = make_synthetic_calibration()
     engine = XMapsDepthEngine.from_calibration(calib, device="cpu", event_capacity=2048,
                                                z_near=0.2, z_far=1.2)
     rng = np.random.default_rng(3)
     frames = [simulate_plane_events(calib, depth_m=0.5 + 0.05 * i, subsample=0.3, rng=rng)
               for i in range(3)]
+    other = [ev.astype([("x", "<i4"), ("y", "<u2"), ("p", "<i2"), ("t", "<i8")])
+             for ev in frames]
     with recording():
         staged = engine.stage_group(frames)
         group_depth_frames(staged, engine.tables, engine.cfg, engine.plan,
                            layout=engine.compact_layout, display_only=True,
                            display_packed=True)
+        engine.stage_group(other)
         engine.set_frame_filter("first_per_xy")  # the 2-word staging
         engine.stage_group(frames)
     engine.set_frame_filter("none")
     recs = records()
-    compact, two_word = named(recs, "engine.stage_group")
-    assert [recs[j].name for j in children(recs, compact)] == [
-        "staging.check", "staging.copy", "staging.pack", "staging.copy"]
+    compact, compact_other, two_word = named(recs, "engine.stage_group")
+    for i, route in ((compact, "native"), (compact_other, "numpy")):
+        kids = children(recs, i)
+        assert [recs[j].name for j in kids] == [
+            "staging.check", "staging.copy", "staging.pack", "staging.copy"]
+        assert recs[kids[2]].tag == route
     assert [recs[j].name for j in children(recs, two_word)] == ["staging.check", "staging.copy"]
     (group,) = named(recs, "engine.group")
     assert recs[group].parent is None and not children(recs, group)

@@ -22,15 +22,12 @@ Supported containers:
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import tempfile
 from pathlib import Path
 from typing import Iterator, Optional
 
 import numpy as np
 
+from xmaps_tpu_torch.ops._build import build_host_library, host_library_path
 from xmaps_tpu_torch.utils.stats import span
 
 __all__ = [
@@ -50,40 +47,19 @@ EVENT_DTYPE = np.dtype(
 
 #: the repository's host C++ decoder and stream filters
 CSRC = Path(__file__).resolve().parent.parent.parent / "csrc" / "evt_decoder.cpp"
-GXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
 
 _lib: Optional[ctypes.CDLL] = None
 
 
 def _lib_path() -> Path:
     """Build-artifact path, keyed by the source content and the flags."""
-    from xmaps_tpu_torch.ops._build import build_dir
-
-    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
-    h.update(CSRC.read_bytes())
-    return build_dir() / f"libevt_decoder-{h.hexdigest()[:16]}.so"
+    return host_library_path(CSRC, "libevt_decoder")
 
 
 def _build(path: Path) -> None:
-    """Compile ``csrc/evt_decoder.cpp`` to ``path`` under a temporary name
-    and rename it into place; raises if ``g++`` is missing or fails."""
-    path.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=path.parent)
-    os.close(fd)
-    cmd = ["g++", *GXX_FLAGS, "-o", tmp, str(CSRC)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-    except OSError as e:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"cannot run g++ to build the native event decoder: {e}"
-        ) from e
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"g++ failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, path)
+    """Compile ``csrc/evt_decoder.cpp`` to ``path`` (atomically; raises if
+    ``g++`` is missing or fails)."""
+    build_host_library(CSRC, path)
 
 
 def load_native() -> ctypes.CDLL:

@@ -26,7 +26,12 @@ host target presort (``presort_fn``) is not ported: the JAX pipe passes
 
 ``stage_compact_group`` stages F whole frames for ``process_frames`` (one
 program over the group): ``stage_compact``'s words for each frame as a
-row, then the F counts, in ONE host buffer and ONE copy.
+row, then the F counts, in ONE host buffer and ONE copy.  ``scan_group``
+checks the group for it.  Frames whose ``x``, ``y`` and ``t`` are ``<u2``,
+``<u2`` and ``<i8`` (the decoder's ``EVENT_DTYPE``) are scanned and packed
+by one native call a group (``io.stage_pack``) straight into the pinned
+buffer; any other frame by the NumPy code (``fits_layout``,
+``_pack_compact_numpy``), which is the native entries' plain version.
 
 The packet-ring prestaging (``PacketRing``, ``RingLayout``,
 ``assemble_ring_frame[_compact]``) is the port of the JAX package's
@@ -50,6 +55,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from xmaps_tpu_torch.io import stage_pack
 from xmaps_tpu_torch.ops.event_batch import EventBatch
 from xmaps_tpu_torch.utils.stats import span
 
@@ -60,6 +66,8 @@ __all__ = [
     "CompactLayout",
     "CompactStagedBatch",
     "CompactStagedGroup",
+    "GroupScan",
+    "scan_group",
     "stage_compact_group",
     "fits_layout",
     "unpack_staged_compact",
@@ -294,7 +302,18 @@ class HostStagingPool:
 
 def _pack_compact(evs: np.ndarray, n: int, lay: CompactLayout, word: np.ndarray) -> None:
     """Pack the first ``n`` events of one frame into the uint32 row
-    ``word`` at one word an event (host-binned time), zeroing the rest."""
+    ``word`` at one word an event (host-binned time), zeroing the rest:
+    natively where ``scan_group`` routes the frame so, else in NumPy."""
+    if not stage_pack.native_fields(evs):
+        _pack_compact_numpy(evs, n, lay, word)
+        return
+    head = evs[:n]  # the scan then reads the staged events alone (the fit is not asked)
+    _pack_rows([head], [n], lay, [word], scan_group([head], lay, n))
+
+
+def _pack_compact_numpy(evs: np.ndarray, n: int, lay: CompactLayout, word: np.ndarray) -> None:
+    """The plain version of the native pack (``io.stage_pack.pack``), for
+    one frame."""
     if n:
         ts = _scale_time_int_host(evs["t"][:n], lay.t_px_scale)
         np.left_shift(
@@ -315,12 +334,62 @@ def _pack_compact(evs: np.ndarray, n: int, lay: CompactLayout, word: np.ndarray)
 def fits_layout(evs: np.ndarray, layout: CompactLayout) -> bool:
     """Whether every event's x and y fit ``layout``'s widths, as a camera's
     own events do: then a word decodes to the event's own pixel (an event
-    outside them would wrap to another)."""
+    outside them would wrap to another).  The plain version of the native
+    scan's check (``io.stage_pack.scan``)."""
     for name, bits in (("x", layout.bits_x), ("y", layout.bits_y)):
         a = evs[name]
         if len(a) and (int(a.min()) < 0 or int(a.max()) >> bits):
             return False
     return True
+
+
+class GroupScan(NamedTuple):
+    """A group's check for 1-word staging (``scan_group``), valid while its
+    frames are unchanged."""
+
+    frames: tuple  # the frames it was made over
+    capacity: int  # the capacity it was made at
+    fits: bool  # every event's x and y fit the layout
+    native: tuple  # per frame: whether the native pack stages it
+    read: tuple  # the frames the native scan read (``stage_pack.native_fields``)
+    addresses: np.ndarray  # (5, len(read)) their ``stage_pack.addresses``
+    t_lo: np.ndarray  # (len(read),) int64 min t of their staged events
+    t_hi: np.ndarray  # (len(read),) int64 their max t
+
+
+def scan_group(frames: list, layout: CompactLayout, capacity: int) -> GroupScan:
+    """Check F frames for 1-word staging at ``capacity``: whether every
+    event's pixel fits ``layout`` (over all of a frame's events, as
+    ``fits_layout``), and which frames the native pack stages.  That is a
+    frame the native scan can read (``stage_pack.native_fields``) whose time
+    range over its first ``min(len, capacity)`` events, times the layout's
+    scale, is below ``stage_pack.MAX_SPAN``; the scan gives that range."""
+    read = tuple(i for i, ev in enumerate(frames) if stage_pack.native_fields(ev))
+    addresses = stage_pack.addresses([frames[i] for i in read])
+    fits, lo, hi = True, np.zeros(0, np.int64), np.zeros(0, np.int64)
+    if read:
+        fits, lo, hi = stage_pack.scan(addresses, capacity, layout.bits_x, layout.bits_y)
+    fits = fits and all(fits_layout(ev, layout) for i, ev in enumerate(frames) if i not in read)
+    native = [False] * len(frames)
+    for i, a, b in zip(read, lo.tolist(), hi.tolist()):
+        native[i] = max(b - a, 1) * layout.t_px_scale < stage_pack.MAX_SPAN
+    return GroupScan(tuple(frames), capacity, fits, tuple(native), read, addresses, lo, hi)
+
+
+def _pack_rows(frames: list, counts: list, lay: CompactLayout, rows: list,
+               scan: GroupScan) -> None:
+    """Pack each frame's first ``counts[i]`` events into the uint32 row
+    ``rows[i]``: one native call for the frames ``scan`` routes so, the
+    NumPy pack for the others."""
+    sel = [j for j, i in enumerate(scan.read) if scan.native[i]]
+    if sel:
+        idx = [scan.read[j] for j in sel]
+        stage_pack.pack(scan.addresses[:, sel], [rows[i] for i in idx], [counts[i] for i in idx],
+                        len(rows[0]), lay.bits_x, lay.bits_y, lay.t_px_scale,
+                        scan.t_lo[sel], scan.t_hi[sel])
+    for i, k in enumerate(scan.native):
+        if not k:
+            _pack_compact_numpy(frames[i], counts[i], lay, rows[i])
 
 
 class CompactStagedGroup(NamedTuple):
@@ -332,22 +401,34 @@ class CompactStagedGroup(NamedTuple):
 
 
 def stage_compact_group(
-    frames: list, capacity: int, layout: CompactLayout, *, device
+    frames: list, capacity: int, layout: CompactLayout, *, device,
+    scan: Optional[GroupScan] = None,
 ) -> CompactStagedGroup:
     """Stage F complete frames as ``stage_compact`` stages one (the same
     host binning and words, truncation at ``capacity``), into ONE host
     buffer of F rows followed by the F counts, and ONE copy of it to
     ``device`` (pinned and ``non_blocking`` for a CUDA device; PyTorch's
-    pinned allocator keeps the buffer until its copy has run)."""
+    pinned allocator keeps the buffer until its copy has run).  ``scan``:
+    the group's ``scan_group`` at ``capacity``, where the caller made it
+    (else it is made here); a scan made at another capacity or over other
+    frame arrays raises ``ValueError``.
+    The ``staging.pack`` span's tag is the route the pack takes: "native"
+    where every frame takes the native pack, else "numpy"."""
     dev = torch.device(device)
     f = len(frames)
+    if scan is None:
+        with span("staging.check"):
+            scan = scan_group(frames, layout, capacity)
+    elif (scan.capacity != capacity or len(scan.frames) != f
+          or any(a is not b for a, b in zip(scan.frames, frames))):
+        raise ValueError("the scan was made at another capacity or over other frames")
     with span("staging.copy"):  # its pinned buffer
         buf = torch.empty(f * capacity + f, dtype=torch.int32, pin_memory=dev.type == "cuda")
     host = buf.numpy().view(np.uint32)
     counts = [min(len(evs), capacity) for evs in frames]
-    with span("staging.pack"):
-        for i, (evs, n) in enumerate(zip(frames, counts)):
-            _pack_compact(evs, n, layout, host[i * capacity:(i + 1) * capacity])
+    with span("staging.pack", "native" if all(scan.native) else "numpy"):
+        _pack_rows(frames, counts, layout,
+                   [host[i * capacity:(i + 1) * capacity] for i in range(f)], scan)
         host[f * capacity:] = counts
     with span("staging.copy"):  # its enqueue
         out = buf.to(dev, non_blocking=True) if dev.type == "cuda" else buf

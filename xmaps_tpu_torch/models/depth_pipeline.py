@@ -20,6 +20,7 @@ import torch
 
 from xmaps_tpu_torch.calib.maps import CalibrationParams, CamProjMaps
 from xmaps_tpu_torch.config import PipelineConfig, RuntimeParams
+from xmaps_tpu_torch.io import stage_pack
 from xmaps_tpu_torch.io.prefetch import (
     RING_SLOTS_PER_FRAME,
     CompactLayout,
@@ -28,7 +29,7 @@ from xmaps_tpu_torch.io.prefetch import (
     RingLayout,
     assemble_ring_frame,
     assemble_ring_frame_compact,
-    fits_layout,
+    scan_group,
     stage_compact_group,
     unpack_staged,
 )
@@ -161,8 +162,12 @@ class XMapsDepthEngine:
             if trace:
                 print(f"[setup +{now - t0:7.2f}s] {label}", file=sys.stderr, flush=True)
 
-        # on cuda this builds (cold) or loads the kernel library
+        # on cuda this builds (cold) or loads the kernel library and the
+        # group staging's host library (g++), so no build lands in a timed
+        # call; a CPU engine loads the latter at its first native staging
         dev = resolve_device(device)
+        if dev.type == "cuda":
+            stage_pack.load()
         mark("device resolved (kernel library built or loaded)")
         cfg = PipelineConfig(
             camera_width=calib.camera_width,
@@ -433,21 +438,23 @@ class XMapsDepthEngine:
         and one copy a field: at one word an event
         (``io.prefetch.stage_compact_group``) where the pipeline is
         unfiltered, the 1-word layout exists, every timestamp is an integer
-        and every pixel fits the layout (``fits_layout``); else as an
+        and every pixel fits the layout (``io.prefetch.scan_group``); else as an
         ``EventBatch`` with a leading frame axis (the JAX engine's unsorted
         group staging).  ``device``: where to (default: the engine's; a
         mesh row's in ``process_frames_sharded``)."""
         with span("engine.stage_group"):
             dev = self.device if device is None else device
             layout = self.compact_layout
+            cap = self.cfg.event_capacity
+            scan = None
             with span("staging.check"):
-                compact = (layout is not None and self.cfg.frame_filter == "none"
-                           and all(np.issubdtype(ev.dtype["t"].type, np.integer)
-                                   and fits_layout(ev, layout) for ev in frames))
-            if compact:
-                return stage_compact_group(frames, self.cfg.event_capacity, layout, device=dev)
+                if (layout is not None and self.cfg.frame_filter == "none"
+                        and all(np.issubdtype(ev.dtype["t"].type, np.integer) for ev in frames)):
+                    scan = scan_group(frames, layout, cap)
+            if scan is not None and scan.fits:
+                return stage_compact_group(frames, cap, layout, device=dev, scan=scan)
             with span("staging.copy"):
-                return EventBatch.stack_structured(frames, self.cfg.event_capacity, device=dev)
+                return EventBatch.stack_structured(frames, cap, device=dev)
 
     def process_frames(
         self,

@@ -8,6 +8,12 @@ The library lands in ``build/xmaps_tpu_torch/`` beside the package
 and flags, so an edited source rebuilds and an unchanged one loads at once.
 There is no fallback: a missing ``nvcc`` or a failed build raises.
 
+The package's host C++ libraries (the event decoder, the group staging) are
+built the same way with ``g++`` (``host_library_path``,
+``build_host_library``): one library a source, named by its hash.  So
+decoding an EVT file and staging a ``process_frames`` group of the
+decoder's record type need ``g++`` on any device; a missing ``g++`` raises.
+
 Each kernel wrapper launches through ``launch``, which runs the C entry on
 the device of the wrapper's tensors and counts the launch in ``LAUNCHES``
 (by kernel name, a group entry over F frames apart from its one-frame
@@ -30,7 +36,7 @@ import torch
 from xmaps_tpu_torch.utils.stats import span
 
 __all__ = ["load", "launch", "LAUNCHES", "reset_launch_counts", "check", "NVCC_FLAGS",
-           "build_dir"]
+           "build_dir", "GXX_FLAGS", "host_library_path", "build_host_library"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("events.cu", "tail.cu", "esl.cu", "remap.cu", "warmup.cu", "store_loop.cu",
@@ -187,6 +193,37 @@ def build_dir() -> Path:
     if env:
         return Path(env)
     return CSRC.parent.parent / "build" / "xmaps_tpu_torch"
+
+
+#: g++ flags of the host libraries
+GXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
+
+
+def host_library_path(src: Path, stem: str) -> Path:
+    """Where the host library of the C++ source ``src`` is built, keyed by
+    the source's content and the flags."""
+    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+    h.update(src.read_bytes())
+    return build_dir() / f"{stem}-{h.hexdigest()[:16]}.so"
+
+
+def build_host_library(src: Path, path: Path) -> None:
+    """Compile ``src`` with g++ to ``path`` under a temporary name and rename
+    it into place, so a concurrent process never loads a half-written
+    library; raises if ``g++`` is missing or fails."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=path.parent)
+    os.close(fd)
+    cmd = ["g++", *GXX_FLAGS, "-o", tmp, str(src)]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    except OSError as e:
+        os.unlink(tmp)
+        raise RuntimeError(f"cannot run g++ to build {src.name}: {e}") from e
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"g++ failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
+    os.replace(tmp, path)
 
 
 #: where nvcc is looked for after PATH and $CUDA_HOME/bin
