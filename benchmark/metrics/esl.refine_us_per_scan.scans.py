@@ -1,0 +1,8 @@
+"""ESL pipeline (``esl.refine``: the refinement's launches over the
+group's stack): host µs a scan, over the window's calls."""
+
+from benchmark.metrics import _scans
+
+
+def read(run):
+    return _scans.us_per_scan(run, "esl.refine")

@@ -264,6 +264,45 @@ def test_stage_group_spans():
     assert recs[group].parent is None and not children(recs, group)
 
 
+def test_esl_call_spans():
+    """A traced ``ESLDepthEngine.process_scans`` call: one ``esl.call``
+    tagged with its scans, holding ``esl.stage``, ``esl.init``, ``esl.refine``,
+    ``esl.denoise`` and ``esl.fetch`` in that order, each closed; an
+    untraced call records nothing."""
+    from xmaps_tpu_torch.calib.maps import CalibrationParams
+    from xmaps_tpu_torch.models.esl_pipeline import ESLDepthEngine
+
+    c = make_synthetic_calibration(baseline=3.0, camera_width=96, camera_height=72,
+                                   projector_width=45, projector_height=80)
+    calib = CalibrationParams(96, 72, 45, 80, 135, 240, c.camera_K, c.camera_D,
+                              c.projector_K, c.projector_D, c.cam2proj_R, c.cam2proj_T)
+    engine = ESLDepthEngine.from_calibration(calib, "cpu")
+    scans = []
+    for z in (30.0, 33.0, 35.0):
+        ev = simulate_plane_events(c, depth_m=z, scan_upwards=False)
+        img = np.zeros((72, 96), np.float32)
+        img[ev["y"], ev["x"]] = ev["t"] + 1
+        scans.append(img)
+    engine.process_scans(scans)
+    assert records() == []
+    with recording():
+        engine.process_scans(scans)
+    recs = records()
+    (call,) = named(recs, "esl.call")
+    assert recs[call].parent is None and recs[call].tag == 3
+    kids = children(recs, call)
+    assert [recs[j].name for j in kids] == [
+        "esl.stage", "esl.init", "esl.refine", "esl.denoise", "esl.fetch"]
+    assert all(recs[recs[j].parent].name == "esl.call" for j in kids)
+    assert all(recs[j].end is not None and recs[j].start <= recs[j].end for j in kids + [call])
+    assert recs[kids[0]].start >= recs[call].start and recs[kids[-1]].end <= recs[call].end
+    with recording():
+        engine.process_scans(scans[:1], refine=False, fetch=False)
+    (first, second) = named(records(), "esl.call")
+    assert records()[second].tag == 1
+    assert [records()[j].name for j in children(records(), second)] == ["esl.stage", "esl.init"]
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():

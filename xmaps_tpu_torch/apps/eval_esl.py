@@ -16,8 +16,10 @@ esl/depth_optim_filtered pseudo-ground-truth read by the evaluation table).
 - bilateral + split-Bregman TV denoise (reference :242-247) via
   ``utils.denoise``.
 
-Every entry point runs on an explicit device: ``-device cuda`` (the
-default) needs a card, ``-device cpu`` runs the kernels' plain versions.
+``main`` runs the sequence's scans through ``models.esl_pipeline``'s
+``ESLDepthEngine.process_scans``, ``GROUP_SCANS`` (12) at a time.  Every entry
+point runs on an explicit device: ``-device cuda`` (the default) needs a
+card, ``-device cpu`` runs the kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -99,6 +101,16 @@ class RefinePlan:
         self.proj_w = int(proj_w)
         self.proj_h = int(proj_h)
         self.p03 = float(maps.P2[0, 3])
+        self._rays = {}
+
+    def rays(self, device) -> tuple:
+        """``(x_n, y_n)`` as float32 tensors on ``device``, uploaded at the
+        first call for that device."""
+        dev = torch.device(device)
+        if dev not in self._rays:
+            self._rays[dev] = (torch.from_numpy(self.x_n).to(dev),
+                               torch.from_numpy(self.y_n).to(dev))
+        return self._rays[dev]
 
 
 def _f32(v) -> float:
@@ -117,7 +129,10 @@ def to_int32_saturating(x: torch.Tensor) -> torch.Tensor:
 
 def depth_optimization_dense(depth_init, cam_image, plan: RefinePlan, iters: int = 64):
     """Refinement of every defined depth pixel at once (reference
-    depth_optimization, :104-129), on depth_init's device.
+    depth_optimization, :104-129), on depth_init's device: of one (H, W)
+    scan, or of each scan of an (F, H, W) group (``cam_image`` the same
+    shape), with the operations of a one-scan call in the same order, so
+    each scan of a group is bit-equal to its one-scan call.
 
     The cost is piecewise-constant in depth (integer projector pixel
     casts), so the bounded minimization is a two-level dense grid search:
@@ -141,7 +156,7 @@ def depth_optimization_dense(depth_init, cam_image, plan: RefinePlan, iters: int
 
     # stencil sums of the camera image (computed once per scan)
     cam = torch.as_tensor(cam_image, dtype=torch.float32).to(dev)
-    H, W = cam.shape
+    H, W = cam.shape[-2:]
     pad = torch.nn.functional.pad(cam, (w, w, w, w))
     S0 = torch.zeros_like(cam)
     S1 = torch.zeros_like(cam)
@@ -149,7 +164,7 @@ def depth_optimization_dense(depth_init, cam_image, plan: RefinePlan, iters: int
     B2 = 0.0
     for dy in range(-w, w + 1):
         for dx in range(-w, w + 1):
-            c = pad[w + dy:w + dy + H, w + dx:w + dx + W]
+            c = pad[..., w + dy:w + dy + H, w + dx:w + dx + W]
             b = (dx * Hp + dy) * inv_n
             S0 = S0 + c * c
             S1 = S1 + c
@@ -157,14 +172,14 @@ def depth_optimization_dense(depth_init, cam_image, plan: RefinePlan, iters: int
             B2 += b * b
     base = (S0 - 2.0 * X1) + _f32(B2)
 
-    xn = torch.from_numpy(plan.x_n).to(dev)
-    yn = torch.from_numpy(plan.y_n).to(dev)
+    xn, yn = plan.rays(dev)
     R = [[float(v) for v in row] for row in plan.R]
     T = [float(v) for v in plan.T]
     pK = plan.proj_K
     k1, k2, p1, p2, k3 = [float(v) for v in np.resize(plan.proj_D, 5)]
-    tiny = torch.tensor(_f32(1e-12), device=dev)
-    oob = torch.tensor(_f32(OOB_COST), device=dev)
+    # filled on the device: a host tensor copied in would wait for the card
+    tiny = torch.full((), _f32(1e-12), device=dev)
+    oob = torch.full((), _f32(OOB_COST), device=dev)
 
     def cost(rho):
         # project_and_backproject_punkt (reference :27-42), elementwise
@@ -264,7 +279,8 @@ def build_device_depth_init(
     package; here both remaps are kernel B whatever they say.
 
     Returns ``device_depth_init(cam_norm) -> (disp_cam, depth)``, float32
-    (cam_h, cam_w) tensors on ``device`` for a float32 scan on ``device``.
+    (cam_h, cam_w) tensors on ``device`` for a float32 scan on ``device``;
+    its ``disparity(cam_norm)`` gives ``disp_cam`` alone.
     """
     from xmaps_tpu_torch.ops.esl_search import (
         box_search_args,
@@ -308,10 +324,14 @@ def build_device_depth_init(
     r0, r1, c0, c1 = footprint_box((H_r, W_r), fp_rows, fp_cols)
     if r1 <= r0 or c1 <= c0:
 
+        def empty_disparity(cam_norm):
+            return torch.zeros(cam_shape, dtype=torch.float32, device=dev)
+
         def empty_depth_init(cam_norm):
-            zero = torch.zeros(cam_shape, dtype=torch.float32, device=dev)
+            zero = empty_disparity(cam_norm)
             return zero, zero.clone()
 
+        empty_depth_init.disparity = empty_disparity
         return empty_depth_init
     box_shape = (r1 - r0, c1 - c0)
 
@@ -336,11 +356,16 @@ def build_device_depth_init(
     # the box, minus its argument checks
     search = box_search_args(W_r, c0, c1, MIN_DISP, MAX_DISP)
 
-    def device_depth_init(cam_norm):
+    def device_disparity(cam_norm):
         cam_box = apply_remap_static(cam_norm, arrs_fwd, cfg_fwd)
         disp_box = esl_search_box(cam_box, prep, **search)
-        disp_cam = apply_remap_static(disp_box, arrs_b, cfg_b)
+        return apply_remap_static(disp_box, arrs_b, cfg_b)
+
+    def device_depth_init(cam_norm):
+        disp_cam = device_disparity(cam_norm)
         return disp_cam, depth_from_disparity(disp_cam, p03)
+
+    device_depth_init.disparity = device_disparity
 
     #: the static device arrays and the box search's arguments, for
     #: measuring each stage and the tables' memory
@@ -400,10 +425,9 @@ def main(argv=None):
     )
     args = parser.parse_args(argv)
 
-    from xmaps_tpu_torch.calib.maps import CalibrationParams, CamProjMaps
+    from xmaps_tpu_torch.calib.maps import CalibrationParams
     from xmaps_tpu_torch.models.depth_pipeline import resolve_device
-    from xmaps_tpu_torch.ops.esl_search import rows_monotone
-    from xmaps_tpu_torch.utils.denoise import bilateral_filter, tv_denoise_split_bregman
+    from xmaps_tpu_torch.models import esl_pipeline
 
     dev = resolve_device(args.device)
     esl_dir = os.path.join(args.object_dir, "esl")
@@ -422,10 +446,6 @@ def main(argv=None):
         projector_height=args.proj_height,
         rectification_scale=3.0,
     )
-    maps = CamProjMaps.build_cached(
-        calib, zero_undistort_proj_map=True,
-        cache_dir=os.path.expanduser("~/.cache/xmaps_tpu_torch"),
-    )
 
     scan_files = sorted(glob.glob(os.path.join(args.object_dir, "scans_np", "*.npy")))
     if not scan_files:
@@ -433,78 +453,38 @@ def main(argv=None):
         return 1
     print(f"Found {len(scan_files)} scans!")
 
-    # analytic projector ramp rectified into the rectified frame
-    # (reference :96-101 + :201)
-    proj_rect = maps.build_rectified_time_map(
-        scan_upwards=False, border_replicate=False
-    )
-    plan = RefinePlan(calib, maps, args.w, args.proj_width, args.proj_height)
-    p03 = float(maps.P2[0, 3])
-
-    # The fast path (kernels A and B) needs monotone projector rows (true
+    # The fast init (kernels A and B) needs monotone projector rows (true
     # for the rectified ramp); the brute force is bit-identical.
-    use_fast = not args.no_fast_search and rows_monotone(proj_rect)
-    if use_fast:
-        device_depth_init = build_device_depth_init(maps, calib, proj_rect, p03, dev)
+    engine = esl_pipeline.ESLDepthEngine.from_calibration(
+        calib, dev, window_size=args.w, fast_search=not args.no_fast_search,
+        maps_cache_dir=os.path.expanduser("~/.cache/xmaps_tpu_torch"),
+    )
 
-    def on_dev(a):
-        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+    def run(group):
+        """ESL's planes of a group of (index, scan), each saved as a file."""
+        t0 = time.time()
+        planes = engine.process_scans([scan for _, scan in group], refine=not args.skip_refine)
+        first, last = group[0][0], group[-1][0]
+        print(f"Completed scans {first}-{last} ({len(group)}) in time {time.time() - t0}")
+        for name, plane in zip(planes._fields, planes):
+            if plane is None:
+                continue
+            for (i, _), a in zip(group, plane.numpy()):
+                np.save(os.path.join(dirs[name], f"scans{str(i).zfill(3)}.npy"), a)
 
+    group = []
     for i in range(args.start_scan, min(args.start_scan + args.num_scans, len(scan_files))):
         cam_raw = np.load(scan_files[i])
         if np.count_nonzero(cam_raw) == 0:
             print(f"Skip camera npy file {scan_files[i]} since it is empty")
             continue
         print(f"Processing frame: {i}, camera npy file {scan_files[i]}")
-        cam_norm = normalize_scan(cam_raw)
-
-        t0 = time.time()
-        if use_fast:
-            disparity, depth_init = (
-                a.cpu().numpy() for a in device_depth_init(on_dev(cam_norm))
-            )
-        else:
-            disparity, depth_init = depth_init_dense(cam_norm, maps, proj_rect, p03, dev)
-        np.save(
-            os.path.join(dirs["disparity_init"], f"scans{str(i).zfill(3)}.npy"),
-            np.asarray(disparity, np.float32),
-        )
-        print(f"Completed depth initialization: {i} in time {time.time() - t0}")
-        np.save(
-            os.path.join(dirs["depth_init"], f"scans{str(i).zfill(3)}.npy"),
-            depth_init,
-        )
-
-        if args.skip_refine:
-            continue
-
-        # reference :211: zeros of the unrectified image -> 1/img[0,0]
-        cam_for_refine = cam_norm.copy()
-        with np.errstate(divide="ignore"):
-            fill = 1.0 / cam_norm[0, 0] if cam_norm[0, 0] != 0 else np.inf
-        cam_for_refine[cam_for_refine == 0] = fill
-
-        t0 = time.time()
-        depth_optim = depth_optimization_dense(
-            on_dev(depth_init), on_dev(cam_for_refine), plan
-        )
-        depth_optim_np = depth_optim.cpu().numpy()
-        print(f"Completed depth refinement: {i} in time {time.time() - t0}")
-        np.save(
-            os.path.join(dirs["depth_optim"], f"scans{str(i).zfill(3)}.npy"),
-            depth_optim_np,
-        )
-
-        t0 = time.time()
-        filtered = bilateral_filter(depth_optim, d=5, sigma_color=3.0, sigma_space=3.0)
-        filtered = tv_denoise_split_bregman(filtered, mu=0.5).cpu().numpy()
-        print(
-            f"Completed bilateral filter and denoising: {i} in time {time.time() - t0}"
-        )
-        np.save(
-            os.path.join(dirs["depth_optim_filtered"], f"scans{str(i).zfill(3)}.npy"),
-            filtered,
-        )
+        group.append((i, cam_raw))
+        if len(group) == esl_pipeline.GROUP_SCANS:
+            run(group)
+            group = []
+    if group:
+        run(group)
     return 0
 
 

@@ -13,7 +13,10 @@ Each takes a tensor (or a NumPy array, taken to the CPU) and runs on its
 device.  The median is exact.  The other two follow the JAX package's
 operation order, but cannot be bit-equal to it: ``exp`` differs between
 the libraries, and XLA on the CPU contracts multiply-adds into FMAs where
-PyTorch rounds each operation (the tests state the tolerance).
+PyTorch rounds each operation (the tests state the tolerance).  They take
+(..., H, W): each (H, W) slice is filtered alone, with the operations of a
+2-D call in the same order, so a slice of a stack is bit-equal to the 2-D
+call on it.
 """
 
 from __future__ import annotations
@@ -29,17 +32,20 @@ __all__ = [
 
 
 def _shift2d(a: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
-    """a shifted so out[y, x] = a[y+dy, x+dx]; vacated cells = 0."""
+    """a shifted so out[..., y, x] = a[..., y+dy, x+dx]; vacated cells = 0."""
     out = torch.zeros_like(a)
-    H, W = a.shape
-    out[max(-dy, 0):H - max(dy, 0), max(-dx, 0):W - max(dx, 0)] = (
-        a[max(dy, 0):H - max(-dy, 0), max(dx, 0):W - max(-dx, 0)]
+    H, W = a.shape[-2:]
+    out[..., max(-dy, 0):H - max(dy, 0), max(-dx, 0):W - max(dx, 0)] = (
+        a[..., max(dy, 0):H - max(-dy, 0), max(dx, 0):W - max(-dx, 0)]
     )
     return out
 
 
 def _pad_edge(img: torch.Tensor, r: int) -> torch.Tensor:
-    return F.pad(img[None, None], (r, r, r, r), mode="replicate")[0, 0]
+    """(..., H, W) -> (..., H + 2r, W + 2r), each slice's edges replicated."""
+    H, W = img.shape[-2:]
+    padded = F.pad(img.reshape(-1, 1, H, W), (r, r, r, r), mode="replicate")
+    return padded.reshape(*img.shape[:-2], H + 2 * r, W + 2 * r)
 
 
 def median_blur_3x3(img) -> torch.Tensor:
@@ -58,19 +64,20 @@ def median_blur_3x3(img) -> torch.Tensor:
 def bilateral_filter(
     img, d: int = 5, sigma_color: float = 3.0, sigma_space: float = 3.0
 ) -> torch.Tensor:
-    """Bilateral filter over a (d x d) window (cv2.bilateralFilter args).
+    """Bilateral filter over a (d x d) window (cv2.bilateralFilter args),
+    of an (H, W) image or each slice of an (..., H, W) stack.
 
     w(p, q) = exp(-|I(p)-I(q)|^2 / 2sc^2 - |p-q|^2 / 2ss^2), normalized.
     Border: replicate (OpenCV default).  The two scales are float32, as
     the JAX package's traced arguments.
     """
     img = torch.as_tensor(img, dtype=torch.float32)
-    H, W = img.shape
+    H, W = img.shape[-2:]
     r = d // 2
     padded = _pad_edge(img, r)
 
-    def f32(v):
-        return torch.tensor(v, dtype=torch.float32, device=img.device)
+    def f32(v):  # filled on the device: a host tensor copied in would wait for it
+        return torch.full((), v, dtype=torch.float32, device=img.device)
 
     sc, ss = f32(sigma_color), f32(sigma_space)
     inv2sc = f32(1.0) / (2.0 * sc * sc)
@@ -79,7 +86,7 @@ def bilateral_filter(
     den = torch.zeros_like(img)
     for dy in range(-r, r + 1):
         for dx in range(-r, r + 1):
-            q = padded[r + dy:r + dy + H, r + dx:r + dx + W]
+            q = padded[..., r + dy:r + dy + H, r + dx:r + dx + W]
             diff = q - img
             w = torch.exp(-(diff * diff) * inv2sc - (dy * dy + dx * dx) * inv2ss)
             num = num + w * q
@@ -110,7 +117,8 @@ def tv_denoise_split_bregman(
     niter: int = 20,
     niter_inner: int = 10,
 ) -> torch.Tensor:
-    """Anisotropic TV-L2 denoise via split Bregman (Goldstein-Osher).
+    """Anisotropic TV-L2 denoise via split Bregman (Goldstein-Osher), of
+    an (H, W) image or each slice of an (..., H, W) stack.
 
     Solves min_u mu/2 ||u - y||^2 + eps (|grad_x u|_1 + |grad_y u|_1) --
     the objective of the reference's pylops SplitBregman call
@@ -127,8 +135,8 @@ def tv_denoise_split_bregman(
     arguments, so every division is a true division.
     """
     y = torch.as_tensor(y, dtype=torch.float32)
-    mu = torch.tensor(mu, dtype=torch.float32, device=y.device)
-    eps = torch.tensor(eps, dtype=torch.float32, device=y.device)
+    mu = torch.full((), mu, dtype=torch.float32, device=y.device)
+    eps = torch.full((), eps, dtype=torch.float32, device=y.device)
     lam = 2.0 * eps  # standard penalty choice; convergence-rate only
     thresh = eps / lam
     diag = mu + 4.0 * lam
