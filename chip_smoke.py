@@ -3,7 +3,7 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-Builds the nine CUDA kernels (and the group entries of kernels 1, 2, 3
+Builds the ten CUDA kernels (and the group entries of kernels 1, 2, 3
 and F) from xmaps_tpu_torch/csrc/ with nvcc (one
 process a source, started together), checks each against its plain PyTorch
 version on the card (the per-engine colorize table that kernels 2 and 3 read
@@ -65,8 +65,10 @@ the port's paths:
 - the offline evaluation at the ESL geometry (phase 7): the four eval apps
   (ESL init + refine, MC3D, X-maps, table) through their ``main`` on 4
   synthetic plane scans, with kernels A and B (ESL search, static remap)
-  held against their plain versions and the brute force, and the outputs
-  against the port on the CPU; kernel A's bound counts the distinct table
+  held against their plain versions and the brute force, kernel R (ESL's
+  refinement at W = 7) against its plain version on one scan and a group
+  of 12, exactly, and timed beside it, and the outputs against the port on
+  the CPU; kernel A's bound counts the distinct table
   elements its search reads on the scan (``esl_table_elements``), kernel
   3's the table entries of the distinct disparities in its map
   (``distinct_disparities``);
@@ -212,10 +214,30 @@ KERNEL_INFO = {
         "xmaps_tpu_torch/csrc/filters.cu",
         "xmaps_tpu/ops/filters.py:83 (XLA stage, not a TPU kernel)",
     ),
+    # kernel R, ESL's refinement: the JAX package's is plain XLA, no Pallas
+    # kernel; added because the plain version's launches made the ESL
+    # ground truth host-bound
+    "esl_refine": (
+        "xmaps_tpu_torch/csrc/esl_refine.cu",
+        "xmaps_tpu/apps/eval_esl.py:144 (XLA, not a TPU kernel)",
+    ),
 }
-#: H100 SXM memory rate (NVIDIA data sheet), bytes/s: every kernel here
-#: moves far more bytes than it does operations, so its bound is bytes
+#: H100 SXM memory rate (NVIDIA data sheet), bytes/s: every kernel here but
+#: kernel R moves far more bytes than it does operations, so its bound is bytes
 HBM_BYTES_PER_S = 3.35e12
+#: H100 SXM FP32 instructions a second outside the tensor cores: 132 SMs x
+#: 128 lanes x 1.98 GHz (the data sheet's 67 TFLOP/s counts an FMA as two);
+#: kernel R's bound (it rounds every operation apart: no FMA)
+FP32_OPS_PER_S = 132 * 128 * 1.98e9
+#: kernel R's FP32 adds, multiplies and divisions (csrc/esl_refine.cu): a
+#: cost evaluation (the rays times rho 2, the rigid motion 18, two
+#: divisions, r2 3, the radial term 6, the distorted u and v 9 each, the
+#: pixel 4, the scan time 1, the quadratic 6) and its sample (2); a pixel's
+#: stencil sums, 5 a tap, and its other set-up (base 3, the range 4, each
+#: grid's step and start 3)
+ESL_REFINE_OPS_A_SAMPLE = 2 + 18 + 2 + 3 + 6 + 9 + 9 + 4 + 1 + 6 + 2
+ESL_REFINE_OPS_A_TAP = 5
+ESL_REFINE_OPS_A_PIXEL = 3 + 4 + 2 * 3
 #: the largest share of its bound a kernel's time may show (1, and the
 #: timing's noise): a larger one means a bound that does not bound
 MAX_SHARE = 1.05
@@ -1643,6 +1665,7 @@ def phase7_offline_eval(card, errs, kernels_ms, shapes, library_ms):
     import torch
     from xmaps_tpu_torch.apps import eval_esl, eval_mc3d, eval_table, eval_xmaps
     from xmaps_tpu_torch.calib.maps import CalibrationParams, CamProjMaps
+    from xmaps_tpu_torch.models import esl_pipeline
     from xmaps_tpu_torch.models.depth_pipeline import XMapsDepthEngine
     from xmaps_tpu_torch.ops.esl_search import esl_search_box, esl_search_box_plain, rows_monotone
     from xmaps_tpu_torch.ops.event_batch import EventBatch
@@ -1740,7 +1763,8 @@ def phase7_offline_eval(card, errs, kernels_ms, shapes, library_ms):
     launches = {}
     n = n_scans
     la, _ = run_app(eval_esl.main, args["cuda"] + ["-device", "cuda"],
-                    {"esl_disparity_search": n, "remap_gather": 2 * n})
+                    {"esl_disparity_search": n, "remap_gather": 2 * n,
+                     "esl_refine": -(-n // esl_pipeline.GROUP_SCANS)})
     esl_peak_mb = (torch.cuda.max_memory_allocated() - mem0) / 1e6
     lm, _ = run_app(eval_mc3d.main, args["cuda"] + ["-device", "cuda"], {})
     lx, _ = run_app(eval_xmaps.main, args["cuda"] + ["-device", "cuda"],
@@ -1755,7 +1779,8 @@ def phase7_offline_eval(card, errs, kernels_ms, shapes, library_ms):
         if row not in table:
             raise AssertionError(f"eval_table: no {row!r} row in\n{table}")
     log(f"  apps on the card: eval_esl launches {la['esl_disparity_search']} A + "
-        f"{la['remap_gather']} B for {n} scans (peak {esl_peak_mb:.1f} MB above the "
+        f"{la['remap_gather']} B + {la['esl_refine']} R for {n} scans (peak "
+        f"{esl_peak_mb:.1f} MB above the "
         f"resident tables), eval_mc3d no kernel, eval_xmaps "
         f"{lx['event_disparity_scatter']} x kernel 1 + {lx['colorize_camera']} x kernel 3 "
         f"(+ {lx['colorize_table']} table build) at capacity {ESL_CAM[0] * ESL_CAM[1]}")
@@ -1869,9 +1894,54 @@ def phase7_offline_eval(card, errs, kernels_ms, shapes, library_ms):
         km, pm = kernels_ms[k]
         log(f"  kernel {k}: {km['ms']:.5f} ms device ({km['source']}), plain {pm['ms']:.5f} ms"
             f" per scan (ESL box; remap = forward + back) {card}")
+    time_kernel_r(card, errs, kernels_ms, shapes, calib, maps, fast, cam_dev)
     tmp.cleanup()
     log(f"  phase 7 total {time.perf_counter() - t_phase:.1f} s {card}")
     return launches
+
+
+def time_kernel_r(card, errs, kernels_ms, shapes, calib, maps, fast, cam_dev):
+    """Phase 7: kernel R (ESL's refinement at W = 7, the ground truth's
+    window) against its plain version on the card, exactly, on one scan
+    and on a group of 12 (the phase's scans repeated), each timed in turns
+    (device ms a call; the plain version's 13,500 launches a group, 2 and 3
+    calls a turn); the one scan's pair is the kernel table's row."""
+    import torch
+    from xmaps_tpu_torch.apps import eval_esl
+    from xmaps_tpu_torch.ops.esl_refine import esl_refine, esl_refine_plain
+
+    plan = eval_esl.RefinePlan(calib, maps, 7, *ESL_PROJ)
+    cams = torch.stack([cam_dev[i % len(cam_dev)] for i in range(12)])
+    depth = torch.stack([fast(c)[1] for c in cams])
+    fill = torch.ones_like(cams[:, 0, 0]) / cams[:, 0, 0]
+    imgs = torch.where(cams == 0, fill[:, None, None], cams)
+    H, W = depth.shape[1:]
+    region = torch.zeros((H, W), dtype=torch.bool, device=depth.device)
+    region[plan.window_size:H - plan.window_size, plan.window_size:W - plan.window_size] = True
+    calls = {"scan": (depth[:1], imgs[:1]), "group": (depth, imgs)}
+    times = {}
+    for name, (d, c) in calls.items():
+        e = assert_exact(f"esl_refine ({name} of {len(d)}) vs plain on the card",
+                         [(esl_refine(d, c, plan), esl_refine_plain(d, c, plan))])
+        errs["esl_refine"] = max(errs.get("esl_refine", 0.0), e)
+        times[name] = time_pair(lambda: esl_refine(d, c, plan),
+                                lambda: esl_refine_plain(d, c, plan),
+                                plain_iters=3 if name == "scan" else 2)
+        shapes[f"esl_refine_{name}"] = (len(d), H, W, int(((d > 0) & region).sum()), plan.w, 64)
+    kernels_ms["esl_refine"] = times["scan"]
+    shapes["esl_refine"] = shapes["esl_refine_scan"]
+    for name, (km, pm) in times.items():
+        shape = {"esl_refine": shapes[f"esl_refine_{name}"]}
+        bound, by = kernel_bound_ms("esl_refine", shape)
+        bytes_ms = kernel_bytes("esl_refine", shape) / HBM_BYTES_PER_S * 1e3
+        if bound > MAX_SHARE * km["ms"]:
+            raise AssertionError(f"esl_refine ({name}): share {bound / km['ms']:.4f} over "
+                                 f"{MAX_SHARE}")
+        log(f"  kernel R esl_refine, {name} of {shape['esl_refine'][0]} at W = 7: "
+            f"{km['ms']:.5f} ms device (turns {km['turns'][0]:.5f}, {km['turns'][1]:.5f}), "
+            f"plain {pm['ms']:.5f} ms (turns {pm['turns'][0]:.5f}, {pm['turns'][1]:.5f}); "
+            f"{shape['esl_refine'][3]} px optimised; bound {bound:.5f} ms ({by}; bytes "
+            f"{bytes_ms:.5f} ms), share {bound / km['ms']:.4f}; exact {card}")
 
 
 @contextlib.contextmanager
@@ -3021,6 +3091,11 @@ def kernel_bytes(name, shapes) -> float:
         # filter reads and writes t
         return sum(18 * n + min(4 * pos, lut_b) + (8 * n if mean else 0)
                    for n, pos, lut_b, mean in s)
+    if name == "esl_refine":
+        # a call (F, H, W, optimised px, w, iters): depth0 and the camera
+        # image in, the refined depth out, the rays once
+        f, h, w, _, _, _ = s
+        return 12 * f * h * w + 8 * h * w
     if name == "warmup_add_one":
         (n,) = s
         return 8 * n
@@ -3029,6 +3104,25 @@ def kernel_bytes(name, shapes) -> float:
         n, h, w = s
         return 12 * n + 4 * h * w
     raise KeyError(name)
+
+
+def esl_refine_ops(shape) -> float:
+    """Kernel R's FP32 operations a call of ``shape`` (``kernel_bytes``'):
+    the optimised pixels' stencils, set-up and 2 (iters + 1) samples."""
+    _, _, _, px, w, iters = shape
+    return px * ((2 * w + 1) ** 2 * ESL_REFINE_OPS_A_TAP + ESL_REFINE_OPS_A_PIXEL
+                 + 2 * (iters + 1) * ESL_REFINE_OPS_A_SAMPLE)
+
+
+def kernel_bound_ms(name, shapes) -> tuple:
+    """(the least ms the card could take for ``name`` on this run's inputs,
+    what bounds it): its bytes over the HBM rate, and for kernel R the
+    larger of that and its FP32 operations over the FP32 issue rate."""
+    by_bytes = kernel_bytes(name, shapes) / HBM_BYTES_PER_S * 1e3
+    if name != "esl_refine":
+        return by_bytes, "bytes"
+    by_ops = esl_refine_ops(shapes[name]) / FP32_OPS_PER_S * 1e3
+    return (by_ops, "fp32 issue") if by_ops > by_bytes else (by_bytes, "bytes")
 
 
 def main() -> int:
@@ -3284,18 +3378,19 @@ def main() -> int:
 
     kernels = []
     for k in KERNEL_INFO:
-        bound_ms = kernel_bytes(k, shapes) / HBM_BYTES_PER_S * 1e3
+        bound_ms, bound_by = kernel_bound_ms(k, shapes)
         kernels.append(dict(
             name=k, route="cuda", source=KERNEL_INFO[k][0],
             replaces=KERNEL_INFO[k][1], launches=launches[k],
             max_abs_err=errs[k], ms=kernels_ms[k][0]["ms"],
-            plain_ms=kernels_ms[k][1]["ms"], bound_ms=bound_ms, bound_by="bytes",
+            plain_ms=kernels_ms[k][1]["ms"], bound_ms=bound_ms, bound_by=bound_by,
             library_ms=library_ms.get(k)))
         km = kernels_ms[k][0]
         top = f"; device events of the second, ms a call: {km['top']}" if km["top"] else ""
         log(f"  kernel {k}: {kernels[-1]['ms']:.5f} ms (turns {km['turns'][0]:.5f}, "
             f"{km['turns'][1]:.5f}{top}), "
-            f"bound {bound_ms:.6f} ms (bytes), share of bound {bound_ms / kernels[-1]['ms']:.4f},"
+            f"bound {bound_ms:.6f} ms ({bound_by}), share of bound "
+            f"{bound_ms / kernels[-1]['ms']:.4f},"
             f" library {library_ms.get(k)} ms {card}")
     over = {k["name"]: round(k["bound_ms"] / k["ms"], 4) for k in kernels
             if k["bound_ms"] > MAX_SHARE * k["ms"]}

@@ -10,6 +10,7 @@ These tests import nothing of JAX; the CPU tests hold the plain versions
 against the JAX package.
 """
 
+import contextlib
 import functools
 
 import numpy as np
@@ -1754,3 +1755,153 @@ def test_frame_dedup_filter_checks_inputs(cuda):
         apply = apply_frame_filter_group if b.x.dim() == 2 else apply_frame_filter
         with pytest.raises(ValueError, match=match):
             apply(b, None, name=name, cam_lut=lt, **kw)
+
+
+# -- kernel R: ESL's refinement at the ESL rig -----------------------------------
+
+
+@pytest.fixture(scope="module")
+def esl_gt(cuda, tmp_path_factory):
+    """The ``esl-gt`` configuration's engine on the card (maps built into a
+    temporary cache), 12 of its scans and their (depth0, filled image) on
+    the card, as the engine hands them to the refinement."""
+    import json
+    from pathlib import Path
+
+    from benchmark.kinds import scans as scan_kind
+    from test_torch_esl_engine import calibration
+    from xmaps_tpu_torch.apps.eval_esl import normalize_scan
+    from xmaps_tpu_torch.models.esl_pipeline import ESLDepthEngine
+
+    cfg = json.loads((Path(__file__).resolve().parent.parent / "benchmark" / "configs"
+                      / "esl_gt.json").read_text())
+    eng = ESLDepthEngine.from_calibration(
+        calibration(cfg["rig"]), "cuda", maps_cache_dir=str(tmp_path_factory.mktemp("esl_maps")))
+    scans = scan_kind.make_scans(cfg, {"groups": 1, "scans_per_group": 12}, 2**31 + 77)
+    planes = eng.process_scans(scans, refine=False, fetch=False)
+    cam = torch.from_numpy(np.stack([normalize_scan(s) for s in scans])).cuda()
+    fill = torch.ones_like(cam[:, 0, 0]) / cam[:, 0, 0]
+    img = torch.where(cam == 0, fill[:, None, None], cam)
+    return eng, scans, planes.depth_init.contiguous(), img.contiguous()
+
+
+def _esl_plan(eng, window_size, **fields):
+    from xmaps_tpu_torch.apps.eval_esl import RefinePlan
+
+    plan = RefinePlan(eng.maps.calib, eng.maps, window_size, eng.plan.proj_w, eng.plan.proj_h)
+    for k, v in fields.items():
+        setattr(plan, k, v)
+    return plan
+
+
+def _bits_equal(a, b):
+    """Bit for bit (NaNs included), float32 of one shape."""
+    assert a.dtype == b.dtype == torch.float32 and a.shape == b.shape
+    assert torch.equal(a.cpu().view(torch.int32), b.cpu().view(torch.int32))
+
+
+@pytest.mark.parametrize("window_size,iters", [(7, 64), (5, 50)], ids=["w3_64", "w2_50"])
+@pytest.mark.parametrize("F", [1, 5, 12])
+def test_esl_refine_kernel_matches_plain_on_card(esl_gt, F, window_size, iters):
+    """Kernel R on F scans of the ESL rig (one launch) against its plain
+    version on the card, bit for bit, and each scan of the group against
+    the kernel's one-scan call."""
+    from xmaps_tpu_torch.ops.esl_refine import esl_refine, esl_refine_plain
+
+    eng, _, depth, img = esl_gt
+    plan = _esl_plan(eng, window_size)
+    d, im = depth[:F].contiguous(), img[:F].contiguous()
+    _build.reset_launch_counts()
+    got = esl_refine(d, im, plan, iters)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {"esl_refine": 1}
+    want = esl_refine_plain(d, im, plan, iters)
+    _bits_equal(got, want)
+    assert (want > 0).sum() > 50_000 * F and ((want != d) & (want > 0)).sum() > 50_000 * F
+    for f in (0, F - 1):
+        _bits_equal(got[f], esl_refine(d[f].contiguous(), im[f].contiguous(), plan, iters))
+
+
+@pytest.mark.parametrize("distorted", [False, True], ids=["plain_projector", "distorted"])
+def test_esl_refine_kernel_crafted_pixels_on_card(esl_gt, distorted):
+    """Pixels that take the kernel down its rare paths, bit-equal to the
+    plain version on the card: a translation along x only and p03 = 256 put
+    depth 256's first sample at depth 0 (zp == 0, x_proj beyond int32, the
+    bounds test wrapping), huge depths (casts saturating), depth <= 0 and
+    NaN, the region's border lit, an all-lit scan; with and without the
+    projector's distortion."""
+    from xmaps_tpu_torch.ops.esl_refine import esl_refine, esl_refine_plain
+
+    eng, _, depth, img = esl_gt
+    fields = dict(T=np.array([eng.plan.T[0], 0, 0], np.float32), p03=256.0)
+    if distorted:
+        fields["proj_D"] = np.array([-0.11, 0.07, 0.0013, -0.0021, 0.015], np.float32)
+    plan = _esl_plan(eng, 7, **fields)
+    d, im = depth[:3].clone(), img[:3].clone()
+    d[0, 200:230, 300:340] = 256.0
+    im[0, 190:240, 290:350] = 0.05
+    d[0, 10, 10:15] = torch.tensor([-1.0, 0.0, -0.0, 1e-30, float("nan")])
+    d[1, 300:320, 5:30] = 1e18
+    d[1, 7, :] = d[1, :, 7] = d[1, -8, :] = d[1, :, -8] = 0.5
+    d[2] = torch.where(d[2] > 0, d[2], torch.full_like(d[2], 0.5))
+    got = esl_refine(d, im, plan)
+    want = esl_refine_plain(d, im, plan)
+    _bits_equal(got, want)
+    assert (want[0, 200:230, 300:340] >= 0).all() and (want[2, 7:-7, 7:-7] > 0).all()
+
+
+def test_esl_engine_group_is_one_kernel_r_launch_on_card(esl_gt, monkeypatch):
+    """``process_scans`` of 12 scans: one ``esl_refine`` launch (and kernels
+    A and B a scan); each scan equal to its one-scan call; its refined plane
+    equal to the plain version on the card; and on the device, inside the
+    ``esl.refine`` span, the refinement itself is one kernel R and nothing
+    else, beside only the empty pixels' fill (its few elementwise kernels
+    before it, whatever F)."""
+    from xmaps_tpu_torch.models import esl_pipeline
+    from xmaps_tpu_torch.ops.esl_refine import esl_refine_plain
+    from xmaps_tpu_torch.ops.warmup import warmup_add_one
+    from xmaps_tpu_torch.utils.profiling import device_events
+
+    eng, scans, depth, img = esl_gt
+    _build.reset_launch_counts()
+    planes = eng.process_scans(scans)
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
+        "esl_refine": 1, "esl_disparity_search": 12, "remap_gather": 24}
+    _bits_equal(planes.depth_optim.cuda(), esl_refine_plain(depth, img, eng.plan, 64))
+    for f in (0, 11):
+        one = eng.process_scans(scans[f:f + 1])
+        for a, b in zip(planes, one):
+            _bits_equal(a[f], b[0])
+
+    # warm-up kernel W launches mark the span's and the refinement's ends
+    tick = torch.zeros(8, dtype=torch.int32, device="cuda")
+    span, refine = esl_pipeline.span, esl_pipeline.depth_optimization_dense
+
+    def marked_span(name, tag=None):
+        if name != "esl.refine":
+            return span(name, tag)
+
+        @contextlib.contextmanager
+        def marked():
+            with span(name, tag):
+                warmup_add_one(tick)
+                yield
+                warmup_add_one(tick)
+        return marked()
+
+    def marked_refine(*args, **kw):
+        warmup_add_one(tick)
+        out = refine(*args, **kw)
+        warmup_add_one(tick)
+        return out
+
+    monkeypatch.setattr(esl_pipeline, "span", marked_span)
+    monkeypatch.setattr(esl_pipeline, "depth_optimization_dense", marked_refine)
+    for group in (scans, scans[:1]):
+        names = [e[0] for e in device_events(lambda: eng.process_scans(group), 1)]
+        marks = [i for i, n in enumerate(names) if "warmup_add_one" in n]
+        assert len(marks) == 4, names
+        fill, kernel, after = (names[a + 1:b] for a, b in zip(marks, marks[1:]))
+        assert len(kernel) == 1 and "esl_refine_kernel" in kernel[0] and not after, (kernel,
+                                                                                     after)
+        assert 1 <= len(fill) <= 4 and all("at::native" in n for n in fill), fill

@@ -67,6 +67,7 @@ from xmaps_tpu_torch.calib.maps import CamProjMaps as TMaps  # noqa: E402
 from xmaps_tpu_torch.models.depth_pipeline import XMapsDepthEngine as TEngine  # noqa: E402
 from xmaps_tpu_torch.ops.cuda_events import event_disparity_scatter  # noqa: E402
 from xmaps_tpu_torch.ops.disparity import scale_time  # noqa: E402
+from xmaps_tpu_torch.ops.esl_refine import to_int32_saturating  # noqa: E402
 from xmaps_tpu_torch.ops.event_batch import EventBatch as TBatch  # noqa: E402
 from xmaps_tpu_torch.ops.scatter import PACK  # noqa: E402
 
@@ -281,7 +282,7 @@ def test_int32_saturating_cast_matches_xla():
     x = np.array([3e9, -3e9, np.nan, 1e20, np.inf, -np.inf, 2147483520.0,
                   -2147483648.0, 1.5, -1.5, -2.7e9, 0.0], np.float32)
     want = np.asarray(jnp.asarray(x).astype(jnp.int32))
-    got = tesl.to_int32_saturating(torch.from_numpy(x))
+    got = to_int32_saturating(torch.from_numpy(x))
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
 

@@ -12,7 +12,8 @@ esl/depth_optim_filtered pseudo-ground-truth read by the evaluation table).
   binary-searches the camera footprint with kernel A and gathers back with
   kernel B, bit-identical to the brute force on monotone projector rows.
 - ``depth_optimization`` (reference :104-129): a bounded two-level grid
-  search of the closed-form patch cost (see the JAX package's docstring).
+  search of the closed-form patch cost (see the JAX package's docstring),
+  one launch of kernel R on the card (``ops.esl_refine``).
 - bilateral + split-Bregman TV denoise (reference :242-247) via
   ``utils.denoise``.
 
@@ -32,10 +33,10 @@ import time
 import numpy as np
 import torch
 
+from xmaps_tpu_torch.ops.esl_refine import constant_block, esl_refine
+
 MIN_DISP = 5  # reference eval/compute_depth_esl.py:75
 MAX_DISP = 900
-OOB_COST = 1.0e10  # dominates any in-bounds quadratic cost (reference: 100000)
-INT32_MAX = 2**31 - 1
 
 
 def disparity_init_dense(cam_rect, proj_rect, min_disp=MIN_DISP, max_disp=MAX_DISP):
@@ -102,6 +103,7 @@ class RefinePlan:
         self.proj_h = int(proj_h)
         self.p03 = float(maps.P2[0, 3])
         self._rays = {}
+        self._constants = {}
 
     def rays(self, device) -> tuple:
         """``(x_n, y_n)`` as float32 tensors on ``device``, uploaded at the
@@ -112,131 +114,27 @@ class RefinePlan:
                                torch.from_numpy(self.y_n).to(dev))
         return self._rays[dev]
 
-
-def _f32(v) -> float:
-    """A Python scalar rounded to float32, as JAX rounds a weakly typed
-    constant that meets a float32 array."""
-    return float(np.float32(v))
-
-
-def to_int32_saturating(x: torch.Tensor) -> torch.Tensor:
-    """float32 -> int32 truncation as XLA converts: values beyond the int32
-    range saturate and NaN becomes 0 (a plain cast is undefined there)."""
-    big = x >= 2.0**31
-    t = torch.where(torch.isnan(x) | big, 0.0, x).clamp_min(-(2.0**31)).int()
-    return torch.where(big, INT32_MAX, t)
+    def constants(self, device, iters: int) -> torch.Tensor:
+        """Kernel R's constant block (``ops.esl_refine.constant_block``) for
+        ``iters`` as a float32 tensor on ``device``, built from the plan's
+        fields at the first call for that device and ``iters``."""
+        key = (torch.device(device), int(iters))
+        if key not in self._constants:
+            self._constants[key] = torch.from_numpy(constant_block(self, iters)).to(key[0])
+        return self._constants[key]
 
 
 def depth_optimization_dense(depth_init, cam_image, plan: RefinePlan, iters: int = 64):
     """Refinement of every defined depth pixel at once (reference
     depth_optimization, :104-129), on depth_init's device: of one (H, W)
     scan, or of each scan of an (F, H, W) group (``cam_image`` the same
-    shape), with the operations of a one-scan call in the same order, so
-    each scan of a group is bit-equal to its one-scan call.
-
-    The cost is piecewise-constant in depth (integer projector pixel
-    casts), so the bounded minimization is a two-level dense grid search:
-    ``iters`` samples over [depth - diff, depth + diff], then ``iters``
-    more within one coarse step of the best sample.  First minimum wins
-    (np.argmin semantics).
-
-    The float32 rounding points are the JAX program's: Python constants
-    round to float32 where they meet an array, ``B2`` is summed in float64
-    on the host, XLA turns the divisions by the constants ``p03`` and
-    ``iters`` into multiplications by their float32 reciprocals, and the
-    float -> int casts saturate.
-    """
+    shape, taken to that device), each scan of a group bit-equal to its
+    one-scan call.  ``ops.esl_refine.esl_refine``: one launch of kernel R on
+    the card, the plain version (a two-level grid search of the closed-form
+    window cost, ``esl_refine_plain``) on the CPU."""
     depth0 = torch.as_tensor(depth_init, dtype=torch.float32)
-    dev = depth0.device
-    w = plan.w
-    ws = plan.window_size
-    Hp, Wp = plan.proj_h, plan.proj_w
-    K = (2 * w + 1) ** 2
-    inv_n = 1.0 / (Wp * Hp)
-
-    # stencil sums of the camera image (computed once per scan)
-    cam = torch.as_tensor(cam_image, dtype=torch.float32).to(dev)
-    H, W = cam.shape[-2:]
-    pad = torch.nn.functional.pad(cam, (w, w, w, w))
-    S0 = torch.zeros_like(cam)
-    S1 = torch.zeros_like(cam)
-    X1 = torch.zeros_like(cam)
-    B2 = 0.0
-    for dy in range(-w, w + 1):
-        for dx in range(-w, w + 1):
-            c = pad[..., w + dy:w + dy + H, w + dx:w + dx + W]
-            b = (dx * Hp + dy) * inv_n
-            S0 = S0 + c * c
-            S1 = S1 + c
-            X1 = X1 + c * _f32(b)
-            B2 += b * b
-    base = (S0 - 2.0 * X1) + _f32(B2)
-
-    xn, yn = plan.rays(dev)
-    R = [[float(v) for v in row] for row in plan.R]
-    T = [float(v) for v in plan.T]
-    pK = plan.proj_K
-    k1, k2, p1, p2, k3 = [float(v) for v in np.resize(plan.proj_D, 5)]
-    # filled on the device: a host tensor copied in would wait for the card
-    tiny = torch.full((), _f32(1e-12), device=dev)
-    oob = torch.full((), _f32(OOB_COST), device=dev)
-
-    def cost(rho):
-        # project_and_backproject_punkt (reference :27-42), elementwise
-        X = xn * rho
-        Y = yn * rho
-        Z = rho
-        xp = R[0][0] * X + R[0][1] * Y + R[0][2] * Z + T[0]
-        yp = R[1][0] * X + R[1][1] * Y + R[1][2] * Z + T[1]
-        zp = R[2][0] * X + R[2][1] * Y + R[2][2] * Z + T[2]
-        zp = torch.where(zp == 0, tiny, zp)
-        u = xp / zp
-        v = yp / zp
-        r2 = u * u + v * v
-        radial = 1.0 + r2 * (k1 + r2 * (k2 + r2 * k3))
-        ud = u * radial + (2 * p1) * u * v + p2 * (r2 + 2 * u * u)
-        vd = v * radial + p1 * (r2 + 2 * v * v) + (2 * p2) * u * v
-        px = float(pK[0, 0]) * ud + float(pK[0, 2])
-        py = float(pK[1, 1]) * vd + float(pK[1, 2])
-        xi = to_int32_saturating(px)  # trunc toward zero (reference :50)
-        yi = to_int32_saturating(py)
-        inb = (
-            (yi - w > 0) & (yi + w < Hp) & (xi - w > 0) & (xi + w < Wp)
-        )  # reference :54-59 (strict; int32 arithmetic wraps, as in XLA)
-        a = (xi * Hp + yi).float() * _f32(inv_n)
-        quad = base - (2.0 * a) * S1 + (K * a) * a
-        return torch.where(inb, quad, oob)
-
-    # reference :110 bound radius; XLA: x / p03 -> x * f32(1 / p03)
-    diff = (depth0 * depth0) * float(np.float32(1.0) / np.float32(plan.p03))
-    lo0 = depth0 - diff
-    hi0 = depth0 + diff
-    inv_iters = float(np.float32(1.0) / np.float32(iters))
-
-    def grid_minimize(center, radius, n):
-        # n+1 evenly spaced samples, clamped to the reference's bounds;
-        # center is sampled exactly at i = n/2 (n even)
-        step = (2.0 * radius) * inv_iters
-        best_cost = torch.full_like(center, torch.inf)
-        best_x = center
-        start = center - radius
-        for i in range(n + 1):
-            x = torch.clamp(start + float(i) * step, lo0, hi0)
-            f = cost(x)
-            better = f < best_cost
-            best_cost = torch.where(better, f, best_cost)
-            best_x = torch.where(better, x, best_x)
-        return best_x, step
-
-    x1, step1 = grid_minimize(depth0, diff, iters)
-    refined, _ = grid_minimize(x1, step1, iters)
-
-    # reference :107-108: only pixels with depth > 0, at least window_size
-    # away from every border, are optimized; the rest stay 0.
-    ys = torch.arange(H, device=dev)[:, None]
-    xs = torch.arange(W, device=dev)[None, :]
-    in_region = (ys >= ws) & (ys < H - ws) & (xs >= ws) & (xs < W - ws)
-    return torch.where((depth0 > 0) & in_region, refined, 0.0)
+    cam = torch.as_tensor(cam_image, dtype=torch.float32).to(depth0.device)
+    return esl_refine(depth0.contiguous(), cam.contiguous(), plan, iters)
 
 
 def normalize_scan(cam_image: np.ndarray) -> np.ndarray:

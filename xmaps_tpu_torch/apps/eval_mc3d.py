@@ -78,7 +78,7 @@ def mc3d_disparity_dense(cam_image, tables, proj_w: int, proj_h: int) -> torch.T
     """Dense MC3D correspondence (reference compute_disparity, :40-78) on
     ``cam_image``'s device (a tensor; NumPy goes to the CPU).  ``tables``:
     the host arrays of :func:`build_mc3d_tables`."""
-    from xmaps_tpu_torch.apps.eval_esl import to_int32_saturating
+    from xmaps_tpu_torch.ops.esl_refine import to_int32_saturating
 
     xc_np, yc_np, PX_np, PY_np, _, _ = tables
     rect_w3, rect_h3 = proj_w * 3, proj_h * 3  # reference rectified_shape

@@ -14,8 +14,9 @@ on one device:
    depth of the group's disparities at once (with ``fast_search=False``, or
    a projector surface whose rows are not monotone, the brute force
    ``depth_init_dense``);
-3. refine: the (F, H, W) stack at once (``depth_optimization_dense``), each
-   scan's empty pixels filled with 1 / its pixel (0, 0) as the eval does;
+3. refine: the (F, H, W) stack at once (``depth_optimization_dense``: one
+   launch of kernel R on the card), each scan's empty pixels filled with
+   1 / its pixel (0, 0) as the eval does;
 4. denoise: the bilateral filter and the split-Bregman TV denoise over the
    stack (``utils.denoise``);
 5. fetch: the planes into pinned host memory, then one synchronise.
@@ -115,7 +116,7 @@ class ESLDepthEngine:
         ``setup_timings`` (on ``cuda`` each mark waits for the card first;
         ``XMAPS_SETUP_TRACE=1`` prints every mark to stderr): the footprint
         box, the two packed remap indices and the search's tables, the
-        refinement's rays on the device, and a pinned buffer for
+        refinement's rays and constants on the device, and a pinned buffer for
         ``GROUP_SCANS`` scans."""
         trace = os.environ.get("XMAPS_SETUP_TRACE") == "1"
         t0 = time.perf_counter()
@@ -147,7 +148,8 @@ class ESLDepthEngine:
         plan = RefinePlan(calib, maps, window_size, calib.projector_width,
                           calib.projector_height)
         plan.rays(dev)
-        mark("refinement plan (rays on the device)")
+        plan.constants(dev, refine_iters)
+        mark("refinement plan (rays and kernel R's constants on the device)")
         eng = ESLDepthEngine(maps, proj_rect, plan, dev, depth_init, refine_iters)
         mark("pinned staging buffer")
         eng.setup_timings = timings

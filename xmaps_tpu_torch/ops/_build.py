@@ -40,7 +40,7 @@ __all__ = ["load", "launch", "LAUNCHES", "reset_launch_counts", "check", "NVCC_F
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("events.cu", "tail.cu", "esl.cu", "remap.cu", "warmup.cu", "store_loop.cu",
-           "filters.cu")
+           "filters.cu", "esl_refine.cu")
 HEADERS = ("common.cuh",)
 
 #: sm_90a for Hopper; no --use_fast_math: the f32 epilogue (p03/disp, the
@@ -66,6 +66,7 @@ LAUNCHES = {
     "tile_store_last": 0,
     "frame_dedup_filter": 0,
     "frame_dedup_filter_group": 0,
+    "esl_refine": 0,
 }
 
 _P = ctypes.c_void_p
@@ -175,6 +176,12 @@ _SIGNATURES = {
         _P, _I, _I,  # packed cam LUT (first_per_yt, else null), lut_h, lut_w
         _P, _P,  # scratch: zeroed (i32, zero at entry and exit), work (i32)
         _P, _P, _P,  # keep (bool), t (mean filter, else null), priority (i32) out
+        _P,  # stream
+    ],
+    "esl_refine": [  # kernel R over an (F, H, W) group of scans
+        _P, _P, _P, _P, _P,  # depth0, filled camera image, rays x_n, y_n (H, W), constants
+        _I, _I, _I, _I, _I, _I, _I, _I,  # F, H, W, w, window_size, Hp, Wp, iters
+        _P,  # refined depth (F, H, W) out
         _P,  # stream
     ],
 }
