@@ -1717,7 +1717,7 @@ def phase7_offline_eval(card, errs, kernels_ms, shapes, library_ms):
 
     # -- the fast depth init, its tables, kernels A and B against plain
     t0 = time.perf_counter()
-    fast = eval_esl.build_device_depth_init(maps, calib, proj_rect, p03, dev)
+    fast = esl_pipeline.build_device_depth_init(maps, calib, proj_rect, p03, dev)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     bound = fast.bound
@@ -1728,7 +1728,7 @@ def phase7_offline_eval(card, errs, kernels_ms, shapes, library_ms):
     log(f"  depth-init setup {setup_s:.2f} s: box {box[0]}x{bound['forward'][0].shape[1]} "
         f"(tables {box[0]}x{box[1]}), prep tables {prep_mb:.1f} MB, packed remap indices "
         f"{remap_mb:.1f} MB on the card {card}")
-    cams = [eval_esl.normalize_scan(c) for c in cams_raw]
+    cams = [esl_pipeline.normalize_scan(c) for c in cams_raw]
     cam_dev = [torch.from_numpy(c).to(dev) for c in cams]
     fwd, back, prep, search = bound["forward"], bound["back"], bound["prep"], bound["search"]
     cam_box = remap_gather(cam_dev[0], *fwd)
@@ -1746,7 +1746,7 @@ def phase7_offline_eval(card, errs, kernels_ms, shapes, library_ms):
         f"{int((disp_box != 0).sum())} disparities; camera view {int((disp_cam != 0).sum())})")
     for i in range(2):
         got = fast(cam_dev[i])
-        want = eval_esl.depth_init_dense(cams[i], maps, proj_rect, p03, dev)
+        want = esl_pipeline.depth_init_dense(cams[i], maps, proj_rect, p03, dev)
         assert_exact(f"ESL depth init scan {i}: kernels vs brute force",
                      [(got[0].cpu(), torch.from_numpy(want[0])),
                       (got[1].cpu(), torch.from_numpy(want[1]))])
@@ -1836,19 +1836,19 @@ def phase7_offline_eval(card, errs, kernels_ms, shapes, library_ms):
         launches[k] = launches.get(k, 0) + v
 
     # -- per-scan times, device (profiler) and wall
-    plan = eval_esl.RefinePlan(calib, maps, 3, *ESL_PROJ)
+    plan = esl_pipeline.RefinePlan(calib, maps, 3, *ESL_PROJ)
     disp0, depth0 = fast(cam_dev[0])
     cam_ref = cams[0].copy()
     cam_ref[cam_ref == 0] = 1.0 / cam_ref[0, 0] if cam_ref[0, 0] != 0 else np.inf
     cam_ref = torch.from_numpy(cam_ref).to(dev)
-    optim = eval_esl.depth_optimization_dense(depth0, cam_ref, plan)
+    optim = esl_pipeline.depth_optimization_dense(depth0, cam_ref, plan)
     raw0 = torch.from_numpy(cams_raw[0].astype(np.float32)).to(dev)
     tables = eval_mc3d.build_mc3d_tables(calib, *ESL_PROJ, *ESL_CAM)
     stages = (
         ("ESL depth init (kernels A+B)", lambda: fast(cam_dev[0]), 20),
-        ("ESL depth init brute force", lambda: eval_esl.depth_init_dense(
+        ("ESL depth init brute force", lambda: esl_pipeline.depth_init_dense(
             cams[0], maps, proj_rect, p03, dev), 1),
-        ("ESL refinement", lambda: eval_esl.depth_optimization_dense(depth0, cam_ref, plan), 3),
+        ("ESL refinement", lambda: esl_pipeline.depth_optimization_dense(depth0, cam_ref, plan), 3),
         ("ESL denoise (bilateral + TV)", lambda: tv_denoise_split_bregman(
             bilateral_filter(optim, d=5, sigma_color=3.0, sigma_space=3.0), mu=0.5), 3),
         ("MC3D (median + search)", lambda: eval_mc3d.mc3d_disparity_dense(
@@ -1907,10 +1907,10 @@ def time_kernel_r(card, errs, kernels_ms, shapes, calib, maps, fast, cam_dev):
     (device ms a call; the plain version's 13,500 launches a group, 2 and 3
     calls a turn); the one scan's pair is the kernel table's row."""
     import torch
-    from xmaps_tpu_torch.apps import eval_esl
+    from xmaps_tpu_torch.models import esl_pipeline
     from xmaps_tpu_torch.ops.esl_refine import esl_refine, esl_refine_plain
 
-    plan = eval_esl.RefinePlan(calib, maps, 7, *ESL_PROJ)
+    plan = esl_pipeline.RefinePlan(calib, maps, 7, *ESL_PROJ)
     cams = torch.stack([cam_dev[i % len(cam_dev)] for i in range(12)])
     depth = torch.stack([fast(c)[1] for c in cams])
     fill = torch.ones_like(cams[:, 0, 0]) / cams[:, 0, 0]

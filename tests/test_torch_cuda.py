@@ -455,9 +455,10 @@ def test_esl_search_kernel_matches_plain_on_card(cuda, W):
     from xmaps_tpu_torch.ops.esl_search import esl_disparity_search, esl_search_prep
 
     cam, proj = _monotone_case(W, 48, W, (11, 37, 70, 300))
-    kw = dict(min_disp=5, max_disp=200, row_range=(11, 37), col_range=(70, 300))
+    prep_kw = dict(max_disp=200, row_range=(11, 37), col_range=(70, 300))
+    kw = dict(prep_kw, min_disp=5)
     want = esl_disparity_search(torch.from_numpy(cam), torch.from_numpy(proj), **kw)
-    prep = esl_search_prep(torch.from_numpy(proj).cuda(), **kw)
+    prep = esl_search_prep(torch.from_numpy(proj).cuda(), **prep_kw)
     _build.reset_launch_counts()
     got = esl_disparity_search(torch.from_numpy(cam).cuda(), None, prep=prep, **kw)
     torch.cuda.synchronize()
@@ -524,8 +525,8 @@ def test_remap_gather_refuses_misaligned_index(cuda):
 def test_device_depth_init_on_card_matches_cpu(cuda):
     """The ESL fast path on the card (one launch of kernel A, two of kernel
     B) equals the CPU port and the brute force."""
-    from xmaps_tpu_torch.apps.eval_esl import build_device_depth_init, depth_init_dense
     from xmaps_tpu_torch.calib.maps import CamProjMaps
+    from xmaps_tpu_torch.models.esl_pipeline import build_device_depth_init, depth_init_dense
 
     calib = make_synthetic_calibration(camera_width=64, camera_height=48, projector_width=90,
                                        projector_height=160, rectification_scale=3.0)
@@ -572,9 +573,9 @@ def test_pinned_staging_matches_pageable(cuda, compact):
     is held busy, so every copy is still queued when the host comes round
     to its slot again: the CUDA event recorded after a slot's copy must
     hold the refill back.  Every batch equals pageable staging."""
-    from xmaps_tpu_torch.io.prefetch import (
+    from xmaps_tpu_torch.io.prefetch import HostStagingPool
+    from xmaps_tpu_torch.ops.staged import (
         CompactLayout,
-        HostStagingPool,
         unpack_staged,
         unpack_staged_compact,
     )
@@ -768,11 +769,12 @@ def test_event_scatter_staged_on_card(cuda, camera_perspective):
     staged as the pipe stages them, at count 0, below the capacity and at
     the capacity, and random words filling 32 bits (bit 31 set) at a
     layout of 7 + 7 + 18 bits; one launch a call."""
-    from xmaps_tpu_torch.io.prefetch import CompactLayout, HostStagingPool
+    from xmaps_tpu_torch.io.prefetch import HostStagingPool
     from xmaps_tpu_torch.ops.cuda_events import (
         event_disparity_scatter_staged,
         event_disparity_scatter_staged_plain,
     )
+    from xmaps_tpu_torch.ops.staged import CompactLayout
 
     eng = _engine(camera_perspective)
     cfg, plan = eng.cfg, eng.plan
@@ -938,7 +940,8 @@ def test_ring_host_row_guard(cuda):
     row, queued on the stream right after its copy, must hold the words
     that were staged."""
     from xmaps_tpu_torch.io.evt_decoder import EVENT_DTYPE
-    from xmaps_tpu_torch.io.prefetch import PacketRing, RingLayout
+    from xmaps_tpu_torch.io.prefetch import PacketRing
+    from xmaps_tpu_torch.ops.staged import RingLayout
 
     layout = RingLayout.for_camera(640, 480)
     ring = PacketRing(packet_capacity=4096, n_slots=16, device=cuda, layout=layout)
@@ -1363,9 +1366,10 @@ def test_wrappers_launch_on_their_tensors_card(cuda, cards, camera_perspective):
         idx = torch.from_numpy(rng.integers(-1, src.numel(), (31, 33)).astype(np.int32)).to(dev)
         _equal(remap_gather(src, idx), remap_gather_plain(src, idx))
         cam, proj = _monotone_case(420, 48, 420, (11, 37, 70, 300))
-        kw = dict(min_disp=5, max_disp=200, row_range=(11, 37), col_range=(70, 300))
+        prep_kw = dict(max_disp=200, row_range=(11, 37), col_range=(70, 300))
+        kw = dict(prep_kw, min_disp=5)
         want = esl_disparity_search(torch.from_numpy(cam), torch.from_numpy(proj), **kw)
-        prep = esl_search_prep(torch.from_numpy(proj).to(dev), **kw)
+        prep = esl_search_prep(torch.from_numpy(proj).to(dev), **prep_kw)
         _equal(esl_disparity_search(torch.from_numpy(cam).to(dev), None, prep=prep, **kw), want)
         torch.cuda.synchronize(dev)
         assert torch.cuda.current_device() == 0
@@ -1770,8 +1774,7 @@ def esl_gt(cuda, tmp_path_factory):
 
     from benchmark.kinds import scans as scan_kind
     from test_torch_esl_engine import calibration
-    from xmaps_tpu_torch.apps.eval_esl import normalize_scan
-    from xmaps_tpu_torch.models.esl_pipeline import ESLDepthEngine
+    from xmaps_tpu_torch.models.esl_pipeline import ESLDepthEngine, normalize_scan
 
     cfg = json.loads((Path(__file__).resolve().parent.parent / "benchmark" / "configs"
                       / "esl_gt.json").read_text())
@@ -1786,7 +1789,7 @@ def esl_gt(cuda, tmp_path_factory):
 
 
 def _esl_plan(eng, window_size, **fields):
-    from xmaps_tpu_torch.apps.eval_esl import RefinePlan
+    from xmaps_tpu_torch.models.esl_pipeline import RefinePlan
 
     plan = RefinePlan(eng.maps.calib, eng.maps, window_size, eng.plan.proj_w, eng.plan.proj_h)
     for k, v in fields.items():

@@ -285,11 +285,11 @@ def test_staged_entry_plain_matches_array_entry(rig, count, camera_view):
     unpack, then the plain scatter) against the array entry's plain
     version on the same lanes decoded with numpy; the words fill 32 bits
     (bit 31 set), and lanes at and above the count hold random words."""
-    from xmaps_tpu_torch.io.prefetch import CompactLayout
     from xmaps_tpu_torch.ops.cuda_events import (
         event_disparity_scatter_staged,
         event_disparity_scatter_staged_plain,
     )
+    from xmaps_tpu_torch.ops.staged import CompactLayout
 
     calib, cfg, jt, tt, events = rig
     layout = CompactLayout(7, 7, 18, cfg.t_px_scale)
@@ -320,8 +320,9 @@ def test_staged_entry_matches_jax(rig, camera_view):
     from xmaps_tpu.io.prefetch import CompactStagedBatch as JStaged
     from xmaps_tpu.io.prefetch import unpack_staged_compact as j_unpack
 
-    from xmaps_tpu_torch.io.prefetch import CompactLayout, HostStagingPool
+    from xmaps_tpu_torch.io.prefetch import HostStagingPool
     from xmaps_tpu_torch.ops.cuda_events import event_disparity_scatter_staged
+    from xmaps_tpu_torch.ops.staged import CompactLayout
 
     calib, cfg, jt, tt, events = rig
     layout = CompactLayout.for_pipeline(cfg)
@@ -345,8 +346,8 @@ def test_staged_entry_matches_jax(rig, camera_view):
 
 def test_staged_entry_refuses_other_devices(rig):
     """The staged entry refuses a tensor neither on the CPU nor on CUDA."""
-    from xmaps_tpu_torch.io.prefetch import CompactLayout
     from xmaps_tpu_torch.ops.cuda_events import event_disparity_scatter_staged
+    from xmaps_tpu_torch.ops.staged import CompactLayout
 
     calib, cfg, jt, tt, events = rig
     word = torch.zeros(16, dtype=torch.int32, device="meta")

@@ -22,8 +22,8 @@ from xmaps_tpu.calib.maps import CamProjMaps as JMaps  # noqa: E402
 from xmaps_tpu.ops import pallas_esl as jpe  # noqa: E402
 from xmaps_tpu.utils.synthetic import make_synthetic_calibration  # noqa: E402
 
-from xmaps_tpu_torch.apps import eval_esl as tesl  # noqa: E402
 from xmaps_tpu_torch.calib.maps import CamProjMaps as TMaps  # noqa: E402
+from xmaps_tpu_torch.models import esl_pipeline as tesl  # noqa: E402
 from xmaps_tpu_torch.ops import esl_search as tse  # noqa: E402
 from xmaps_tpu_torch.utils.synthetic import make_synthetic_calibration as t_calib  # noqa: E402
 
@@ -89,7 +89,8 @@ def test_search_footprint_crop_and_prep_match_jax(trial):
     H, W = cam.shape
     edge = cols[1] + md >= W
     assert edge == (trial > 0)
-    kw = dict(min_disp=5, max_disp=md, row_range=rows, col_range=cols)
+    prep_kw = dict(max_disp=md, row_range=rows, col_range=cols)
+    kw = dict(prep_kw, min_disp=5)
     # the JAX package's own tests pin its crop equal to its full search
     want = np.asarray(jpe.esl_disparity_search(cam, proj, interpret=True, **kw))
     tcam, tproj = torch.from_numpy(cam), torch.from_numpy(proj)
@@ -100,7 +101,7 @@ def test_search_footprint_crop_and_prep_match_jax(trial):
 
     # the prep tables equal the JAX package's (its rows are padded to 8)
     jprep = jpe.esl_search_prep(proj, **kw)
-    tprep = tse.esl_search_prep(tproj, **kw)
+    tprep = tse.esl_search_prep(tproj, **prep_kw)
     for name, a, b in zip("GFNRC", tprep, jprep):
         b = np.asarray(b)[: a.shape[0]]
         assert a.numpy().dtype == b.dtype, name
@@ -113,7 +114,7 @@ def test_search_footprint_crop_and_prep_match_jax(trial):
     assert (r0, r1, c0, c1) == jpe.footprint_box((H, W), rows, cols, md)
     assert (c1 == W) == edge
     pk = dict(kw, full_shape=(H, W))
-    box_prep = tse.esl_search_prep(tproj[r0:r1, c0:c1], **pk)
+    box_prep = tse.esl_search_prep(tproj[r0:r1, c0:c1], **prep_kw, full_shape=(H, W))
     got = tse.esl_disparity_search(tcam[r0:r1, c0:c1], None, emit_crop=True,
                                    prep=box_prep, **pk)
     jbox = np.asarray(jpe.esl_disparity_search(cam[r0:r1, c0:c1], proj[r0:r1, c0:c1],
@@ -184,11 +185,7 @@ def rig():
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
 def test_device_depth_init_matches_jax(rig, variant):
     tcal, tmaps, proj_rect, p03, cam, jax_out = rig
-    allow_banded, method = VARIANTS[variant]
-    fn = tesl.build_device_depth_init(
-        tmaps, tcal, proj_rect, p03, "cpu",
-        allow_banded=allow_banded, remap_method=method,
-    )
+    fn = tesl.build_device_depth_init(tmaps, tcal, proj_rect, p03, "cpu")
     disp, depth = fn(torch.from_numpy(cam))
     jdisp, jdepth = jax_out[variant]
     np.testing.assert_array_equal(disp.numpy(), jdisp)

@@ -93,14 +93,14 @@ def make_scans(cfg, n, seed):
 
 def per_scan_planes(engine, scan) -> dict:
     """The evaluation's one-scan path before the engine."""
-    cam = eval_esl.normalize_scan(scan)
-    init = eval_esl.build_device_depth_init(engine.maps, engine.maps.calib, engine.proj_rect,
+    cam = esl_pipeline.normalize_scan(scan)
+    init = esl_pipeline.build_device_depth_init(engine.maps, engine.maps.calib, engine.proj_rect,
                                             engine.p03, "cpu")
     disp, depth = init(torch.from_numpy(cam))
     img = cam.copy()
     with np.errstate(divide="ignore"):
         img[img == 0] = 1.0 / cam[0, 0] if cam[0, 0] != 0 else np.inf
-    optim = eval_esl.depth_optimization_dense(depth, torch.from_numpy(img), engine.plan)
+    optim = esl_pipeline.depth_optimization_dense(depth, torch.from_numpy(img), engine.plan)
     filtered = tv_denoise_split_bregman(
         bilateral_filter(optim, d=5, sigma_color=3.0, sigma_space=3.0), mu=0.5)
     return dict(zip(PLANES, (disp, depth, optim, filtered)))
@@ -311,6 +311,6 @@ def test_reference_tables_match_the_ports_maps(cfg):
     np.testing.assert_array_equal(tabs["proj_rect"],
                                   maps.build_rectified_time_map(scan_upwards=False))
     assert tabs["p03"] == maps.P2[0, 3]
-    plan = eval_esl.RefinePlan(maps.calib, maps, 7, 45, 80)
+    plan = esl_pipeline.RefinePlan(maps.calib, maps, 7, 45, 80)
     np.testing.assert_array_equal(tabs["x_n"], plan.x_n)
     np.testing.assert_array_equal(tabs["y_n"], plan.y_n)

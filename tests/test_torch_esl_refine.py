@@ -29,7 +29,7 @@ torch = pytest.importorskip("torch")
 
 from benchmark.reference import esl as ref_esl  # noqa: E402
 from test_torch_esl_engine import calibration, make_scans, tiny_config  # noqa: E402
-from xmaps_tpu_torch.apps import eval_esl  # noqa: E402
+from xmaps_tpu_torch.models import esl_pipeline  # noqa: E402
 from xmaps_tpu_torch.models.esl_pipeline import ESLDepthEngine  # noqa: E402
 from xmaps_tpu_torch.ops import _build  # noqa: E402
 from xmaps_tpu_torch.ops import esl_refine as er  # noqa: E402
@@ -59,7 +59,7 @@ def reference(cfg):
 def group_inputs(cfg, engine, n, seed):
     """(depth0, filled camera image) of n scans, (n, H, W), as the engine
     hands them to the refinement."""
-    cams = torch.from_numpy(np.stack([eval_esl.normalize_scan(s)
+    cams = torch.from_numpy(np.stack([esl_pipeline.normalize_scan(s)
                                       for s in make_scans(cfg, n, seed)]))
     depth = torch.stack([engine.depth_init(c)[1] for c in cams])
     fill = torch.ones_like(cams[:, 0, 0]) / cams[:, 0, 0]
@@ -67,7 +67,7 @@ def group_inputs(cfg, engine, n, seed):
 
 
 def plan_of(engine, window_size, **fields):
-    plan = eval_esl.RefinePlan(engine.maps.calib, engine.maps, window_size,
+    plan = esl_pipeline.RefinePlan(engine.maps.calib, engine.maps, window_size,
                                engine.plan.proj_w, engine.plan.proj_h)
     for k, v in fields.items():
         setattr(plan, k, v)
@@ -121,7 +121,7 @@ def test_plain_group_equals_reference_and_one_scan_calls(cfg, engine, reference,
     assert _build.LAUNCHES["esl_refine"] == 0  # the CPU launches nothing
     for f in range(len(depth)):
         assert_bits_equal(got[f], er.esl_refine_plain(depth[f], img[f], engine.plan), f"{f}")
-        assert_bits_equal(got[f], eval_esl.depth_optimization_dense(
+        assert_bits_equal(got[f], esl_pipeline.depth_optimization_dense(
             depth[f].numpy(), img[f].numpy(), engine.plan), f"{f}")
         want = ref_esl.refine(depth[f], img[f], reference, torch.float32,
                               **reference.settings["refine"])

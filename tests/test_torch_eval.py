@@ -64,6 +64,7 @@ from xmaps_tpu_torch.apps import eval_table as ttable  # noqa: E402
 from xmaps_tpu_torch.apps import eval_xmaps as txmaps  # noqa: E402
 from xmaps_tpu_torch.calib.maps import CalibrationParams as TCalib  # noqa: E402
 from xmaps_tpu_torch.calib.maps import CamProjMaps as TMaps  # noqa: E402
+from xmaps_tpu_torch.models import esl_pipeline as tpipe  # noqa: E402
 from xmaps_tpu_torch.models.depth_pipeline import XMapsDepthEngine as TEngine  # noqa: E402
 from xmaps_tpu_torch.ops.cuda_events import event_disparity_scatter  # noqa: E402
 from xmaps_tpu_torch.ops.disparity import scale_time  # noqa: E402
@@ -247,7 +248,7 @@ def test_static_tables_equal(rig):
     jc, tc, jm, tm = rig
     Wp, Hp = SIZES["projector_width"], SIZES["projector_height"]
     jp = jesl.RefinePlan(jc, jm, 3, Wp, Hp)
-    tp = tesl.RefinePlan(tc, tm, 3, Wp, Hp)
+    tp = tpipe.RefinePlan(tc, tm, 3, Wp, Hp)
     for name in ("x_n", "y_n", "R", "T", "proj_K", "proj_D"):
         a, b = getattr(tp, name), getattr(jp, name)
         assert a.dtype == b.dtype, name
@@ -302,7 +303,7 @@ def test_refinement_within_tolerance_with_blown_up_reprojection(chain, rig):
     jc, tc, jm, tm = rig
     Wp, Hp = SIZES["projector_width"], SIZES["projector_height"]
     jp = jesl.RefinePlan(jc, jm, 3, Wp, Hp)
-    tp = tesl.RefinePlan(tc, tm, 3, Wp, Hp)
+    tp = tpipe.RefinePlan(tc, tm, 3, Wp, Hp)
     for plan in (jp, tp):
         plan.T = plan.T.copy()
         plan.T[1:] = 0.0
@@ -310,11 +311,11 @@ def test_refinement_within_tolerance_with_blown_up_reprojection(chain, rig):
     depth = _load(seqs["jax"], "esl/depth_init", 0).copy()
     block = (slice(20, 30), slice(20, 40))
     depth[block] = 256.0
-    cam = tesl.normalize_scan(np.load(seqs["jax"] / "scans_np" / "scan000.npy"))
+    cam = tpipe.normalize_scan(np.load(seqs["jax"] / "scans_np" / "scan000.npy"))
     cam[cam == 0] = 1.0 / cam[0, 0] if cam[0, 0] != 0 else np.inf
     cam[17:33, 17:43] = 0.05
     want = np.asarray(jesl.depth_optimization_dense(depth, cam, jp))
-    got = tesl.depth_optimization_dense(torch.from_numpy(depth), torch.from_numpy(cam), tp)
+    got = tpipe.depth_optimization_dense(torch.from_numpy(depth), torch.from_numpy(cam), tp)
     np.testing.assert_array_equal(got.numpy()[block], want[block])
     assert (want[block] == 0).any()  # the blown-up sample won some pixels...
     assert (want[block] > 0).any()  # ...and lost others

@@ -25,7 +25,7 @@ from xmaps_tpu.utils.synthetic import simulate_plane_events  # noqa: E402
 
 from xmaps_tpu_torch.io import prefetch  # noqa: E402
 from xmaps_tpu_torch.models.depth_pipeline import XMapsDepthEngine as TEngine  # noqa: E402
-from xmaps_tpu_torch.ops import cuda_events, cuda_tail  # noqa: E402
+from xmaps_tpu_torch.ops import cuda_events, cuda_tail, staged  # noqa: E402
 from xmaps_tpu_torch.ops import disparity as tdisp  # noqa: E402
 from xmaps_tpu_torch.ops.event_batch import EventBatch  # noqa: E402
 from xmaps_tpu_torch.ops.frame_pipeline import group_depth_frames  # noqa: E402
@@ -116,7 +116,7 @@ def test_process_frames_matches_jax_and_process_frame(view, n_frames):
     got = _same_as_frames(teng, frames)
     for g, r in zip(got, jeng.process_frames(frames)):
         _same(g, r)
-    assert isinstance(teng.stage_group(frames), prefetch.CompactStagedGroup)
+    assert isinstance(teng.stage_group(frames), staged.CompactStagedGroup)
 
 
 @pytest.mark.parametrize("view", sorted(VIEWS))

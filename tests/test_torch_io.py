@@ -44,7 +44,7 @@ from xmaps_tpu_torch.io import evt_encode as tenc  # noqa: E402
 from xmaps_tpu_torch.io import prefetch  # noqa: E402
 from xmaps_tpu_torch.io.event_iterator import FileEventsIterator  # noqa: E402
 from xmaps_tpu_torch.io.filters import ActivityNoiseFilter, polarity_filter  # noqa: E402
-from xmaps_tpu_torch.ops import _build  # noqa: E402
+from xmaps_tpu_torch.ops import _build, staged  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -261,7 +261,7 @@ def test_stage_matches_jax(sizes):
     pool, jpool = prefetch.HostStagingPool(cap, depth=2, device="cpu"), JPool(cap, depth=2)
     for i, n in enumerate(sizes):
         ev = _events(rng, n, t0=1_000_000 * (i + 1), t_span=16_000)
-        got = prefetch.unpack_staged(pool.stage(ev))
+        got = staged.unpack_staged(pool.stage(ev))
         _assert_batch_equal(got, j_unpack(jpool.stage(ev)))
         assert got.x.dtype == torch.int32 and got.valid.dtype == torch.bool
     assert pool.frames_staged == jpool.frames_staged == len(sizes)
@@ -272,14 +272,14 @@ def test_stage_matches_jax(sizes):
 def test_stage_compact_matches_jax(cam):
     cfg = PipelineConfig(cam[0], cam[1], 720, 1280, 1760, 1320, event_capacity=512)
     jcfg = JConfig(cam[0], cam[1], 720, 1280, 1760, 1320, event_capacity=512)
-    layout = prefetch.CompactLayout.for_pipeline(cfg)
+    layout = staged.CompactLayout.for_pipeline(cfg)
     assert tuple(layout) == tuple(JLayout.for_pipeline(jcfg))
     rng = np.random.default_rng(cam[0])
     pool = prefetch.HostStagingPool(512, depth=2, device="cpu", layout=layout)
     jpool = JPool(512, depth=2, layout=JLayout.for_pipeline(jcfg))
     for i, n in enumerate((300, 700, 0, 5)):
         ev = _events(rng, n, w=cam[0], h=cam[1], t0=7_000 * i, t_span=16_000)
-        batch, ts = prefetch.unpack_staged_compact(pool.stage_compact(ev), layout)
+        batch, ts = staged.unpack_staged_compact(pool.stage_compact(ev), layout)
         jbatch, jts = j_unpack_compact(jpool.stage_compact(ev), JLayout.for_pipeline(jcfg))
         _assert_batch_equal(batch, jbatch)
         np.testing.assert_array_equal(ts.numpy(), np.asarray(jts))
@@ -297,7 +297,7 @@ def test_host_time_binning_matches_jax():
 def test_compact_layout_none_when_oversize():
     cfg = PipelineConfig(1 << 12, 1 << 12, 1 << 10, 4, 5, 6)
     jcfg = JConfig(1 << 12, 1 << 12, 1 << 10, 4, 5, 6)
-    assert prefetch.CompactLayout.for_pipeline(cfg) is None
+    assert staged.CompactLayout.for_pipeline(cfg) is None
     assert JLayout.for_pipeline(jcfg) is None
     with pytest.raises(ValueError, match="layout"):
         prefetch.HostStagingPool(16, device="cpu").stage_compact(np.zeros(3, tdec.EVENT_DTYPE))

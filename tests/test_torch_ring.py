@@ -1,7 +1,7 @@
 """The port's packet-ring prestaging vs the JAX package's, on the CPU.
 
-``xmaps_tpu_torch.io.prefetch``'s ``RingLayout``, ``PacketRing`` and ring
-assembly, kernel 1's ring entry (its plain version on CPU tensors) and the
+``xmaps_tpu_torch.io.prefetch``'s ``PacketRing``, ``ops.staged``'s
+``RingLayout`` and ring assembly, kernel 1's ring entry (its plain version on CPU tensors) and the
 engine's ``process_ring`` against ``xmaps_tpu``: the same packet streams,
 made from numpy seeds, go through both packages.  Every comparison is
 bit-exact.  The first six tests are ports of the JAX package's ring tests
@@ -31,14 +31,7 @@ from xmaps_tpu.ops.scatter import scatter_disp_packed as j_scatter  # noqa: E402
 from xmaps_tpu.utils.synthetic import make_synthetic_calibration as j_calib  # noqa: E402
 from xmaps_tpu.utils.synthetic import simulate_plane_events  # noqa: E402
 
-from xmaps_tpu_torch.io.prefetch import (  # noqa: E402
-    RING_SLOTS_PER_FRAME,
-    PacketRing,
-    RingLayout,
-    assemble_ring_frame,
-    assemble_ring_frame_compact,
-    ring_time_bounds,
-)
+from xmaps_tpu_torch.io.prefetch import PacketRing, ring_time_bounds  # noqa: E402
 from xmaps_tpu_torch.models.depth_pipeline import XMapsDepthEngine  # noqa: E402
 from xmaps_tpu_torch.ops.cuda_events import (  # noqa: E402
     event_disparity_scatter_ring,
@@ -46,6 +39,12 @@ from xmaps_tpu_torch.ops.cuda_events import (  # noqa: E402
 )
 from xmaps_tpu_torch.ops.event_batch import EventBatch  # noqa: E402
 from xmaps_tpu_torch.ops.frame_pipeline import DeviceTables  # noqa: E402
+from xmaps_tpu_torch.ops.staged import (  # noqa: E402
+    RING_SLOTS_PER_FRAME,
+    RingLayout,
+    assemble_ring_frame,
+    assemble_ring_frame_compact,
+)
 from xmaps_tpu_torch.utils.synthetic import make_synthetic_calibration  # noqa: E402
 
 torch.set_num_threads(1)

@@ -1,7 +1,7 @@
 """ESL-init time a scan on one GPU: the footprint crop against the full surface.
 
 Port of the repository's ``eval/bench_esl_init.py``.  Times the device path
-``apps.eval_esl`` runs a scan (``build_device_depth_init``): kernel B
+``models.esl_pipeline`` runs a scan (``build_device_depth_init``): kernel B
 remaps the camera image into the static camera footprint's box of the
 rectified frame, kernel A searches the box through the prep tables (built
 once), kernel B gathers the disparities back to the camera, then depth.
@@ -41,10 +41,10 @@ import time
 import numpy as np
 import torch
 
-from xmaps_tpu_torch.apps.eval_esl import build_device_depth_init, depth_from_disparity
 from xmaps_tpu_torch.apps.measure import add_rig_args, card, tool_rig
 from xmaps_tpu_torch.calib.maps import CamProjMaps
 from xmaps_tpu_torch.models.depth_pipeline import resolve_device
+from xmaps_tpu_torch.models.esl_pipeline import build_device_depth_init, depth_from_disparity
 from xmaps_tpu_torch.ops.esl_search import esl_disparity_search, rows_monotone
 from xmaps_tpu_torch.ops.remap import (
     apply_remap_static,
@@ -76,8 +76,7 @@ class EslInit:
             raise AssertionError("the rectified projector ramp's rows are not monotone")
         p03 = float(maps.P2[0, 3])
         self.crop = build_device_depth_init(maps, calib, proj_rect, p03, dev)
-        self.composed = build_device_depth_init(maps, calib, proj_rect, p03, dev,
-                                                remap_method="composed")
+        self.composed = build_device_depth_init(maps, calib, proj_rect, p03, dev)
         H, W = calib.rect_image_height, calib.rect_image_width
         cam_shape = (calib.camera_height, calib.camera_width)
         yi_f, xi_f, inb_f = build_remap_indices(maps.camera_mapx, maps.camera_mapy, cam_shape)

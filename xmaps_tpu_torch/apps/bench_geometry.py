@@ -48,9 +48,9 @@ import torch
 
 from xmaps_tpu_torch.apps.bench import REF_FRAME_MS, SUBSAMPLE, card_name_and_power_limit
 from xmaps_tpu_torch.calib.maps import CalibrationParams
-from xmaps_tpu_torch.io.prefetch import CompactStagedGroup
 from xmaps_tpu_torch.models.depth_pipeline import XMapsDepthEngine, resolve_device
 from xmaps_tpu_torch.ops.frame_pipeline import group_depth_frames
+from xmaps_tpu_torch.ops.staged import CompactStagedGroup
 from xmaps_tpu_torch.utils.synthetic import make_synthetic_calibration, simulate_plane_events
 
 GEOMETRIES = ("esl", "demo")

@@ -64,17 +64,17 @@
 // Three entries share the per-lane device function: the array entry (x, y,
 // time bin, valid, optional priority and lane outputs); the staged entry,
 // which reads the streaming path's one 32-bit word an event (x | y << bx |
-// t_bin << (bx + by), io/prefetch.py CompactLayout) and a host count, and
+// t_bin << (bx + by), ops/staged.py CompactLayout) and a host count, and
 // decodes the lane in registers (4 B an event in place of 13); and the ring
 // entry, which reads the frame straight from the k <= 8 device rows of the
-// packet ring (io/prefetch.py PacketRing, RingLayout: x | y << bx | t_rel <<
-// (bx + by), t_rel relative to the packet's first event).  Its placement
-// (each packet's row, start lane, cumulative offset and time offset), the
-// count and the frame's time bounds are kernel arguments, so nothing crosses
-// the link at dispatch.  Each lane finds its packet with a compare over the
-// cumulative offsets, in registers, and bins its time t_rel + t_off exactly
-// as ops/disparity.py _scale_time_int does (int32, floor division, round
-// half to even) from the host's masked min/max.
+// packet ring (io/prefetch.py PacketRing, ops/staged.py RingLayout: x | y <<
+// bx | t_rel << (bx + by), t_rel relative to the packet's first event).  Its
+// placement (each packet's row, start lane, cumulative offset and time
+// offset), the count and the frame's time bounds are kernel arguments, so
+// nothing crosses the link at dispatch.  Each lane finds its packet with a
+// compare over the cumulative offsets, in registers, and bins its time t_rel
+// + t_off exactly as ops/disparity.py _scale_time_int does (int32, floor
+// division, round half to even) from the host's masked min/max.
 //
 // The group entries run F independent frames in ONE cooperative launch (the
 // counterpart of the JAX engine's process_frames program): the array and

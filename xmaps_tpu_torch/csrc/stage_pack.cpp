@@ -1,10 +1,10 @@
 // Group staging on the host: the scan and the 1-word pack of
 // xmaps_tpu_torch/io/prefetch.py (stage_compact_group), one call a group.
 //
-// A frame is given by the addresses of its first record's x (u16), y (u16)
-// and t (i64) fields, the record stride in bytes (any sign, any alignment:
-// the fields are read with memcpy) and its length.  Built with g++ by
-// io/stage_pack.py; a plain C interface for ctypes.
+// A frame is a run of the decoder's records (EVENT_DTYPE: x u16, y u16,
+// p i16, t i64, packed in 14 bytes), given by the address of its first
+// record and its length; the fields are read with memcpy, at any alignment.
+// Built with g++ by io/stage_pack.py; a plain C interface for ctypes.
 //
 // The scan reads a group's frames from memory and the pack reads them again;
 // both passes wait on the loads more than they compute.  So each walks a
@@ -26,30 +26,13 @@ inline T load(const char* p) {
   return v;
 }
 
-// A frame's record layout: the stride, and the offsets of y and t from x.
-// The decoder's record (EVENT_DTYPE: x, y, p, t packed in 14 bytes) has them
-// fixed at compile time, so every load takes a constant offset, and its x
-// and y are one 32-bit load; any other layout reads them at run time.
-// xy(e): the record's x in the low half, its y in the high half.
-struct AnyRecord {
-  int64_t s, dy, dt;
-  uint32_t xy(const char* e) const {
-    return load<uint16_t>(e) | static_cast<uint32_t>(load<uint16_t>(e + dy)) << 16;
-  }
-};
-struct DecoderRecord {
-  static constexpr int64_t s = 14, dy = 2, dt = 6;
-  static uint32_t xy(const char* e) { return load<uint32_t>(e); }
-};
-static_assert(__BYTE_ORDER__ == __ORDER_LITTLE_ENDIAN__, "DecoderRecord::xy reads x, y as one word");
+// The decoder's record: its stride and the offsets of y and t from x, fixed
+// at compile time, so every load takes a constant offset.
+constexpr int64_t STRIDE = 14, DY = 2, DT = 6;
 
-template <typename Fn>
-void with_record(int64_t s, int64_t dy, int64_t dt, Fn&& fn) {
-  if (s == DecoderRecord::s && dy == DecoderRecord::dy && dt == DecoderRecord::dt)
-    fn(DecoderRecord{});
-  else
-    fn(AnyRecord{s, dy, dt});
-}
+// The record's x in the low half, its y in the high half: one 32-bit load.
+inline uint32_t xy(const char* e) { return load<uint32_t>(e); }
+static_assert(__BYTE_ORDER__ == __ORDER_LITTLE_ENDIAN__, "xy reads x, y as one word");
 
 // ts << shift of every offset d in [0, rng]: the round-half-to-even of
 // d * scale / rng.  ts(d) >= v (v >= 1) exactly where 2 d scale >
@@ -82,31 +65,30 @@ void tabulate(uint32_t* table, int64_t rng, int64_t scale, int32_t shift) {
 // min and max t of the n into lo and hi, and the bits set in some x (low
 // half) or some y (high half) returned.  The accumulators are locals, which
 // the loads (through char pointers) cannot alias.
-template <typename R>
-uint32_t scan_frame(const char* x, const R& r, int64_t m, int64_t n, int64_t& lo, int64_t& hi) {
+uint32_t scan_frame(const char* x, int64_t m, int64_t n, int64_t& lo, int64_t& hi) {
   uint32_t any = 0;
   int64_t l = INT64_MAX, h = INT64_MIN;
   const int64_t part = n / PARTS;
   const char* e[PARTS];
-  for (int j = 0; j < PARTS; ++j) e[j] = x + j * part * r.s;
+  for (int j = 0; j < PARTS; ++j) e[j] = x + j * part * STRIDE;
   for (int64_t k = 0; k < part; ++k) {
     int64_t v[PARTS];
     for (int j = 0; j < PARTS; ++j) {
-      any |= r.xy(e[j]);
-      v[j] = load<int64_t>(e[j] + r.dt);
-      e[j] += r.s;
+      any |= xy(e[j]);
+      v[j] = load<int64_t>(e[j] + DT);
+      e[j] += STRIDE;
     }
     l = std::min(l, *std::min_element(v, v + PARTS));
     h = std::max(h, *std::max_element(v, v + PARTS));
   }
   for (int64_t k = part * PARTS; k < m; ++k) {  // the rest, on from the last stream
     const char* last = e[PARTS - 1];
-    any |= r.xy(last);
+    any |= xy(last);
     if (k < n) {
-      l = std::min(l, load<int64_t>(last + r.dt));
-      h = std::max(h, load<int64_t>(last + r.dt));
+      l = std::min(l, load<int64_t>(last + DT));
+      h = std::max(h, load<int64_t>(last + DT));
     }
-    e[PARTS - 1] += r.s;
+    e[PARTS - 1] += STRIDE;
   }
   lo = n ? l : 0;
   hi = n ? h : 0;
@@ -117,30 +99,29 @@ uint32_t scan_frame(const char* x, const R& r, int64_t m, int64_t n, int64_t& lo
 // [lo, lo + rng], through the bins tabulated over that range.  An offset
 // outside it (a t the scan did not see) is clamped to the table's end: a
 // wrong word, never a read outside the table.
-template <typename R>
-void pack_frame(const char* x, const R& r, int64_t n, int64_t lo, int64_t rng,
-                const uint32_t* table, int32_t bits_x, uint32_t* row) {
+void pack_frame(const char* x, int64_t n, int64_t lo, int64_t rng, const uint32_t* table,
+                int32_t bits_x, uint32_t* row) {
   const uint32_t y_mul = 1u << bits_x;  // a multiply: a shift by a variable costs more
   const uint64_t base = static_cast<uint64_t>(lo), top = static_cast<uint64_t>(rng);
   const auto word = [&](const char* e) {
-    const uint64_t d = std::min(static_cast<uint64_t>(load<int64_t>(e + r.dt)) - base, top);
-    const uint32_t xy = r.xy(e);
-    return table[d] | (xy & 0xFFFF) | (xy >> 16) * y_mul;
+    const uint64_t d = std::min(static_cast<uint64_t>(load<int64_t>(e + DT)) - base, top);
+    const uint32_t v = xy(e);
+    return table[d] | (v & 0xFFFF) | (v >> 16) * y_mul;
   };
   const int64_t part = n / PARTS;
   const char* e[PARTS];
   uint32_t* w[PARTS];
   for (int j = 0; j < PARTS; ++j) {
-    e[j] = x + j * part * r.s;
+    e[j] = x + j * part * STRIDE;
     w[j] = row + j * part;
   }
   for (int64_t k = 0; k < part; ++k) {
     for (int j = 0; j < PARTS; ++j) {
       w[j][k] = word(e[j]);
-      e[j] += r.s;
+      e[j] += STRIDE;
     }
   }
-  for (int64_t k = part * PARTS; k < n; ++k) row[k] = word(x + k * r.s);
+  for (int64_t k = part * PARTS; k < n; ++k) row[k] = word(x + k * STRIDE);
 }
 
 }  // namespace
@@ -151,15 +132,12 @@ extern "C" {
 // bits_y (over all len[i] events), and the min and max of t over the first
 // min(len[i], capacity) events (0 and 0 for an empty frame).  Returns 1
 // where every event of every frame fits, else 0.
-int32_t xm_stage_scan(int32_t f, const int64_t* px, const int64_t* py, const int64_t* pt,
-                      const int64_t* stride, const int64_t* len, int64_t capacity,
+int32_t xm_stage_scan(int32_t f, const int64_t* px, const int64_t* len, int64_t capacity,
                       int32_t bits_x, int32_t bits_y, int64_t* t_lo, int64_t* t_hi) {
   uint32_t any = 0;  // every bit set in some x (low half) or some y (high half)
   for (int32_t i = 0; i < f; ++i) {
     const int64_t m = len[i], n = m < capacity ? m : capacity;
-    with_record(stride[i], py[i] - px[i], pt[i] - px[i], [&](const auto& r) {
-      any |= scan_frame(reinterpret_cast<const char*>(px[i]), r, m, n, t_lo[i], t_hi[i]);
-    });
+    any |= scan_frame(reinterpret_cast<const char*>(px[i]), m, n, t_lo[i], t_hi[i]);
   }
   return (((any & 0xFFFF) >> bits_x) | ((any >> 16) >> bits_y)) == 0;
 }
@@ -179,30 +157,27 @@ int32_t xm_stage_scan(int32_t f, const int64_t* px, const int64_t* py, const int
 //   of the true quotient, which lies at least 1 / rng below the next
 //   integer, so q is the floor, or, where the quotient is a whole k, k - 1
 //   with r = rng, which the rounding takes up to k.
-void xm_stage_pack(int32_t f, const int64_t* px, const int64_t* py, const int64_t* pt,
-                   const int64_t* stride, const int64_t* count, const int64_t* rows,
+void xm_stage_pack(int32_t f, const int64_t* px, const int64_t* count, const int64_t* rows,
                    int64_t capacity, int32_t bits_x, int32_t bits_y, int64_t t_px_scale,
                    const int64_t* t_lo, const int64_t* t_hi, uint32_t* table) {
   const int32_t shift = bits_x + bits_y;
   for (int32_t i = 0; i < f; ++i) {
     const char* x = reinterpret_cast<const char*>(px[i]);
     uint32_t* row = reinterpret_cast<uint32_t*>(rows[i]);
-    const int64_t s = stride[i], dy = py[i] - px[i], dt = pt[i] - px[i];
     const int64_t n = count[i], lo = t_lo[i];
     const int64_t rng = t_hi[i] - lo > 1 ? t_hi[i] - lo : 1;
     if (rng <= n) {
       tabulate(table, rng, t_px_scale, shift);
-      with_record(s, dy, dt,
-                  [&](const auto& r) { pack_frame(x, r, n, lo, rng, table, bits_x, row); });
+      pack_frame(x, n, lo, rng, table, bits_x, row);
     } else {
       const double inv = 1.0 / static_cast<double>(rng);
       for (int64_t k = 0; k < n; ++k) {
-        const char* e = x + k * s;
-        const int64_t num = (load<int64_t>(e + dt) - lo) * t_px_scale;
+        const char* e = x + k * STRIDE;
+        const int64_t num = (load<int64_t>(e + DT) - lo) * t_px_scale;
         const int64_t q = static_cast<int64_t>(static_cast<double>(num) * inv);
         const int64_t r = num - q * rng;
         row[k] = (static_cast<uint32_t>(q + ((2 * r + (q & 1)) > rng)) << shift) |
-                 static_cast<uint32_t>(load<uint16_t>(e + dy)) << bits_x | load<uint16_t>(e);
+                 static_cast<uint32_t>(load<uint16_t>(e + DY)) << bits_x | load<uint16_t>(e);
       }
     }
     std::memset(row + n, 0, static_cast<size_t>(capacity - n) * sizeof(uint32_t));

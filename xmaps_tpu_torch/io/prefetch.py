@@ -1,18 +1,17 @@
 """Double-buffered host -> device staging of event batches.
 
-Port of the segmented staging of ``xmaps_tpu.io.prefetch`` (``StagedBatch``,
-``CompactLayout``, ``CompactStagedBatch``, ``HostStagingPool.stage`` /
-``stage_compact`` and the device-side unpacks).  The reference recycles
-native event buffers through a free list (event_buf_pool.py:10-17) so the
-per-packet hot path never allocates; here:
+The host half of ``xmaps_tpu.io.prefetch``, ported: the pools and packers
+that write a frame's events as the staged formats, and the packet ring.
+The formats themselves and their device decoders are ``ops.staged`` (the
+format half of the JAX module).  The reference recycles native event
+buffers through a free list (event_buf_pool.py:10-17) so the per-packet hot
+path never allocates; here:
 
 - ``HostStagingPool`` owns ``depth`` preallocated packed host slots at the
-  pipeline's fixed capacity and fills them in place per frame;
-- events cross to the device as TWO words per event (``xy = x | y << 16``
-  and ``tp = t_rel | p << 30``) or, with a ``CompactLayout``, as ONE word
-  (``x | y << bits_x | t_bin << (bits_x + bits_y)``, the X-map time bin
-  computed exactly on the host).  The validity mask is implied by the
-  count, which stays on the host: the unpack builds it on the device;
+  pipeline's fixed capacity and fills them in place per frame, at TWO words
+  an event (``stage``: a ``StagedBatch``) or, with a ``CompactLayout``, at
+  ONE (``stage_compact``: a ``CompactStagedBatch``, the time bin computed
+  exactly on the host);
 - on CUDA the slots are pinned host tensors, and each staged array is ONE
   ``non_blocking`` copy on the current stream (the engine path it replaces
   made five pageable copies, each synchronising the host);
@@ -27,23 +26,22 @@ host target presort (``presort_fn``) is not ported: the JAX pipe passes
 ``stage_compact_group`` stages F whole frames for ``process_frames`` (one
 program over the group): ``stage_compact``'s words for each frame as a
 row, then the F counts, in ONE host buffer and ONE copy.  ``scan_group``
-checks the group for it.  Frames whose ``x``, ``y`` and ``t`` are ``<u2``,
-``<u2`` and ``<i8`` (the decoder's ``EVENT_DTYPE``) are scanned and packed
-by one native call a group (``io.stage_pack``) straight into the pinned
-buffer; any other frame by the NumPy code (``fits_layout``,
-``_pack_compact_numpy``), which is the native entries' plain version.
+checks the group for it.  Frames that are runs of the decoder's
+``EVENT_DTYPE`` records are scanned and packed by one native call a group
+(``io.stage_pack``) straight into the pinned buffer; any other frame by
+the NumPy code (``fits_layout``, ``_pack_compact_numpy``), which is the
+native entries' plain version.
 
-The packet-ring prestaging (``PacketRing``, ``RingLayout``,
-``assemble_ring_frame[_compact]``) is the port of the JAX package's
-default streaming path: every filtered packet is staged as it arrives, so
-a frame's events are already on the device when the trigger fires.  Its
-bookkeeping (global numbering, slot free list, the 13-bit ``t_rel`` span
-split) is the JAX package's line for line.  In place of one
+The packet-ring prestaging (``PacketRing``) is the port of the JAX
+package's default streaming path: every filtered packet is staged as it
+arrives, so a frame's events are already on the device when the trigger
+fires.  Its bookkeeping (global numbering, slot free list, the 13-bit
+``t_rel`` span split) is the JAX package's line for line.  In place of one
 ``jax.device_put`` of the whole slot, each staged chunk is ONE
 ``non_blocking`` copy of its valid words from a pinned host row into its
 row of one preallocated device tensor, guarded by a CUDA event as above.
-The assembly takes the host ``(3, k)`` placement array and builds the
-batch with torch ops; kernel 1's ring entry
+``ops.staged.assemble_ring_frame[_compact]`` builds the batch from the
+rows with torch ops; kernel 1's ring entry
 (``ops.cuda_events.event_disparity_scatter_ring``) reads the device rows
 itself instead.
 """
@@ -56,123 +54,20 @@ import numpy as np
 import torch
 
 from xmaps_tpu_torch.io import stage_pack
-from xmaps_tpu_torch.ops.event_batch import EventBatch
+from xmaps_tpu_torch.ops.staged import (
+    _P_SHIFT,
+    RING_SLOTS_PER_FRAME,
+    CompactLayout,
+    CompactStagedBatch,
+    CompactStagedGroup,
+    RingLayout,
+    RingPacket,
+    StagedBatch,
+)
 from xmaps_tpu_torch.utils.stats import span
 
-__all__ = [
-    "HostStagingPool",
-    "StagedBatch",
-    "unpack_staged",
-    "CompactLayout",
-    "CompactStagedBatch",
-    "CompactStagedGroup",
-    "GroupScan",
-    "scan_group",
-    "stage_compact_group",
-    "fits_layout",
-    "unpack_staged_compact",
-    "PacketRing",
-    "RingPacket",
-    "RingLayout",
-    "RING_SLOTS_PER_FRAME",
-    "assemble_ring_frame",
-    "assemble_ring_frame_compact",
-    "ring_time_bounds",
-]
-
-#: polarity rides in bit 30 of the int32 tp word; frame-relative
-#: microsecond timestamps are far below 2**30 (~17.9 min).
-_P_SHIFT = 30
-_T_MASK = (1 << _P_SHIFT) - 1
-
-
-class StagedBatch(NamedTuple):
-    """One staged frame: packed device arrays + host count."""
-
-    xy: torch.Tensor  # (capacity,) int32 holding the uint32 x | y << 16
-    tp: torch.Tensor  # (capacity,) int32: t_rel | p << 30
-    count: int  # valid lanes [0, count)
-
-
-def _lanes_valid(n: int, count: int, device) -> tuple[torch.Tensor, torch.Tensor]:
-    """(valid mask, 0-dim int32 count) built on ``device`` from a host
-    count, with no host -> device copy."""
-    valid = torch.arange(n, dtype=torch.int32, device=device) < count
-    return valid, torch.full((), count, dtype=torch.int32, device=device)
-
-
-def unpack_staged(staged: StagedBatch) -> EventBatch:
-    """Unpack to the standard EventBatch on the staged arrays' device."""
-    xy = staged.xy
-    valid, count = _lanes_valid(xy.shape[0], staged.count, xy.device)
-    return EventBatch(
-        x=xy & 0xFFFF,
-        y=(xy >> 16) & 0xFFFF,
-        t=staged.tp & _T_MASK,
-        p=staged.tp >> _P_SHIFT,
-        valid=valid,
-        count=count,
-    )
-
-
-class CompactLayout(NamedTuple):
-    """Bit layout for ONE-word-per-event staging.
-
-    The X-map lookup only ever sees the event's time as a discretized
-    bin in [0, t_px_scale] (time axis = projector columns,
-    ops/disparity.py), so the host can compute the bin exactly -- the
-    same integer round-half-to-even as the device -- and ship
-    ``t_scaled`` instead of a raw timestamp.  With the coordinates that
-    fits one uint32 per event (word = x | y << bits_x | t_scaled <<
-    (bits_x + bits_y)), halving host->device bytes vs the 2-word
-    staging.  Polarity is not carried: the host polarity filter runs
-    before staging, and nothing on device reads p (the frame dedup
-    filters, the only consumers, force the 2-word path -- they must
-    re-bin time after dropping events).
-    """
-
-    bits_x: int
-    bits_y: int
-    bits_t: int
-    t_px_scale: int
-
-    @staticmethod
-    def for_pipeline(cfg) -> Optional["CompactLayout"]:
-        """Layout for a PipelineConfig, or None if 32 bits don't fit
-        (very large sensor / time axis) -- callers use 2-word staging."""
-        bits_x = max(int(cfg.camera_width - 1).bit_length(), 1)
-        bits_y = max(int(cfg.camera_height - 1).bit_length(), 1)
-        bits_t = max(int(cfg.t_px_scale).bit_length(), 1)
-        if bits_x + bits_y + bits_t > 32:
-            return None
-        return CompactLayout(bits_x, bits_y, bits_t, int(cfg.t_px_scale))
-
-
-class CompactStagedBatch(NamedTuple):
-    """One staged frame at one uint32 word per event."""
-
-    word: torch.Tensor  # (capacity,) int32 holding x | y << bx | ts << (bx+by)
-    count: int  # valid lanes [0, count)
-
-
-def unpack_staged_compact(
-    staged: CompactStagedBatch, layout: CompactLayout
-) -> tuple[EventBatch, torch.Tensor]:
-    """Unpack to (EventBatch, t_scaled).
-
-    The returned batch carries p=1 (host polarity filter ran before
-    staging) and t = t_scaled (only the bins exist at this point).  This
-    is the plain version of kernel 1's staged entry
-    (``ops.cuda_events.event_disparity_scatter_staged``), which decodes the
-    words in registers on the card.
-    """
-    w = staged.word
-    valid, count = _lanes_valid(w.shape[0], staged.count, w.device)
-    x = w & ((1 << layout.bits_x) - 1)
-    y = (w >> layout.bits_x) & ((1 << layout.bits_y) - 1)
-    ts = (w >> (layout.bits_x + layout.bits_y)) & ((1 << layout.bits_t) - 1)
-    batch = EventBatch(x=x, y=y, t=ts, p=torch.ones_like(x), valid=valid, count=count)
-    return batch, ts
+__all__ = ["HostStagingPool", "GroupScan", "scan_group", "stage_compact_group", "fits_layout",
+           "PacketRing", "ring_time_bounds"]
 
 
 def _scale_time_int_host(t: np.ndarray, t_px_scale: int) -> np.ndarray:
@@ -352,7 +247,7 @@ class GroupScan(NamedTuple):
     fits: bool  # every event's x and y fit the layout
     native: tuple  # per frame: whether the native pack stages it
     read: tuple  # the frames the native scan read (``stage_pack.native_fields``)
-    addresses: np.ndarray  # (5, len(read)) their ``stage_pack.addresses``
+    addresses: np.ndarray  # (2, len(read)) their ``stage_pack.addresses``
     t_lo: np.ndarray  # (len(read),) int64 min t of their staged events
     t_hi: np.ndarray  # (len(read),) int64 their max t
 
@@ -391,13 +286,6 @@ def _pack_rows(frames: list, counts: list, lay: CompactLayout, rows: list,
         if not k:
             _pack_compact_numpy(frames[i], counts[i], lay, rows[i])
 
-
-class CompactStagedGroup(NamedTuple):
-    """F staged frames at one uint32 word an event, in one device buffer."""
-
-    word: torch.Tensor  # (F, capacity) int32 rows, as CompactStagedBatch.word
-    counts: torch.Tensor  # (F,) int32 valid lanes of each row, on the device
-    host_counts: tuple  # the same F counts on the host
 
 
 def stage_compact_group(
@@ -450,117 +338,6 @@ def stage_compact_group(
 # to the device the moment it arrives; when the trigger finder later emits
 # a frame as a GLOBAL event index range [gs, ge), the frame is read from
 # the already-resident packet rows, placed by a host (3, k) array.
-
-#: max packets assembled into one frame (4/frame nominal + trigger slack;
-#: packets longer than the slot capacity are split at staging)
-RING_SLOTS_PER_FRAME = 8
-
-
-class RingLayout(NamedTuple):
-    """ONE-word-per-event ring staging: ``x | y << bits_x |
-    t_rel << (bits_x + bits_y)``.
-
-    Valid when (a) the polarity filter runs upstream of staging (the pipe's
-    fused polarity+activity filter guarantees every staged event has
-    p == 1, so polarity needs no bit) and (b) the camera dims leave >= 13
-    bits for the packet-relative time (arrival packets span delta_t ~4.2
-    ms < 8.2 ms; longer spans are split at stage time).  640x480 sensors
-    fit exactly (10 + 9 + 13 = 32, so bit 31 is set for t_rel >= 4096);
-    larger sensors use 2-word staging."""
-
-    bits_x: int
-    bits_y: int
-    bits_t: int
-
-    @staticmethod
-    def for_camera(width: int, height: int) -> Optional["RingLayout"]:
-        bx = max(int(np.ceil(np.log2(max(width, 2)))), 1)
-        by = max(int(np.ceil(np.log2(max(height, 2)))), 1)
-        bt = 32 - bx - by
-        if bt < 13:
-            return None
-        return RingLayout(bx, by, bt)
-
-
-class RingPacket(NamedTuple):
-    """One staged packet: its device rows + host-side placement metadata."""
-
-    xy: torch.Tensor  # (packet_capacity,) int32 device row: the uint32
-    #   x | y << 16, or the single packed word when the ring uses a
-    #   RingLayout; lanes [0, count) are this packet's
-    tp: Optional[torch.Tensor]  # (packet_capacity,) int32: t_rel | p << 30;
-    #   None in compact (RingLayout) mode
-    gbase: int  # global index of this packet's first event
-    count: int  # valid events in the slot
-    t_base: int  # absolute microsecond timestamp of the first event
-    slot: int  # host slot index (ring bookkeeping)
-
-
-def _ring_segments(rows, meta: np.ndarray, capacity: int) -> list:
-    """Each packet's lanes of the frame, in arrival order, as views of its
-    device row: ``row[start : start + count]``, the total cut at
-    ``capacity`` (a larger frame keeps its first ``capacity`` events, as
-    ``EventBatch.from_structured`` does)."""
-    segs, left = [], capacity
-    for row, start, count in zip(rows, meta[0], meta[1]):
-        n = min(int(count), left)
-        segs.append(row[int(start):int(start) + n])
-        left -= n
-    return segs
-
-
-def _ring_batch(x, y, t, p, capacity: int) -> EventBatch:
-    """The batch of the frame's lanes ``x, y, t, p`` (one tensor each),
-    zero-padded to ``capacity`` as the segmented staging pads."""
-    n = x.shape[0]
-    valid, count = _lanes_valid(capacity, n, x.device)
-
-    def pad(a):
-        return torch.nn.functional.pad(a, (0, capacity - n))
-
-    return EventBatch(x=pad(x), y=pad(y), t=pad(t), p=pad(p), valid=valid, count=count)
-
-
-def assemble_ring_frame(xys, tps, meta: np.ndarray, capacity: int) -> EventBatch:
-    """Frame assembly from k resident packet rows (2-word ring).
-
-    ``meta`` is the host (3, k) int32 array of ``PacketRing.frame_meta``:
-    row 0 = per-packet start lane, row 1 = per-packet event count, row 2 =
-    per-packet time offset (packet t_base minus the frame's first event
-    time).  Packet k's events land contiguously after those of the packets
-    before it, giving the same contiguous, arrival-ordered,
-    capacity-padded batch (and bit-identical timestamps) as
-    ``EventBatch.from_structured`` of the segmented frame.  Torch ops on
-    the rows' device, from the host counts: no host -> device copy.
-    """
-    sx = _ring_segments(xys, meta, capacity)
-    st = _ring_segments(tps, meta, capacity)
-    xy = torch.cat(sx)
-    tp = torch.cat(st)
-    t = torch.cat([(s & _T_MASK) + int(off) for s, off in zip(st, meta[2])])
-    return _ring_batch(xy & 0xFFFF, (xy >> 16) & 0xFFFF, t, tp >> _P_SHIFT, capacity)
-
-
-def assemble_ring_frame_compact(
-    ws, meta: np.ndarray, capacity: int, layout: RingLayout
-) -> EventBatch:
-    """:func:`assemble_ring_frame` for compact (one-word) ring packets.
-
-    Same placement, one segment stream instead of two, and p
-    reconstructed as the constant 1 the upstream polarity filter
-    guarantees.  Bit-identical to ``EventBatch.from_structured`` of the
-    segmented slice.  This is also the first step of the plain version of
-    kernel 1's ring entry, which decodes the rows in registers on the
-    card."""
-    bx, by = layout.bits_x, layout.bits_y
-    shift = bx + by
-    segs = _ring_segments(ws, meta, capacity)
-    word = torch.cat(segs)
-    # logical shift: the word is packed unsigned (u32 reinterpreted)
-    t_mask = (1 << (32 - shift)) - 1
-    t = torch.cat([((s >> shift) & t_mask) + int(off) for s, off in zip(segs, meta[2])])
-    x = word & ((1 << bx) - 1)
-    return _ring_batch(x, (word >> bx) & ((1 << by) - 1), t, torch.ones_like(x), capacity)
 
 
 def ring_time_bounds(evs: np.ndarray, capacity: int) -> tuple[int, int]:

@@ -1,12 +1,14 @@
 """The native group staging: ctypes bindings to ``csrc/stage_pack.cpp``.
 
 ``io.prefetch`` stages a group's frames at one word an event through these
-two entries where a frame's ``x``, ``y`` and ``t`` fields are ``<u2``,
-``<u2`` and ``<i8`` (the decoder's ``EVENT_DTYPE``, at any record stride):
-``scan`` (does every pixel fit the layout, and the time range of the
-events that are staged) and ``pack`` (the words, straight into the rows
-of the pinned buffer).  Each is one call a group.  ``io.prefetch``'s NumPy
-check and pack are their plain versions, and stage every other frame.
+two entries where a frame is a run of the decoder's records
+(``EVENT_DTYPE``: ``x``, ``y`` and ``t`` ``<u2``, ``<u2`` and ``<i8`` at
+bytes 0, 2 and 6 of a 14-byte record, every record in turn): ``scan``
+(does every pixel fit the layout, and the time range of the events that
+are staged) and ``pack`` (the words, straight into the rows of the pinned
+buffer).  Each is one call a group.  ``io.prefetch``'s NumPy check and pack
+are their plain versions, and stage every other frame, strided or
+reordered record views among them.
 
 The library is built with ``g++`` at first use into the package's build
 directory (``ops._build.build_host_library``); a CUDA engine loads it when
@@ -33,7 +35,10 @@ SRC = Path(__file__).resolve().parent.parent / "csrc" / "stage_pack.cpp"
 #: below this (the quotient then comes exactly from doubles)
 MAX_SPAN = 1 << 52
 
-_FIELDS = {"x": np.dtype("<u2"), "y": np.dtype("<u2"), "t": np.dtype("<i8")}
+#: the decoder's record as the native entries read it: each field's type
+#: and byte offset, and the record stride
+_FIELDS = {"x": (np.dtype("<u2"), 0), "y": (np.dtype("<u2"), 2), "t": (np.dtype("<i8"), 6)}
+_STRIDE = 14
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -48,39 +53,33 @@ def load() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         p, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
         lib.xm_stage_scan.restype = i32
-        lib.xm_stage_scan.argtypes = [i32, p, p, p, p, p, i64, i32, i32, p, p]
+        lib.xm_stage_scan.argtypes = [i32, p, p, i64, i32, i32, p, p]
         lib.xm_stage_pack.restype = None
-        lib.xm_stage_pack.argtypes = [i32, p, p, p, p, p, p, i64, i32, i32, i64, p, p, p]
+        lib.xm_stage_pack.argtypes = [i32, p, p, p, i64, i32, i32, i64, p, p, p]
         _lib = lib
     return _lib
 
 
 @functools.lru_cache(maxsize=None)
-def _offsets(dtype: np.dtype) -> Optional[tuple]:
-    """The byte offsets of a record type's x, y and t, where they are the
-    native entries' types; else None."""
+def _decoder_record(dtype: np.dtype) -> bool:
+    """Whether a record type has the decoder's x, y and t: their types at
+    their offsets."""
     f = dtype.fields
-    if f is None or any(k not in f or f[k][0] != d for k, d in _FIELDS.items()):
-        return None
-    return tuple(f[k][1] for k in _FIELDS)
+    return f is not None and all(k in f and f[k][:2] == d for k, d in _FIELDS.items())
 
 
 def native_fields(evs: np.ndarray) -> bool:
-    """Whether the native entries read ``evs``: a 1-D record array whose
-    ``x``, ``y`` and ``t`` are ``<u2``, ``<u2`` and ``<i8``."""
-    return evs.ndim == 1 and _offsets(evs.dtype) is not None
+    """Whether the native entries read ``evs``: a 1-D array of the decoder's
+    records, one after another (a record stride of 14 bytes)."""
+    return (evs.ndim == 1 and (len(evs) < 2 or evs.strides[0] == _STRIDE)
+            and _decoder_record(evs.dtype))
 
 
 def addresses(frames: list) -> np.ndarray:
-    """(5, F) int64: the address of each frame's first x, y and t, its
-    record stride and its length, for ``scan`` and ``pack`` (valid while
-    the frames are)."""
-    cols = []
-    for evs in frames:
-        base = evs.ctypes.data
-        cols.extend(base + o for o in _offsets(evs.dtype))
-        cols.extend((evs.strides[0], len(evs)))
-    return np.array(cols, np.int64).reshape(-1, 5).T.copy()
+    """(2, F) int64: the address of each frame's first record and its
+    length, for ``scan`` and ``pack`` (valid while the frames are)."""
+    return np.array([[evs.ctypes.data for evs in frames], [len(evs) for evs in frames]],
+                    np.int64).reshape(2, len(frames))
 
 
 def scan(addr: np.ndarray, capacity: int, bits_x: int, bits_y: int) -> tuple:
@@ -106,6 +105,6 @@ def pack(addr: np.ndarray, rows: list, counts, capacity: int, bits_x: int, bits_
     addr = np.ascontiguousarray(addr)
     aux = np.array([counts, [r.ctypes.data for r in rows], t_lo, t_hi], np.int64)
     table = np.empty(capacity + 1, np.uint32)  # the C side's scratch
-    load().xm_stage_pack(addr.shape[1], *(r.ctypes.data for r in addr[:4]),
+    load().xm_stage_pack(addr.shape[1], addr[0].ctypes.data,
                          *(r.ctypes.data for r in aux[:2]), capacity, bits_x, bits_y,
                          t_px_scale, *(r.ctypes.data for r in aux[2:]), table.ctypes.data)

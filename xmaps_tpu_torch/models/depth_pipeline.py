@@ -21,18 +21,7 @@ import torch
 from xmaps_tpu_torch.calib.maps import CalibrationParams, CamProjMaps
 from xmaps_tpu_torch.config import PipelineConfig, RuntimeParams
 from xmaps_tpu_torch.io import stage_pack
-from xmaps_tpu_torch.io.prefetch import (
-    RING_SLOTS_PER_FRAME,
-    CompactLayout,
-    CompactStagedBatch,
-    CompactStagedGroup,
-    RingLayout,
-    assemble_ring_frame,
-    assemble_ring_frame_compact,
-    scan_group,
-    stage_compact_group,
-    unpack_staged,
-)
+from xmaps_tpu_torch.io.prefetch import scan_group, stage_compact_group
 from xmaps_tpu_torch.ops.cuda_tail import (
     CamTailPlan,
     TailPlan,
@@ -50,6 +39,16 @@ from xmaps_tpu_torch.ops.frame_pipeline import (
     staged_depth_frame,
 )
 from xmaps_tpu_torch.ops.scatter import MAX_CAPACITY
+from xmaps_tpu_torch.ops.staged import (
+    RING_SLOTS_PER_FRAME,
+    CompactLayout,
+    CompactStagedBatch,
+    CompactStagedGroup,
+    RingLayout,
+    assemble_ring_frame,
+    assemble_ring_frame_compact,
+    unpack_staged,
+)
 from xmaps_tpu_torch.ops.xmap import build_x_map, xmap_cache_key
 from xmaps_tpu_torch.parallel.sharding import (
     make_group_sharded_pipeline,
@@ -341,23 +340,28 @@ class XMapsDepthEngine:
         axis do not fit 32 bits."""
         return CompactLayout.for_pipeline(self.cfg)
 
+    @property
+    def one_word_layout(self) -> Optional[CompactLayout]:
+        """Whether a frame goes at one word an event: the layout it is
+        staged at, or None for two words.  One word where the engine has a
+        ``compact_layout`` and no dedup filter is set (a filter re-bins time
+        after it drops events, so it needs each event's raw timestamp and
+        polarity).  The pipe's segmented staging, ``process_staged``,
+        ``process_ring`` and ``stage_group`` all ask this."""
+        return self.compact_layout if self.cfg.frame_filter == "none" else None
+
     def process_staged(self, staged) -> FrameResult:
         """Run the frame on a packed ``io.prefetch`` batch (the streaming
         hot path; validity implied by the count), display-only with the
         packed-BGR plane, as the JAX engine's streaming program.  Accepts
-        a StagedBatch (2 words/event) or, when the pipeline is
-        unfiltered, a CompactStagedBatch (1 word/event with host-binned
-        time), which kernel 1 decodes itself: nothing runs on the card
-        between the batch's copy and kernel 1."""
+        a StagedBatch (2 words/event) or, where ``one_word_layout`` is
+        set, a CompactStagedBatch (1 word/event with host-binned time),
+        which kernel 1 decodes itself: nothing runs on the card between
+        the batch's copy and kernel 1."""
         kw = dict(display_only=True, display_packed=True)
         if isinstance(staged, CompactStagedBatch):
-            layout = self.compact_layout
-            if layout is None or self.cfg.frame_filter != "none":
-                raise ValueError(
-                    "compact staging requires frame_filter == 'none' and "
-                    "a 32-bit-fit CompactLayout"
-                )
-            return staged_depth_frame(staged, layout, self.tables, self.cfg, self.plan, **kw)
+            return staged_depth_frame(staged, self.one_word_layout, self.tables, self.cfg,
+                                      self.plan, **kw)
         return depth_frame(unpack_staged(staged), self.tables, self.cfg, self.plan, **kw)
 
     @property
@@ -376,10 +380,10 @@ class XMapsDepthEngine:
         ``PacketRing.frame_meta``.
 
         With ``t_bounds`` (``io.prefetch.ring_time_bounds`` of the frame, as
-        the pipe passes them), a 1-word ring and no dedup filter, kernel 1's
-        ring entry reads the packet rows itself: nothing crosses the link
-        at dispatch and nothing runs on the card before kernel 1.  Any
-        other frame -- a 2-word ring (``ring_layout`` is None), a dedup
+        the pipe passes them), a 1-word ring and a ``one_word_layout``,
+        kernel 1's ring entry reads the packet rows itself: nothing crosses
+        the link at dispatch and nothing runs on the card before kernel 1.
+        Any other frame -- a 2-word ring (``ring_layout`` is None), a dedup
         filter, or no ``t_bounds`` (the JAX package's signature) -- is a
         layout that entry does not cover: it is assembled by torch ops
         (``assemble_ring_frame[_compact]``) and runs ``depth_frame``, the
@@ -396,7 +400,7 @@ class XMapsDepthEngine:
                 layout = self.ring_layout
                 if layout is None:
                     raise ValueError("1-word ring packets need the engine's ring_layout")
-                if t_bounds is not None and self.cfg.frame_filter == "none":
+                if t_bounds is not None and self.one_word_layout is not None:
                     return ring_depth_frame(rows, meta, t_bounds, layout, self.tables, self.cfg,
                                             self.plan, **kw)
                 batch = assemble_ring_frame_compact(rows, meta, cap, layout)
@@ -436,20 +440,20 @@ class XMapsDepthEngine:
     def stage_group(self, frames: list, *, device=None) -> Union[EventBatch, CompactStagedGroup]:
         """F frames staged for ``group_depth_frames`` in one host buffer
         and one copy a field: at one word an event
-        (``io.prefetch.stage_compact_group``) where the pipeline is
-        unfiltered, the 1-word layout exists, every timestamp is an integer
-        and every pixel fits the layout (``io.prefetch.scan_group``); else as an
-        ``EventBatch`` with a leading frame axis (the JAX engine's unsorted
-        group staging).  ``device``: where to (default: the engine's; a
-        mesh row's in ``process_frames_sharded``)."""
+        (``io.prefetch.stage_compact_group``) where ``one_word_layout`` is
+        set, every timestamp is an integer and every pixel fits the layout
+        (``io.prefetch.scan_group``); else as an ``EventBatch`` with a
+        leading frame axis (the JAX engine's unsorted group staging).
+        ``device``: where to (default: the engine's; a mesh row's in
+        ``process_frames_sharded``)."""
         with span("engine.stage_group"):
             dev = self.device if device is None else device
-            layout = self.compact_layout
+            layout = self.one_word_layout
             cap = self.cfg.event_capacity
             scan = None
             with span("staging.check"):
-                if (layout is not None and self.cfg.frame_filter == "none"
-                        and all(np.issubdtype(ev.dtype["t"].type, np.integer) for ev in frames)):
+                if layout is not None and all(np.issubdtype(ev.dtype["t"].type, np.integer)
+                                              for ev in frames):
                     scan = scan_group(frames, layout, cap)
             if scan is not None and scan.fits:
                 return stage_compact_group(frames, cap, layout, device=dev, scan=scan)

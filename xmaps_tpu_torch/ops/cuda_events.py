@@ -14,7 +14,7 @@ its first lane, so its keys are the frame's and the shards' maps combine
 with an unsigned max into the frame's map.
 
 ``event_disparity_scatter_staged`` is the same kernel on the streaming
-path's 1-word staged batch (``io.prefetch.CompactStagedBatch``): it decodes
+path's 1-word staged batch (``ops.staged.CompactStagedBatch``): it decodes
 x, y and the time bin of each lane below the host count in registers, so
 nothing runs between the batch's host-to-device copy and the kernel.  Its
 plain version is ``unpack_staged_compact`` + the plain scatter.
@@ -47,7 +47,11 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from xmaps_tpu_torch.io.prefetch import (
+from xmaps_tpu_torch.ops import _build
+from xmaps_tpu_torch.ops.disparity import compute_event_disparity, scale_time
+from xmaps_tpu_torch.ops.event_batch import EventBatch
+from xmaps_tpu_torch.ops.scatter import MAX_CAPACITY, scatter_disp_packed
+from xmaps_tpu_torch.ops.staged import (
     RING_SLOTS_PER_FRAME,
     CompactLayout,
     CompactStagedBatch,
@@ -56,10 +60,6 @@ from xmaps_tpu_torch.io.prefetch import (
     assemble_ring_frame_compact,
     unpack_staged_compact,
 )
-from xmaps_tpu_torch.ops import _build
-from xmaps_tpu_torch.ops.disparity import compute_event_disparity, scale_time
-from xmaps_tpu_torch.ops.event_batch import EventBatch
-from xmaps_tpu_torch.ops.scatter import MAX_CAPACITY, scatter_disp_packed
 
 __all__ = [
     "EventScatterResult",

@@ -9,8 +9,8 @@ on CPU tensors.  The plain version is about 13,500 elementwise launches a
 group of 12 ESL scans; kernel R does the same arithmetic a pixel a thread in
 registers and equals the plain version on the card bit for bit.
 
-``apps.eval_esl.depth_optimization_dense`` is the entry point the
-evaluation, ``models.esl_pipeline`` and the tests call.
+``models.esl_pipeline.depth_optimization_dense`` is the entry point the
+evaluation, the ESL engine and the tests call.
 """
 
 from __future__ import annotations
@@ -63,10 +63,11 @@ def to_int32_saturating(x: torch.Tensor) -> torch.Tensor:
 
 
 def constant_block(plan, iters: int) -> np.ndarray:
-    """Kernel R's constants for ``plan`` (an ``apps.eval_esl.RefinePlan``)
-    and ``iters``: each Python number of :func:`esl_refine_plain` as the
-    float32 it becomes where it meets a tensor, laid out as
-    :data:`CONSTANTS` names them, then the tap weights ``_f32(b)``."""
+    """Kernel R's constants for ``plan`` (a ``models.esl_pipeline.
+    RefinePlan``) and ``iters``: each Python number of
+    :func:`esl_refine_plain` as the float32 it becomes where it meets a
+    tensor, laid out as :data:`CONSTANTS` names them, then the tap weights
+    ``_f32(b)``."""
     w = plan.w
     Hp, Wp = plan.proj_h, plan.proj_w
     inv_n = 1.0 / (Wp * Hp)
@@ -209,8 +210,8 @@ def esl_refine(depth0: torch.Tensor, cam: torch.Tensor, plan, iters: int = 64) -
     """The refined depth of an (H, W) scan or an (F, H, W) group:
     ``depth0`` the init's depth, ``cam`` the normalised camera image with
     its empty pixels filled, both contiguous float32 of one shape on one
-    device; ``plan`` an ``apps.eval_esl.RefinePlan`` of window half-width
-    at most :data:`MAX_W`.  Kernel R on CUDA tensors (one launch), the plain
+    device; ``plan`` a ``models.esl_pipeline.RefinePlan`` of window
+    half-width at most :data:`MAX_W`.  Kernel R on CUDA tensors (one launch), the plain
     version on CPU tensors; anything else raises."""
     dev = depth0.device
     if dev.type not in ("cpu", "cuda"):

@@ -3,9 +3,9 @@
 Port of ``xmaps_tpu.ops.pallas_esl``.  The reference's disparity_init
 scans, for every nonzero rectified camera pixel (r, c), the projector row
 window [c+5, c+900) for the nonzero value closest to the camera value --
-an O(W x D) brute force (``apps.eval_esl.disparity_init_dense``).  The
-rectified projector time surface is a monotone ramp along each row, so the
-window scan collapses to a binary search over per-row scan tables:
+an O(W x D) brute force (``models.esl_pipeline.disparity_init_dense``).
+The rectified projector time surface is a monotone ramp along each row, so
+the window scan collapses to a binary search over per-row scan tables:
 
     G[j] = value of the next nonzero at column >= j (suffix fill),
     F[j] = value of the last nonzero at column <= j (prefix fill),
@@ -127,7 +127,6 @@ def _prep_rows(proj: torch.Tensor):
 
 def esl_search_prep(
     proj_rect,
-    min_disp: int = 5,
     max_disp: int = 900,
     row_range: Optional[tuple] = None,
     col_range: Optional[tuple] = None,
@@ -138,7 +137,6 @@ def esl_search_prep(
     on ``proj_rect``'s device (a NumPy array goes to the CPU).  Each is
     (Hc, W_pad): the box's rows, its columns padded with zeros to a
     multiple of 128.  None for an empty box."""
-    del min_disp
     proj = torch.as_tensor(proj_rect, dtype=torch.float32)
     H, W, r0, r1, c0, c1, pre_cropped = _box(
         proj.shape, row_range, col_range, full_shape, max_disp
@@ -279,7 +277,7 @@ def esl_disparity_search(
     if prep is None:
         proj = torch.as_tensor(proj_rect, dtype=torch.float32).to(cam.device)
         prep = esl_search_prep(proj[r0:r1, c0:c1] if not pre_cropped else proj,
-                               min_disp, max_disp)
+                               max_disp)
     W_pad = _round_up(c1 - c0, 128)
     assert tuple(prep[0].shape) == (r1 - r0, W_pad), (
         f"prep tables {tuple(prep[0].shape)} do not match the box "

@@ -40,12 +40,6 @@ import numpy as np
 import torch
 
 from xmaps_tpu_torch.config import PipelineConfig
-from xmaps_tpu_torch.io.prefetch import (
-    CompactLayout,
-    CompactStagedBatch,
-    CompactStagedGroup,
-    RingLayout,
-)
 from xmaps_tpu_torch.ops.cuda_events import (
     event_disparity_scatter,
     event_disparity_scatter_group,
@@ -69,6 +63,12 @@ from xmaps_tpu_torch.ops.filters import (
     apply_frame_filter_group,
 )
 from xmaps_tpu_torch.ops.image_tail import turbo_packed_lut
+from xmaps_tpu_torch.ops.staged import (
+    CompactLayout,
+    CompactStagedBatch,
+    CompactStagedGroup,
+    RingLayout,
+)
 from xmaps_tpu_torch.utils.stats import span
 
 __all__ = [
@@ -218,8 +218,9 @@ def staged_depth_frame(
     """``depth_frame`` of a 1-word staged batch (``io.prefetch``
     ``stage_compact``: host time bins, validity implied by the count),
     unfiltered: kernel 1's staged entry, then the tail."""
-    if cfg.frame_filter != "none":
-        raise ValueError("a 1-word staged batch requires frame_filter == 'none'")
+    if layout is None or cfg.frame_filter != "none":
+        raise ValueError("compact staging requires frame_filter == 'none' and "
+                         "a 32-bit-fit CompactLayout")
     ev = event_disparity_scatter_staged(
         staged.word, staged.count, layout, tables, **scatter_view(cfg, plan),
     )

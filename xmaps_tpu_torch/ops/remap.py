@@ -15,10 +15,10 @@ camera scan sits in L2, so every route here lands on ONE kernel,
 ``remap_gather`` (``csrc/remap.cu``).  The maps are static, so the host
 packs ``(yi, xi, inb)`` once per calibration into one int32 flat index
 (``pack_remap_index``: ``yi * Ws + xi``, -1 for a zero), and the kernel
-reads 4 B a destination, four destinations a thread.  The ``method`` and
-``col_span`` arguments are accepted so that callers keep their signatures;
-they select nothing.  With no ``inb`` mask, ``xi == Ws`` marks an
-out-of-range destination (the JAX package's zero column).
+reads 4 B a destination, four destinations a thread.  So the JAX
+package's ``method`` and ``col_span`` arguments, which choose among its
+kernels, have no counterpart here.  With no ``inb`` mask, ``xi == Ws``
+marks an out-of-range destination (the JAX package's zero column).
 
 On a CUDA tensor ``remap_gather`` launches the kernel; on a CPU tensor it
 runs the plain version, ``remap_gather_plain``.
@@ -26,7 +26,7 @@ runs the plain version, ``remap_gather_plain``.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -132,19 +132,13 @@ def upload(arrs, device) -> tuple:
     return tuple(torch.from_numpy(a).to(device) for a in arrs)
 
 
-def remap_static(src, yi, xi, out_shape, col_span: Optional[int] = None,
-                 inb=None, method: str = "auto"):
+def remap_static(src, yi, xi, out_shape, inb=None):
     """src (Hs, Ws) float32 tensor + host int index maps -> (H, W) float32
     on src's device.
 
     ``inb``: the in-bounds mask from build_remap_indices; without it,
-    ``xi == Ws`` marks out-of-range destinations.  ``col_span`` and
-    ``method`` ("auto", "walk", "composed") select TPU gather schedules in
-    the JAX package and nothing here: every route is kernel B."""
-    if method not in ("auto", "walk", "composed"):
-        raise ValueError(f"unknown remap method {method!r}")
-    cfg, arrs = prepare_remap_static(yi, xi, inb, out_shape, tuple(src.shape),
-                                     col_span=col_span, method=method)
+    ``xi == Ws`` marks out-of-range destinations."""
+    cfg, arrs = prepare_remap_static(yi, xi, inb, out_shape, tuple(src.shape))
     return apply_remap_static(src, upload(arrs, src.device), cfg)
 
 
@@ -154,15 +148,11 @@ class RemapStaticCfg(NamedTuple):
     out_shape: tuple
 
 
-def prepare_remap_static(yi, xi, inb, out_shape, src_shape,
-                         col_span: Optional[int] = None, method: str = "auto"):
+def prepare_remap_static(yi, xi, inb, out_shape, src_shape):
     """Host-side preparation of a static remap into a source of
     ``src_shape``: (cfg, (idx,)) with ``idx`` the packed int32 flat index of
     :func:`pack_remap_index`, of ``out_shape``.  Upload it once per
-    calibration and call :func:`apply_remap_static` per source.
-    ``col_span`` and ``method`` are accepted for the JAX package's
-    signature; kernel B needs neither."""
-    del col_span, method
+    calibration and call :func:`apply_remap_static` per source."""
     idx = pack_remap_index(yi, xi, inb, src_shape)
     if idx.shape != tuple(out_shape):
         raise ValueError(f"prepare_remap_static: index maps {idx.shape} != {tuple(out_shape)}")

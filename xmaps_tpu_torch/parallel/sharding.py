@@ -59,7 +59,6 @@ import numpy as np
 import torch
 
 from xmaps_tpu_torch.config import PipelineConfig
-from xmaps_tpu_torch.io.prefetch import CompactLayout, CompactStagedGroup
 from xmaps_tpu_torch.ops.cuda_events import EventScatterResult, event_disparity_scatter_group
 from xmaps_tpu_torch.ops.cuda_tail import Plan, with_colorize_table
 from xmaps_tpu_torch.ops.disparity import scale_time, time_bounds
@@ -72,6 +71,7 @@ from xmaps_tpu_torch.ops.frame_pipeline import (
     group_tail,
     scatter_view,
 )
+from xmaps_tpu_torch.ops.staged import CompactLayout, CompactStagedGroup
 
 __all__ = [
     "Mesh",

@@ -203,13 +203,8 @@ class DepthReprojectionPipe:
     def _dispatch_segmented(self, evs: np.ndarray):
         with self.stats_printer.measure_time("stage batch"):
             # reused pinned host slots, packed words, one non-blocking
-            # copy per array (io.prefetch).  Unfiltered pipelines ship ONE
-            # word/event (host-binned time); dedup filters need raw
-            # timestamps, so they use the 2-word form.
-            if (
-                self.engine.compact_layout is not None
-                and self.engine.cfg.frame_filter == "none"
-            ):
+            # copy per array (io.prefetch), at the words the engine takes
+            if self.engine.one_word_layout is not None:
                 batch = self.staging.stage_compact(evs)
             else:
                 batch = self.staging.stage(evs)
