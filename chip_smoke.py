@@ -221,6 +221,13 @@ KERNEL_INFO = {
         "xmaps_tpu_torch/csrc/esl_refine.cu",
         "xmaps_tpu/apps/eval_esl.py:144 (XLA, not a TPU kernel)",
     ),
+    # kernel D, ESL's denoise (the bilateral and the TV denoise): plain XLA in
+    # the JAX package too; added because the plain version's launches made the
+    # ESL ground truth host-bound after kernel R
+    "esl_denoise": (
+        "xmaps_tpu_torch/csrc/esl_denoise.cu",
+        "xmaps_tpu/utils/denoise.py:81,125 (XLA, not a TPU kernel)",
+    ),
 }
 #: H100 SXM memory rate (NVIDIA data sheet), bytes/s: every kernel here but
 #: kernel R moves far more bytes than it does operations, so its bound is bytes
@@ -238,6 +245,17 @@ FP32_OPS_PER_S = 132 * 128 * 1.98e9
 ESL_REFINE_OPS_A_SAMPLE = 2 + 18 + 2 + 3 + 6 + 9 + 9 + 4 + 1 + 6 + 2
 ESL_REFINE_OPS_A_TAP = 5
 ESL_REFINE_OPS_A_PIXEL = 3 + 4 + 2 * 3
+#: kernel D's FP32 adds, multiplies, divisions and exps (csrc/esl_denoise.cu)
+#: a pixel: a bilateral tap (the difference, its square, its scale, less the
+#: tap's spatial term, the exp, the weighted value, the two sums) and the
+#: division; a Jacobi sweep (three neighbour adds, the scale, the add, the
+#: division); an outer iteration's set-up after the first (the two gradients,
+#: the two shrink arguments, two shrinks of 2, the two b updates of 2, p's 2,
+#: the divergence 3, rhs 2: mu y is the same every iteration) and the first's
+#: mu y
+ESL_DENOISE_OPS_A_TAP = 8
+ESL_DENOISE_OPS_A_SWEEP = 6
+ESL_DENOISE_OPS_AN_ITERATION = 19
 #: the largest share of its bound a kernel's time may show (1, and the
 #: timing's noise): a larger one means a bound that does not bound
 MAX_SHARE = 1.05
@@ -1670,11 +1688,8 @@ def phase7_offline_eval(card, errs, kernels_ms, shapes, library_ms):
     from xmaps_tpu_torch.ops.esl_search import esl_search_box, esl_search_box_plain, rows_monotone
     from xmaps_tpu_torch.ops.event_batch import EventBatch
     from xmaps_tpu_torch.ops.remap import remap_gather, remap_gather_plain
-    from xmaps_tpu_torch.utils.denoise import (
-        bilateral_filter,
-        median_blur_3x3,
-        tv_denoise_split_bregman,
-    )
+    from xmaps_tpu_torch.ops.esl_denoise import esl_denoise
+    from xmaps_tpu_torch.utils.denoise import median_blur_3x3
     from xmaps_tpu_torch.utils.synthetic import make_synthetic_calibration, simulate_plane_events
 
     dev = torch.device("cuda")
@@ -1764,7 +1779,8 @@ def phase7_offline_eval(card, errs, kernels_ms, shapes, library_ms):
     n = n_scans
     la, _ = run_app(eval_esl.main, args["cuda"] + ["-device", "cuda"],
                     {"esl_disparity_search": n, "remap_gather": 2 * n,
-                     "esl_refine": -(-n // esl_pipeline.GROUP_SCANS)})
+                     "esl_refine": -(-n // esl_pipeline.GROUP_SCANS),
+                     "esl_denoise": 21 * -(-n // esl_pipeline.GROUP_SCANS)})
     esl_peak_mb = (torch.cuda.max_memory_allocated() - mem0) / 1e6
     lm, _ = run_app(eval_mc3d.main, args["cuda"] + ["-device", "cuda"], {})
     lx, _ = run_app(eval_xmaps.main, args["cuda"] + ["-device", "cuda"],
@@ -1779,7 +1795,8 @@ def phase7_offline_eval(card, errs, kernels_ms, shapes, library_ms):
         if row not in table:
             raise AssertionError(f"eval_table: no {row!r} row in\n{table}")
     log(f"  apps on the card: eval_esl launches {la['esl_disparity_search']} A + "
-        f"{la['remap_gather']} B + {la['esl_refine']} R for {n} scans (peak "
+        f"{la['remap_gather']} B + {la['esl_refine']} R + {la['esl_denoise']} D for {n} scans "
+        f"(peak "
         f"{esl_peak_mb:.1f} MB above the "
         f"resident tables), eval_mc3d no kernel, eval_xmaps "
         f"{lx['event_disparity_scatter']} x kernel 1 + {lx['colorize_camera']} x kernel 3 "
@@ -1849,8 +1866,8 @@ def phase7_offline_eval(card, errs, kernels_ms, shapes, library_ms):
         ("ESL depth init brute force", lambda: esl_pipeline.depth_init_dense(
             cams[0], maps, proj_rect, p03, dev), 1),
         ("ESL refinement", lambda: esl_pipeline.depth_optimization_dense(depth0, cam_ref, plan), 3),
-        ("ESL denoise (bilateral + TV)", lambda: tv_denoise_split_bregman(
-            bilateral_filter(optim, d=5, sigma_color=3.0, sigma_space=3.0), mu=0.5), 3),
+        ("ESL denoise (kernel D)", lambda: esl_denoise(
+            optim, **esl_pipeline.BILATERAL, **esl_pipeline.TV_DENOISE), 20),
         ("MC3D (median + search)", lambda: eval_mc3d.mc3d_disparity_dense(
             median_blur_3x3(raw0), tables, *ESL_PROJ), 3),
         ("X-maps (kernels 1+3)", lambda: eng.process_batch_device(batch), 20),
@@ -1894,7 +1911,8 @@ def phase7_offline_eval(card, errs, kernels_ms, shapes, library_ms):
         km, pm = kernels_ms[k]
         log(f"  kernel {k}: {km['ms']:.5f} ms device ({km['source']}), plain {pm['ms']:.5f} ms"
             f" per scan (ESL box; remap = forward + back) {card}")
-    time_kernel_r(card, errs, kernels_ms, shapes, calib, maps, fast, cam_dev)
+    optim = time_kernel_r(card, errs, kernels_ms, shapes, calib, maps, fast, cam_dev)
+    time_kernel_d(card, errs, kernels_ms, shapes, optim)
     tmp.cleanup()
     log(f"  phase 7 total {time.perf_counter() - t_phase:.1f} s {card}")
     return launches
@@ -1905,7 +1923,8 @@ def time_kernel_r(card, errs, kernels_ms, shapes, calib, maps, fast, cam_dev):
     window) against its plain version on the card, exactly, on one scan
     and on a group of 12 (the phase's scans repeated), each timed in turns
     (device ms a call; the plain version's 13,500 launches a group, 2 and 3
-    calls a turn); the one scan's pair is the kernel table's row."""
+    calls a turn); the one scan's pair is the kernel table's row.  Returns
+    the group's refined depth."""
     import torch
     from xmaps_tpu_torch.models import esl_pipeline
     from xmaps_tpu_torch.ops.esl_refine import esl_refine, esl_refine_plain
@@ -1942,6 +1961,62 @@ def time_kernel_r(card, errs, kernels_ms, shapes, calib, maps, fast, cam_dev):
             f"plain {pm['ms']:.5f} ms (turns {pm['turns'][0]:.5f}, {pm['turns'][1]:.5f}); "
             f"{shape['esl_refine'][3]} px optimised; bound {bound:.5f} ms ({by}; bytes "
             f"{bytes_ms:.5f} ms), share {bound / km['ms']:.4f}; exact {card}")
+    return esl_refine(depth, imgs, plan)
+
+
+def time_kernel_d(card, errs, kernels_ms, shapes, optim):
+    """Phase 7: kernel D (ESL's denoise at the eval's parameters) against
+    its plain versions on the card, exactly, on one refined scan and on the
+    group of 12 (``optim``, kernel R's), each timed in turns (device ms a
+    call; the plain versions' ~5,566 launches a group, 3 and 2 calls a
+    turn); the group's pair is the kernel table's row."""
+    from xmaps_tpu_torch.models.esl_pipeline import BILATERAL, TV_DENOISE
+    from xmaps_tpu_torch.ops import _build
+    from xmaps_tpu_torch.ops.esl_denoise import (
+        bilateral_filter,
+        esl_denoise,
+        tv_denoise_split_bregman,
+    )
+
+    def kernel(x):
+        return esl_denoise(x, **BILATERAL, **TV_DENOISE)
+
+    def plain(x):
+        return tv_denoise_split_bregman(bilateral_filter(x, **BILATERAL), **TV_DENOISE)
+
+    H, W = optim.shape[1:]
+    calls = {"scan": optim[:1].contiguous(), "group": optim}
+    times = {}
+    for name, x in calls.items():
+        before = _build.LAUNCHES["esl_denoise"]
+        got = kernel(x)
+        launches = _build.LAUNCHES["esl_denoise"] - before
+        if launches != 1 + TV_DENOISE["niter"]:
+            raise AssertionError(f"esl_denoise ({name}): {launches} launches a call")
+        e = assert_exact(f"esl_denoise ({name} of {len(x)}) vs plain on the card",
+                         [(got, plain(x))])
+        errs["esl_denoise"] = max(errs.get("esl_denoise", 0.0), e)
+        times[name] = time_pair(lambda: kernel(x), lambda: plain(x),
+                                plain_iters=3 if name == "scan" else 2)
+        shapes[f"esl_denoise_{name}"] = (len(x), H, W, BILATERAL["d"] // 2, TV_DENOISE["niter"],
+                                         TV_DENOISE["niter_inner"])
+    kernels_ms["esl_denoise"] = times["group"]
+    shapes["esl_denoise"] = shapes["esl_denoise_group"]
+    for name, (km, pm) in times.items():
+        shape = {"esl_denoise": shapes[f"esl_denoise_{name}"]}
+        bound, by = kernel_bound_ms("esl_denoise", shape)
+        bytes_ms = kernel_bytes("esl_denoise", shape) / HBM_BYTES_PER_S * 1e3
+        state_b = esl_denoise_state_bytes(shape["esl_denoise"])
+        state_ms = state_b / HBM_BYTES_PER_S * 1e3
+        if bound > MAX_SHARE * km["ms"]:
+            raise AssertionError(f"esl_denoise ({name}): share {bound / km['ms']:.4f} over "
+                                 f"{MAX_SHARE}")
+        log(f"  kernel D esl_denoise, {name} of {shape['esl_denoise'][0]}: {km['ms']:.5f} ms "
+            f"device (turns {km['turns'][0]:.5f}, {km['turns'][1]:.5f}; top {km['top']}), plain "
+            f"{pm['ms']:.5f} ms (turns {pm['turns'][0]:.5f}, {pm['turns'][1]:.5f}); bound "
+            f"{bound:.5f} ms ({by}; bytes in and out {bytes_ms:.5f} ms), share "
+            f"{bound / km['ms']:.4f}; the design's state traffic {state_b / 1e9:.4f} GB, "
+            f"{state_ms:.5f} ms at 3.35 TB/s, {state_ms / km['ms']:.4f} of the time; exact {card}")
 
 
 @contextlib.contextmanager
@@ -3096,6 +3171,11 @@ def kernel_bytes(name, shapes) -> float:
         # image in, the refined depth out, the rays once
         f, h, w, _, _, _ = s
         return 12 * f * h * w + 8 * h * w
+    if name == "esl_denoise":
+        # a call (F, H, W, half-width, niter, niter_inner): the refined depth
+        # in, the filtered depth out
+        f, h, w, _, _, _ = s
+        return 8 * f * h * w
     if name == "warmup_add_one":
         (n,) = s
         return 8 * n
@@ -3114,14 +3194,37 @@ def esl_refine_ops(shape) -> float:
                  + 2 * (iters + 1) * ESL_REFINE_OPS_A_SAMPLE)
 
 
+def esl_denoise_ops(shape) -> float:
+    """Kernel D's FP32 operations a call of ``shape`` (``kernel_bytes``'): a
+    pixel's bilateral taps and division, then the TV's sweeps and outer
+    iterations (every pixel's: the border's adds of 0 counted too)."""
+    f, h, w, r, niter, inner = shape
+    per_px = ((2 * r + 1) ** 2 * ESL_DENOISE_OPS_A_TAP + 1 + niter * inner * ESL_DENOISE_OPS_A_SWEEP
+              + max(niter - 1, 0) * ESL_DENOISE_OPS_AN_ITERATION + min(niter, 1))
+    return f * h * w * per_px
+
+
+def esl_denoise_state_bytes(shape) -> float:
+    """The bytes kernel D's design moves a call of ``shape``: each launch's
+    inputs read once and outputs written once (the bilateral 8 B a pixel;
+    the TV's first launch y in and u out, then y, u and the previous b in,
+    u and b out, the last u out alone).  Not a bound of the work: the state
+    between launches is the design's."""
+    f, h, w, _, niter, _ = shape
+    per_px = 8 + sum(4 + (4 if k else 0) + (8 if k > 1 else 0) + 4 + (8 if 0 < k < niter - 1 else 0)
+                     for k in range(niter))
+    return f * h * w * per_px
+
+
 def kernel_bound_ms(name, shapes) -> tuple:
     """(the least ms the card could take for ``name`` on this run's inputs,
-    what bounds it): its bytes over the HBM rate, and for kernel R the
-    larger of that and its FP32 operations over the FP32 issue rate."""
+    what bounds it): its bytes over the HBM rate, and for kernels R and D the
+    larger of that and their FP32 operations over the FP32 issue rate."""
     by_bytes = kernel_bytes(name, shapes) / HBM_BYTES_PER_S * 1e3
-    if name != "esl_refine":
+    ops = {"esl_refine": esl_refine_ops, "esl_denoise": esl_denoise_ops}.get(name)
+    if ops is None:
         return by_bytes, "bytes"
-    by_ops = esl_refine_ops(shapes[name]) / FP32_OPS_PER_S * 1e3
+    by_ops = ops(shapes[name]) / FP32_OPS_PER_S * 1e3
     return (by_ops, "fp32 issue") if by_ops > by_bytes else (by_bytes, "bytes")
 
 

@@ -41,6 +41,7 @@ from xmaps_tpu_torch.ops.cuda_tail import (  # noqa: E402
     tail_projector_plain,
 )
 from xmaps_tpu_torch.ops.disparity import scale_time  # noqa: E402
+from xmaps_tpu_torch.ops.esl_denoise import denoise_scalars  # noqa: E402
 from xmaps_tpu_torch.ops.event_batch import EventBatch  # noqa: E402
 from xmaps_tpu_torch.utils.synthetic import (  # noqa: E402
     make_synthetic_calibration,
@@ -1869,7 +1870,7 @@ def test_esl_engine_group_is_one_kernel_r_launch_on_card(esl_gt, monkeypatch):
     _build.reset_launch_counts()
     planes = eng.process_scans(scans)
     assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
-        "esl_refine": 1, "esl_disparity_search": 12, "remap_gather": 24}
+        "esl_refine": 1, "esl_disparity_search": 12, "remap_gather": 24, "esl_denoise": 21}
     _bits_equal(planes.depth_optim.cuda(), esl_refine_plain(depth, img, eng.plan, 64))
     for f in (0, 11):
         one = eng.process_scans(scans[f:f + 1])
@@ -1908,3 +1909,179 @@ def test_esl_engine_group_is_one_kernel_r_launch_on_card(esl_gt, monkeypatch):
         assert len(kernel) == 1 and "esl_refine_kernel" in kernel[0] and not after, (kernel,
                                                                                      after)
         assert 1 <= len(fill) <= 4 and all("at::native" in n for n in fill), fill
+
+
+# -- kernel D: ESL's denoise at the ESL rig ----------------------------------------
+
+#: the TV sweeps' divisor at the eval's parameters (mu + 4 lam)
+ESL_DIAG = denoise_scalars(3.0, 3.0, 0.5, 0.1)["diag"]
+
+
+def _denoise_params(**kw):
+    from xmaps_tpu_torch.models.esl_pipeline import BILATERAL, TV_DENOISE
+
+    return {**BILATERAL, **TV_DENOISE, **kw}
+
+
+def _denoise_plain(x, d, sigma_color, sigma_space, **tv):
+    from xmaps_tpu_torch.ops.esl_denoise import bilateral_filter, tv_denoise_split_bregman
+
+    return tv_denoise_split_bregman(bilateral_filter(x, d, sigma_color, sigma_space), **tv)
+
+
+@pytest.fixture(scope="module")
+def esl_optim(esl_gt):
+    """The 12 scans' refined plane (kernel R), (12, 480, 640) on the card."""
+    from xmaps_tpu_torch.ops.esl_refine import esl_refine
+
+    eng, _, depth, img = esl_gt
+    return esl_refine(depth, img, eng.plan, 64)
+
+
+@pytest.mark.parametrize("F", [1, 12])
+def test_esl_denoise_kernel_matches_plain_on_card(esl_optim, F):
+    """Kernel D on F refined scans of the ESL rig (1 + 20 launches) against
+    the plain versions on the card, bit for bit, and the one-scan (H, W)
+    call against the group's scan."""
+    from xmaps_tpu_torch.ops.esl_denoise import esl_denoise
+
+    optim = esl_optim[:F].contiguous()
+    _build.reset_launch_counts()
+    got = esl_denoise(optim, **_denoise_params())
+    torch.cuda.synchronize()
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {"esl_denoise": 21}
+    want = _denoise_plain(optim, **_denoise_params())
+    _bits_equal(got, want)
+    assert (optim > 0).sum() > 50_000 * F and (got != optim).sum() > 100_000 * F
+    _bits_equal(got[F - 1], esl_denoise(optim[F - 1].contiguous(), **_denoise_params()))
+
+
+def _depth_like(shape, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.rand(shape, generator=g, device="cuda") + 0.3
+    x = torch.where(torch.rand(shape, generator=g, device="cuda") < 0.3, 0.0, x)
+    x[..., : shape[-2] // 2, :] += 0.5
+    return x.contiguous()
+
+
+@pytest.mark.parametrize("case", ["cell", "odd", "row", "column", "one_scan", "constant",
+                                  "widest", "few_sweeps", "special_values"])
+def test_esl_denoise_kernel_edges_on_card(cuda, case):
+    """Kernel D bit-equal to the plain versions on the card: the cell's
+    shape with depth-like inputs (zeros where undefined), sizes smaller
+    than and not dividing the tiles, an (H, W) input, a constant image, the
+    widest window and halo the tiles hold, other counts, and inf / NaN /
+    -0 / huge depths (compared bit for bit, NaNs included)."""
+    from xmaps_tpu_torch.ops.esl_denoise import MAX_INNER, MAX_RADIUS, esl_denoise
+
+    params = _denoise_params()
+    if case == "cell":
+        x = _depth_like((12, 480, 640), 1)
+    elif case == "odd":
+        x = _depth_like((3, 33, 21), 2)
+    elif case == "row":
+        x = _depth_like((2, 1, 5), 3)
+    elif case == "column":
+        x = _depth_like((2, 7, 1), 4)
+    elif case == "one_scan":
+        x = _depth_like((97, 131), 5)
+    elif case == "constant":
+        x = torch.full((2, 70, 90), 0.731, device="cuda")
+    elif case == "widest":
+        x = _depth_like((2, 100, 150), 6)
+        params = _denoise_params(d=2 * MAX_RADIUS + 1, sigma_color=0.05, sigma_space=7.0,
+                                 niter=3, niter_inner=MAX_INNER, mu=0.9, eps=0.3)
+    elif case == "few_sweeps":
+        x = _depth_like((2, 100, 150), 7)
+        params = _denoise_params(d=3, niter=2, niter_inner=1)
+    else:
+        x = _depth_like((2, 64, 96), 8)
+        x[0, 5, 5:10] = torch.tensor([float("inf"), float("nan"), -0.0, 1e30, -1e-40])
+        x[1, 40:44, 60:70] = 3e19
+    _build.reset_launch_counts()
+    got = esl_denoise(x, **params)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["esl_denoise"] == 1 + params["niter"]
+    _bits_equal(got, _denoise_plain(x, **params))
+
+
+def _every_float(fn, want_fn, chunk=1 << 28):
+    """``fn`` against ``want_fn`` on every float32 bit pattern, in chunks:
+    equal bits where the wanted value is a number, NaN where it is NaN."""
+    for lo in range(-(1 << 31), 1 << 31, chunk):
+        x = torch.arange(lo, lo + chunk, dtype=torch.int32, device="cuda").view(torch.float32)
+        want, got = want_fn(x), fn(x)
+        nan = torch.isnan(want)
+        assert torch.equal(nan, torch.isnan(got)), lo
+        assert torch.equal(torch.where(nan, 0, want.view(torch.int32)),
+                           torch.where(nan, 0, got.view(torch.int32))), lo
+        del x, want, got, nan
+
+
+def _probe(entry, x, *args):
+    """One of kernel D's test entries on the contiguous float32 CUDA ``x``."""
+    out = torch.empty_like(x)
+    _build.launch(x.device, "esl_denoise", entry, x.data_ptr(), x.numel(), *args,
+                  out.data_ptr())
+    return out
+
+
+def test_esl_denoise_weight_is_torch_exp_on_card(cuda):
+    """The bilateral's weight function (``expf`` in kernel D) against
+    ``torch.exp`` on every float32 bit pattern."""
+    _every_float(lambda x: _probe("esl_denoise_exp", x), torch.exp)
+
+
+@pytest.mark.parametrize("d", [ESL_DIAG, 1.0, 0.75, 3.3, 1.9999999, 2.0 ** -20, 2.0 ** 20,
+                               0.0017])
+def test_esl_denoise_sweep_division_on_card(cuda, d):
+    """The sweeps' division by diag (a reciprocal and two corrections,
+    subnormal quotients rounded by their residual) against torch's division
+    by a float32 tensor on the card (a true division, as the plain version
+    divides by its 0-d ``diag``), on every float32 bit pattern; the first d
+    is the eval's diag."""
+    d = float(np.float32(d))
+    dt = torch.full((), d, dtype=torch.float32, device="cuda")
+    _every_float(lambda x: _probe("esl_denoise_quotient", x, d), lambda x: x / dt)
+
+
+def test_esl_engine_denoise_is_kernel_d_on_card(esl_gt, monkeypatch):
+    """``process_scans`` of 12 scans and of 1: its filtered plane equal to
+    the plain versions on the card, 21 ``esl_denoise`` launches a call
+    whatever F, and on the device, inside the ``esl.denoise`` span, kernel
+    D's 21 kernels (the bilateral, then 20 TV iterations) and nothing else."""
+    from xmaps_tpu_torch.models import esl_pipeline
+    from xmaps_tpu_torch.ops.warmup import warmup_add_one
+    from xmaps_tpu_torch.utils.profiling import device_events
+
+    eng, scans, _, _ = esl_gt
+    for group in (scans, scans[:1]):
+        _build.reset_launch_counts()
+        planes = eng.process_scans(group)
+        assert _build.LAUNCHES["esl_denoise"] == 21
+        _bits_equal(planes.depth_optim_filtered.cuda(),
+                    _denoise_plain(planes.depth_optim.cuda(), **_denoise_params()))
+
+    tick = torch.zeros(8, dtype=torch.int32, device="cuda")
+    span = esl_pipeline.span
+
+    def marked_span(name, tag=None):
+        if name != "esl.denoise":
+            return span(name, tag)
+
+        @contextlib.contextmanager
+        def marked():
+            with span(name, tag):
+                warmup_add_one(tick)
+                yield
+                warmup_add_one(tick)
+        return marked()
+
+    monkeypatch.setattr(esl_pipeline, "span", marked_span)
+    for group in (scans, scans[:1]):
+        names = [e[0] for e in device_events(lambda: eng.process_scans(group), 1)]
+        marks = [i for i, n in enumerate(names) if "warmup_add_one" in n]
+        assert len(marks) == 2, names
+        inside = names[marks[0] + 1:marks[1]]
+        assert len(inside) == 21 and "esl_bilateral_kernel" in inside[0] and all(
+            "esl_tv_kernel" in n for n in inside[1:]), inside

@@ -1,5 +1,6 @@
-"""The port's eval filters (``xmaps_tpu_torch.utils.denoise``) vs the JAX
-package's (``xmaps_tpu.utils.denoise``), on the same seeded inputs.
+"""The port's eval filters (``xmaps_tpu_torch.utils.denoise``'s median, the
+plain versions of ESL's denoise in ``xmaps_tpu_torch.ops.esl_denoise``) vs
+the JAX package's (``xmaps_tpu.utils.denoise``), on the same seeded inputs.
 
 - ``median_blur_3x3``: exact.
 - ``bilateral_filter``: relative tolerance 1e-5.  ``exp`` differs between
@@ -18,6 +19,7 @@ torch = pytest.importorskip("torch")
 
 from xmaps_tpu.utils import denoise as jd  # noqa: E402
 
+from xmaps_tpu_torch.ops import esl_denoise as ed  # noqa: E402
 from xmaps_tpu_torch.utils import denoise as td  # noqa: E402
 
 torch.set_num_threads(1)
@@ -51,7 +53,7 @@ def test_median_blur_bit_equal(case):
 def test_bilateral_within_tolerance(shape):
     img = _depth(2, shape)
     want = np.asarray(jd.bilateral_filter(img, d=5, sigma_color=3.0, sigma_space=3.0))
-    got = td.bilateral_filter(torch.from_numpy(img), d=5, sigma_color=3.0, sigma_space=3.0)
+    got = ed.bilateral_filter(torch.from_numpy(img), d=5, sigma_color=3.0, sigma_space=3.0)
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=0)
 
@@ -60,7 +62,7 @@ def test_bilateral_within_tolerance(shape):
 def test_tv_denoise_within_tolerance(seed):
     img = _depth(seed)
     want = np.asarray(jd.tv_denoise_split_bregman(img, mu=0.5))
-    got = td.tv_denoise_split_bregman(torch.from_numpy(img), mu=0.5)
+    got = ed.tv_denoise_split_bregman(torch.from_numpy(img), mu=0.5)
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4)
     # the filter really smooths: not a copy of its input

@@ -35,7 +35,7 @@ from xmaps_tpu_torch.apps import eval_esl  # noqa: E402
 from xmaps_tpu_torch.calib.maps import CalibrationParams, CamProjMaps  # noqa: E402
 from xmaps_tpu_torch.models import esl_pipeline  # noqa: E402
 from xmaps_tpu_torch.models.esl_pipeline import GROUP_SCANS, ESLDepthEngine  # noqa: E402
-from xmaps_tpu_torch.utils.denoise import bilateral_filter, tv_denoise_split_bregman  # noqa: E402
+from xmaps_tpu_torch.ops.esl_denoise import bilateral_filter, tv_denoise_split_bregman  # noqa: E402
 from xmaps_tpu_torch.utils.synthetic import make_synthetic_calibration  # noqa: E402
 
 torch.set_num_threads(1)

@@ -186,7 +186,7 @@ def test_chain_refined_within_tolerance(chain):
         np.testing.assert_allclose(tf, jf, rtol=0, atol=0.1)
         assert np.median(np.abs(tf - jf)) < 1e-5
         # the port's filters on the JAX refinement: the filter tolerance
-        from xmaps_tpu_torch.utils.denoise import bilateral_filter, tv_denoise_split_bregman
+        from xmaps_tpu_torch.ops.esl_denoise import bilateral_filter, tv_denoise_split_bregman
 
         refiltered = tv_denoise_split_bregman(
             bilateral_filter(torch.from_numpy(want), d=5, sigma_color=3.0, sigma_space=3.0),

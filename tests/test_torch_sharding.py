@@ -498,7 +498,7 @@ def test_every_launch_goes_through_the_device_guard(monkeypatch):
         if path.name != "_build.py":
             assert "_build.load()" not in src and "cuda_stream" not in src, path.name
             sites += src.count("_build.launch(")
-    assert sites == 16
+    assert sites == 18
 
 
 # -- the apps ------------------------------------------------------------------

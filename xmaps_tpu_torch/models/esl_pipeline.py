@@ -23,7 +23,8 @@ on one device:
    card), each scan's empty pixels filled with 1 / its pixel (0, 0) as the
    eval does;
 4. denoise: the bilateral filter and the split-Bregman TV denoise over the
-   stack (``utils.denoise``);
+   stack (``ops.esl_denoise.esl_denoise``: 21 launches of kernel D on the
+   card);
 5. fetch: the planes into pinned host memory, then one synchronise.
 
 Steps 3 and 4 issue the same launches whatever F is, and every scan of a
@@ -48,6 +49,7 @@ import torch
 from xmaps_tpu_torch.calib.geometry import undistort_points
 from xmaps_tpu_torch.calib.maps import CalibrationParams, CamProjMaps, remap_nearest
 from xmaps_tpu_torch.models.depth_pipeline import resolve_device
+from xmaps_tpu_torch.ops.esl_denoise import esl_denoise
 from xmaps_tpu_torch.ops.esl_refine import constant_block, esl_refine
 from xmaps_tpu_torch.ops.esl_search import (
     box_search_args,
@@ -62,7 +64,6 @@ from xmaps_tpu_torch.ops.remap import (
     prepare_remap_static,
     upload,
 )
-from xmaps_tpu_torch.utils.denoise import bilateral_filter, tv_denoise_split_bregman
 from xmaps_tpu_torch.utils.stats import span
 
 __all__ = ["ESLDepthEngine", "ESLPlanes", "BILATERAL", "TV_DENOISE", "GROUP_SCANS", "MIN_DISP",
@@ -487,8 +488,7 @@ class ESLDepthEngine:
                     optim = depth_optimization_dense(planes[1], img, self.plan,
                                                      self.refine_iters)
                 with span("esl.denoise"):
-                    filtered = tv_denoise_split_bregman(bilateral_filter(optim, **BILATERAL),
-                                                        **TV_DENOISE)
+                    filtered = esl_denoise(optim, **BILATERAL, **TV_DENOISE)
                 planes += [optim, filtered]
             if fetch:
                 with span("esl.fetch"):

@@ -40,7 +40,7 @@ __all__ = ["load", "launch", "LAUNCHES", "reset_launch_counts", "check", "NVCC_F
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("events.cu", "tail.cu", "esl.cu", "remap.cu", "warmup.cu", "store_loop.cu",
-           "filters.cu", "esl_refine.cu")
+           "filters.cu", "esl_refine.cu", "esl_denoise.cu")
 HEADERS = ("common.cuh",)
 
 #: sm_90a for Hopper; no --use_fast_math: the f32 epilogue (p03/disp, the
@@ -67,6 +67,7 @@ LAUNCHES = {
     "frame_dedup_filter": 0,
     "frame_dedup_filter_group": 0,
     "esl_refine": 0,
+    "esl_denoise": 0,
 }
 
 _P = ctypes.c_void_p
@@ -182,6 +183,28 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P,  # depth0, filled camera image, rays x_n, y_n (H, W), constants
         _I, _I, _I, _I, _I, _I, _I, _I,  # F, H, W, w, window_size, Hp, Wp, iters
         _P,  # refined depth (F, H, W) out
+        _P,  # stream
+    ],
+    "esl_bilateral": [  # kernel D's bilateral over an (F, H, W) group
+        _P, _I, _I, _I, _I,  # depth, F, H, W, window half-width
+        _F, _F,  # inv2sc, inv2ss
+        _P,  # filtered (F, H, W) out
+        _P,  # stream
+    ],
+    "esl_tv_iteration": [  # kernel D's outer TV iteration over an (F, H, W) group
+        _P, _P, _P, _P,  # y, u, bx, by (the previous b; nullable: 0)
+        _I, _I, _I,  # F, H, W
+        _F, _F, _F, _F,  # mu, lam, thresh, diag
+        _I, _I,  # niter_inner, first iteration
+        _P, _P, _P,  # u, bx, by out (b nullable: not written)
+        _P,  # stream
+    ],
+    "esl_denoise_exp": [  # kernel D's weight function on n floats
+        _P, _L, _P,  # x, n, out
+        _P,  # stream
+    ],
+    "esl_denoise_quotient": [  # kernel D's division by d of n floats
+        _P, _L, _F, _P,  # x, n, d, out
         _P,  # stream
     ],
 }
